@@ -1,0 +1,288 @@
+"""The path-trace megakernel: the whole bounce loop in one kernel.
+
+Port of ``megakernel_path_trace`` (ipu_ray_lib_tpu/ops/pallas/
+megakernel.py:2638) in VMEM mode without an environment light. A pool of
+``R`` ray slots each serves ``K = J * spp`` paths: slot s owns the
+padded-stream pixels {s + j*R}, and its paths k = 0..K-1 run one after
+another — trace, shade, bank the radiance of a finished path into the
+slot's own accumulator column, regenerate the next camera path in place —
+until every slot is done or ``max_iters`` iterations pass.
+
+Two implementations with one contract:
+
+* the CUDA kernel (``ops/cuda/megakernel.cu``), one thread per slot, for
+  CUDA tensors — the main path;
+* :func:`megakernel_path_trace_ref`, a wavefront over all slots in plain
+  torch, for CPU tensors and for checking the kernel on the card.
+
+Both apply the same per-lane block cull and the same operation order,
+and draw the same counter-hash random numbers (ops/rng.py): path
+``k`` of slot ``s`` uses pid ``s*K_tot + j0*spp + k``; its camera jitter
+is ``normal2(pid, seed, 0xCA3)`` and its four shading draws at a bounce
+are ``uniform01(pid, bounce + 7 + seed, c)``, c = 0..3.
+
+The triangle walk: a lane tests the rows of every 128-row block whose
+AABB its slab admits, keeping the smallest t (strictly smaller replaces;
+the lowest row wins a tie), then re-derives the winner's barycentrics,
+rounds them to bf16 (as the reference does before the payload dot) and
+reads the shading normal N0 + (dN1*b1 + dN2*b2), albedo, type, ior and
+emission from the ``nrm`` table. Spheres and discs override a triangle
+hit only when strictly nearer.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from . import bxdf
+from .camera import CameraConsts, camera_consts, camera_ray
+from .intersect import (INF, analytic_hit, barycentrics, dense_rows,
+                        slab_admit, slab_inv)
+from .rng import normal2, uniform01
+from .tables import TB
+from .vec3 import add3, normalize3, scale3, where3
+
+_MASK = 0xFFFFFFFF
+
+# CUDA kernel launches made by megakernel_path_trace since the last reset
+# (the launch count that shows a run went through the kernel):
+launches = 0
+
+
+def reset_launches() -> None:
+    global launches
+    launches = 0
+
+
+def _valid_paths(slot: torch.Tensor, n_valid: int, R: int, J: int, j0: int,
+                 spp: int) -> torch.Tensor:
+    """Per-slot path budget: slot s serves padded-stream pixels
+    s + (j0 + j)*R, j < J; pixels >= n_valid are padding."""
+    q = torch.div(slot - n_valid, R, rounding_mode="floor")
+    return torch.clamp(-q - j0, 0, J) * spp
+
+
+def _accumulate_plain(scene, rows, cols, seed: int, n_valid: int, j0: int, *,
+                      R: int, J: int, spp: int, K_tot: int, max_iters: int,
+                      cam: CameraConsts, max_path_length: int,
+                      roulette_start_depth: int):
+    """Plain-torch twin of the kernel: returns (accum [J, 3, R] f32,
+    done [R] i64). Temporaries stay [128, R] per triangle block."""
+    dev = rows.device
+    f32 = torch.float32
+    K = J * spp
+    slot = torch.arange(R, device=dev, dtype=torch.int64)
+    k_cap = _valid_paths(slot, n_valid, R, J, j0, spp)
+    rows2, cols2 = rows.reshape(J, R), cols.reshape(J, R)
+    pid_base = slot * K_tot + j0 * spp
+    p, nrm, baabb, ap, apay = (scene.p, scene.nrm, scene.baabb, scene.ap,
+                               scene.apay)
+    nb = baabb.shape[0]
+    tri_iota = torch.arange(TB, device=dev, dtype=torch.int64)[:, None]
+
+    def camera(k):
+        j = torch.clamp(k // spp, max=J - 1)[None]
+        g1, g2 = normal2(pid_base + k, seed, 0xCA3)
+        return camera_ray(rows2.gather(0, j)[0], cols2.gather(0, j)[0],
+                          g1, g2, cam)
+
+    accum = torch.zeros(J * 3 * R, dtype=f32, device=dev)
+    done = torch.zeros(R, dtype=torch.int64, device=dev)
+    k = torch.zeros(R, dtype=torch.int64, device=dev)
+    bounce = torch.zeros_like(k)
+    active = k_cap > 0
+    o, d = camera(k)
+    tp = (torch.ones(R, dtype=f32, device=dev),) * 3
+    color = (torch.zeros(R, dtype=f32, device=dev),) * 3
+    zero = torch.zeros(R, dtype=f32, device=dev)
+
+    it = 0
+    while it < max_iters and bool(active.any()):
+        it += 1
+        o_mag = torch.maximum(torch.maximum(torch.abs(o[0]), torch.abs(o[1])),
+                              torch.abs(o[2]))
+        pid = pid_base + k
+
+        # ---- triangle walk over the blocks each lane's slab admits ----
+        best_t = torch.where(active, INF, -1.0)
+        best_row = torch.full((R,), -1, dtype=torch.int64, device=dev)
+        inv = slab_inv(d)
+        for blk in range(nb):
+            adm = slab_admit(o, inv, active, baabb[blk])
+            if not bool(adm.any()):
+                continue
+            t, ok = dense_rows(p[blk * TB:(blk + 1) * TB], o, d, o_mag)
+            tm = torch.where(ok & adm, t, INF)
+            bt = torch.amin(tm, dim=0)
+            bi = torch.amin(torch.where(tm <= bt, tri_iota, TB), dim=0)
+            better = (bt < best_t) & (bt < INF)
+            best_t = torch.where(better, bt, best_t)
+            best_row = torch.where(better, bi + blk * TB, best_row)
+
+        # ---- deferred payload of the winning triangle ----
+        has = best_row >= 0
+        row = torch.clamp_min(best_row, 0)
+        b1, b2 = barycentrics(p[row, 0:12], o, d)
+        b1b = b1.to(torch.bfloat16).to(f32)
+        b2b = b2.to(torch.bfloat16).to(f32)
+        c0 = (row // TB) * (3 * TB) + row % TB
+        seg0, seg1, seg2 = nrm[:, c0], nrm[:, c0 + TB], nrm[:, c0 + 2 * TB]
+        nxyz = tuple(seg0[c] + (seg1[c] * b1b + seg2[c] * b2b)
+                     for c in range(3))
+        pick = lambda v: torch.where(has, v, 0.0)
+        normal = normalize3(tuple(pick(v) for v in nxyz))
+        albedo = (pick(seg0[3]), pick(seg0[4]), pick(seg0[5]))
+        tpacked = torch.round(pick(seg1[3])).to(torch.int64)
+        ior = pick(seg1[4])
+        emission = (pick(seg1[5]), pick(seg1[6]), pick(seg1[7]))
+
+        # ---- spheres and discs: override only when strictly nearer ----
+        bt_ap, bi_ap = analytic_hit(ap, o, d, best_t)
+        pay = apay[:, bi_ap]                              # [16, R]
+        apb = bt_ap < best_t
+        best_t = torch.where(apb, bt_ap, best_t)
+        albedo = where3(apb, (pay[0], pay[1], pay[2]), albedo)
+        ior = torch.where(apb, pay[3], ior)
+        tpacked = torch.where(apb, torch.round(pay[4]).to(torch.int64),
+                              tpacked)
+        emission = where3(apb, (pay[5], pay[6], pay[7]), emission)
+        hit_ap = add3(o, scale3(d, best_t))
+        n_sph = normalize3(add3(hit_ap, scale3((pay[8], pay[9], pay[10]),
+                                               -1.0)))
+        n_ap = where3(pay[14] > 1.5, (pay[11], pay[12], pay[13]), n_sph)
+        normal = where3(apb, n_ap, normal)
+
+        # ---- shading ----
+        found = (best_t < 1e37) & (best_t > 0.0)
+        live = active & found
+        em_on = live & (tpacked >= 4)
+        color = add3(color, where3(em_on, (tp[0] * emission[0],
+                                           tp[1] * emission[1],
+                                           tp[2] * emission[2]),
+                                   (zero,) * 3))
+        rng_b = bounce + 7 + seed
+        u0, u1, u2, u3 = (uniform01(pid, rng_b, c) for c in range(4))
+        hit_p = add3(o, scale3(d, best_t))
+        d_diff = bxdf.sample_diffuse(normal, u0, u1)
+        d_spec = bxdf.reflect(d, normal)
+        d_diel, refracted = bxdf.dielectric(d, normal, ior, u2)
+        mtype = tpacked & 3
+        is_diff, is_spec = mtype == 0, mtype == 1
+        new_d = where3(is_diff, d_diff, where3(is_spec, d_spec, d_diel))
+        stp = live & (is_diff | is_spec | ((mtype == 2) & refracted))
+        tp = where3(stp, (tp[0] * albedo[0], tp[1] * albedo[1],
+                          tp[2] * albedo[2]), tp)
+        o = where3(live, bxdf.offset_origin(hit_p, normal, new_d), o)
+        d = where3(live, new_d, d)
+
+        # ---- russian roulette ----
+        p_r = torch.maximum(torch.maximum(tp[0], tp[1]), tp[2])
+        stop_r = (p_r == 0.0) | (u3 > p_r)
+        safe_p = torch.where(p_r == 0.0, 1.0, p_r)
+        use_roulette = bounce > roulette_start_depth
+        tp = where3(use_roulette & live & ~stop_r,
+                    (tp[0] / safe_p, tp[1] / safe_p, tp[2] / safe_p), tp)
+        killed = live & use_roulette & stop_r
+        escaped = active & ~found
+        bounce = bounce + 1
+        over = live & (bounce >= max_path_length)
+        term = escaped | killed | over
+
+        # ---- bank finished paths into the slot's accumulator column ----
+        if bool(term.any()):
+            ts = slot[term]
+            base = (k[term] // spp) * (3 * R) + ts
+            for c in range(3):
+                accum[base + c * R] += color[c][term]
+        done += term.to(torch.int64)
+        k = torch.where(term, torch.clamp(k + 1, max=K), k)
+        active = active & ~term
+        bounce = torch.where(term, 0, bounce)
+        color = where3(term, (zero,) * 3, color)
+
+        # ---- regenerate idle slots ----
+        spawn = ~active & (k < k_cap)
+        co, cd = camera(k)
+        o = where3(spawn, co, o)
+        d = where3(spawn, cd, d)
+        tp = where3(spawn, (torch.ones_like(zero),) * 3, tp)
+        active = active | spawn
+    return accum.reshape(J, 3, R), done
+
+
+def _accumulate_cuda(scene, rows, cols, seed: int, n_valid: int, j0: int, *,
+                     R: int, J: int, spp: int, K_tot: int, max_iters: int,
+                     cam: CameraConsts, max_path_length: int,
+                     roulette_start_depth: int):
+    """Launch the CUDA kernel; returns (accum [J, 3, R] f32, done [R] i32)."""
+    global launches
+    from .cuda.build import launch_megakernel
+
+    accum = torch.zeros((J, 3, R), dtype=torch.float32, device=rows.device)
+    done = torch.zeros(R, dtype=torch.int32, device=rows.device)
+    launch_megakernel(
+        scene, rows, cols, accum, done, seed=seed, n_valid=n_valid, j0=j0,
+        R=R, J=J, spp=spp, K_tot=K_tot, max_iters=max_iters, cam=cam,
+        max_path_length=max_path_length,
+        roulette_start_depth=roulette_start_depth)
+    launches += 1
+    return accum, done
+
+
+def _path_trace(accumulate, scene, rows, cols, seed, n_valid, *, params,
+                slots, j_per_slot, spp, max_iters, j0=0, k_total=None):
+    R, J = int(slots), int(j_per_slot)
+    if rows.shape != (R * J,) or cols.shape != (R * J,):
+        raise ValueError(f"rows/cols must be [{R * J}], got "
+                         f"{tuple(rows.shape)}, {tuple(cols.shape)}")
+    if rows.device != scene.device or cols.device != scene.device:
+        raise ValueError("rows, cols and the scene must share a device")
+    K_tot = J * spp if k_total is None else int(k_total)
+    accum, done = accumulate(
+        scene, rows.to(torch.float32).contiguous(),
+        cols.to(torch.float32).contiguous(), int(seed) & _MASK, int(n_valid),
+        int(j0), R=R, J=J, spp=int(spp), K_tot=K_tot,
+        max_iters=int(max_iters), cam=camera_consts(params),
+        max_path_length=int(params.max_path_length),
+        roulette_start_depth=int(params.roulette_start_depth))
+    # [J, 3, R] -> per-pixel [R*J, 3] (padded-stream pixel s + j*R at row
+    # j*R + s), averaged over spp:
+    flat = accum.permute(0, 2, 1).reshape(R * J, 3) * float(np.float32(1.0 / spp))
+    return flat, done.sum(dtype=torch.int64)
+
+
+def megakernel_path_trace_ref(scene, rows, cols, seed, n_valid, *, params,
+                              slots, j_per_slot, spp, max_iters, j0=0,
+                              k_total=None):
+    """Plain-torch version of :func:`megakernel_path_trace` (same
+    arguments, same result) on any device."""
+    return _path_trace(_accumulate_plain, scene, rows, cols, seed, n_valid,
+                       params=params, slots=slots, j_per_slot=j_per_slot,
+                       spp=spp, max_iters=max_iters, j0=j0, k_total=k_total)
+
+
+def megakernel_path_trace(scene, rows, cols, seed, n_valid, *, params,
+                          slots, j_per_slot, spp, max_iters, j0=0,
+                          k_total=None):
+    """Path-trace ``slots * j_per_slot`` padded-stream pixels at ``spp``.
+
+    rows/cols: [slots*j_per_slot] f32 pixel coordinates of the stream;
+    seed: u32 batch seed; n_valid: real pixel count of the stream;
+    j0/k_total: this dispatch serves stream rows [j0, j0+J) of a
+    k_total-paths-per-slot schedule (defaults: one dispatch).
+    Returns (flat [R*J, 3] f32 spp-averaged radiance, done i64 scalar
+    tensor: the number of finished paths).
+
+    CUDA tensors run the CUDA kernel (building it at first use; a failed
+    build or launch raises). CPU tensors run the plain version."""
+    dev = scene.device.type
+    if dev == "cuda":
+        accumulate = _accumulate_cuda
+    elif dev == "cpu":
+        accumulate = _accumulate_plain
+    else:
+        raise ValueError(f"unsupported device {scene.device}")
+    return _path_trace(accumulate, scene, rows, cols, seed, n_valid,
+                       params=params, slots=slots, j_per_slot=j_per_slot,
+                       spp=spp, max_iters=max_iters, j0=j0, k_total=k_total)

@@ -1,0 +1,41 @@
+"""Component-tuple vec3 helpers: a vec3 is a tuple of three tensors of one
+shape, as in the megakernel (megakernel.py:209-234). Every helper keeps
+the reference's operation order, so results round the same way."""
+
+from __future__ import annotations
+
+import torch
+
+
+def dot3(a, b):
+    return a[0] * b[0] + a[1] * b[1] + a[2] * b[2]
+
+
+def cross3(a, b):
+    return (a[1] * b[2] - a[2] * b[1],
+            a[2] * b[0] - a[0] * b[2],
+            a[0] * b[1] - a[1] * b[0])
+
+
+def inv_sqrt(x):
+    """1 / sqrt(max(x, 1e-30)) with an IEEE division: ``torch.rsqrt`` is
+    approximate on CUDA, and the kernel uses this same form."""
+    return torch.reciprocal(torch.sqrt(torch.clamp_min(x, 1e-30)))
+
+
+def normalize3(v):
+    il = inv_sqrt(dot3(v, v))
+    return (v[0] * il, v[1] * il, v[2] * il)
+
+
+def where3(m, a, b):
+    return (torch.where(m, a[0], b[0]), torch.where(m, a[1], b[1]),
+            torch.where(m, a[2], b[2]))
+
+
+def scale3(v, s):
+    return (v[0] * s, v[1] * s, v[2] * s)
+
+
+def add3(a, b):
+    return (a[0] + b[0], a[1] + b[1], a[2] + b[2])

@@ -1,0 +1,333 @@
+"""Scene compilation: SceneDescription -> tensors for the megakernel.
+
+Port of ``ipu_ray_lib_tpu/scene/build.py`` ``build_scene`` for the
+megakernel path. The host work (vertex rebasing, the geometry registry,
+the scene BVH whose leaf order sorts tri-only scenes, the blocked tables
+and the sphere/disc tables) is the JAX package's, in numpy; the result is
+a :class:`TorchScene` of tensors on the requested device and the same
+static :class:`SceneParams`.
+
+GeomID order matches the reference: meshes, then spheres, then discs.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass, fields
+
+import numpy as np
+import torch
+
+from ..bvh.builder import INVALID_GEOM_ID, build_bvh
+from ..ops.tables import build_blocked_tables
+from .types import CropWindow, SceneDescription
+
+# Scenes above this many triangles need the JAX package's HBM-streamed
+# walk, which this port has not reached yet (ROADMAP queue 1):
+VMEM_TABLE_MAX_TRIS = 65536
+
+# Render settings: the reference's defaults, which its benchmark uses.
+ANTI_ALIAS_SCALE = 0.25
+MAX_PATH_LENGTH = 10
+ROULETTE_START_DEPTH = 3
+RNG_SEED = 1442
+
+
+@dataclass(frozen=True)
+class SceneParams:
+    """Static scene/render metadata (same fields as the JAX package's)."""
+
+    num_bvh_nodes: int
+    bvh_max_depth: int
+    num_geoms: int
+    num_meshes: int
+    image_width: int
+    image_height: int
+    fov_radians: float
+    anti_alias_scale: float
+    max_path_length: int
+    roulette_start_depth: int
+    samples_per_pixel: int
+    rng_seed: int
+    window_w: int
+    window_h: int
+    window_c: int
+    window_r: int
+    path_trace: bool
+    intersector: str = "pallas"  # the one intersector ported so far
+
+
+@dataclass
+class TorchScene:
+    """Device tensors of one scene, as the megakernel reads them."""
+
+    p: torch.Tensor           # [nb*128, 16] f32 triangle rows
+    nrm: torch.Tensor         # [8, nb*384] f32 normal basis + material
+    baabb: torch.Tensor       # [nb, 8] f32 block AABBs
+    ap: torch.Tensor          # [P, 16] f32 sphere/disc geometry rows
+    apay: torch.Tensor        # [16, P] f32 sphere/disc payload columns
+
+    @property
+    def device(self) -> torch.device:
+        return self.p.device
+
+    @property
+    def num_blocks(self) -> int:
+        return self.baabb.shape[0]
+
+    @property
+    def n_ap(self) -> int:
+        return self.ap.shape[0]
+
+    def to(self, device) -> "TorchScene":
+        return TorchScene(**{f.name: getattr(self, f.name).to(device)
+                             for f in fields(self)})
+
+
+def analytic_tables(spheres, discs, sphere_geom, disc_geom, mat_id,
+                    mat_albedo, mat_ior, mat_type, mat_emissive,
+                    mat_emission):
+    """Pack spheres + discs into the kernel's two small tables (numpy f32;
+    port of ``_analytic_tables``, megakernel.py:2561): ap [P, 16] rows
+    (kind, centre, disc normal, r^2, disc plane offset) and apay [16, P]
+    columns (albedo, ior, type+4*emissive, emission, centre, disc normal,
+    kind). Padding rows have kind 0 and never hit."""
+    f32 = np.float32
+    sph = np.asarray(spheres, f32)
+    dsc = np.asarray(discs, f32)
+    S, D = sph.shape[0], dsc.shape[0]
+    P = -(-(S + D) // 8) * 8
+
+    def matp(geom_ids):
+        mid = np.asarray(mat_id)[np.clip(geom_ids, 0, len(mat_id) - 1)]
+        tpk = (np.asarray(mat_type)[mid]
+               + 4 * np.asarray(mat_emissive)[mid]).astype(f32)
+        return (np.asarray(mat_albedo, f32)[mid], np.asarray(mat_ior, f32)[mid],
+                tpk, np.asarray(mat_emission, f32)[mid])
+
+    ap = np.zeros((P, 16), f32)
+    apay = np.zeros((16, P), f32)
+
+    s_kind = np.where(sph[:, 3] > 0.0, f32(1.0), f32(0.0))
+    ap[:S, 0] = s_kind
+    ap[:S, 1:4] = sph[:, 0:3]
+    ap[:S, 7] = sph[:, 3] * sph[:, 3]
+    alb, ior, tpk, em = matp(np.asarray(sphere_geom))
+    apay[0:3, :S] = alb.T
+    apay[3, :S] = ior
+    apay[4, :S] = tpk
+    apay[5:8, :S] = em.T
+    apay[8:11, :S] = sph[:, 0:3].T
+    apay[14, :S] = s_kind
+
+    d_kind = np.where(dsc[:, 6] > 0.0, f32(2.0), f32(0.0))
+    ap[S:S + D, 0] = d_kind
+    ap[S:S + D, 1:4] = dsc[:, 3:6]
+    ap[S:S + D, 4:7] = dsc[:, 0:3]
+    ap[S:S + D, 7] = dsc[:, 6] * dsc[:, 6]
+    # Disc plane offset |c . n| (f32, summed left to right):
+    nc = dsc[:, 0:3] * dsc[:, 3:6]
+    ap[S:S + D, 8] = np.abs((nc[:, 0] + nc[:, 1]) + nc[:, 2])
+    alb, ior, tpk, em = matp(np.asarray(disc_geom))
+    apay[0:3, S:S + D] = alb.T
+    apay[3, S:S + D] = ior
+    apay[4, S:S + D] = tpk
+    apay[5:8, S:S + D] = em.T
+    apay[8:11, S:S + D] = dsc[:, 3:6].T
+    apay[11:14, S:S + D] = dsc[:, 0:3].T
+    apay[14, S:S + D] = d_kind
+    return ap, apay
+
+
+# Leaves of the JAX package's SceneArrays (and its BlockedSceneTables)
+# that a TorchScene is made from: the triangle tables go to the device as
+# they are; the sphere, disc and material leaves only feed ap/apay.
+_TABLES = ("p", "nrm", "baabb")
+_CARRIED = _TABLES + ("spheres", "discs", "mat_id", "mat_albedo",
+                      "mat_emission", "mat_ior", "mat_type", "mat_emissive",
+                      "sphere_geom", "disc_geom")
+
+
+def _from_leaves(leaves: dict[str, np.ndarray], device) -> TorchScene:
+    """Build a TorchScene from numpy leaves named as in ``_CARRIED``; the
+    sphere/disc tables are derived here."""
+    ap, apay = analytic_tables(
+        leaves["spheres"], leaves["discs"], leaves["sphere_geom"],
+        leaves["disc_geom"], leaves["mat_id"], leaves["mat_albedo"],
+        leaves["mat_ior"], leaves["mat_type"], leaves["mat_emissive"],
+        leaves["mat_emission"])
+    t = {k: torch.from_numpy(np.array(leaves[k])).to(device)
+         for k in _TABLES}
+    return TorchScene(ap=torch.from_numpy(ap).to(device),
+                      apay=torch.from_numpy(apay).to(device), **t)
+
+
+def from_jax_arrays(leaves: dict[str, np.ndarray], device) -> TorchScene:
+    """Carry a JAX ``SceneArrays`` across to the port.
+
+    ``leaves`` maps leaf names to numpy arrays: the SceneArrays fields and
+    the fields of its ``blocked`` tables flattened into one dict (as
+    ``{**arrays._asdict(), **arrays.blocked._asdict()}`` after
+    ``np.asarray``). Only the leaves the megakernel path reads are kept."""
+    missing = [k for k in _CARRIED if leaves.get(k) is None]
+    if missing:
+        raise KeyError(f"from_jax_arrays: missing leaves {missing}")
+    return _from_leaves({k: np.asarray(leaves[k]) for k in _CARRIED}, device)
+
+
+def _pad_rows(a: np.ndarray, min_rows: int = 1) -> np.ndarray:
+    """Ensure at least min_rows rows (zero-size arrays are awkward on device)."""
+    if len(a) >= min_rows:
+        return a
+    pad = np.zeros((min_rows - len(a),) + a.shape[1:], a.dtype)
+    return np.concatenate([a, pad]) if len(a) else pad
+
+
+def build_scene(
+    scene: SceneDescription,
+    *,
+    device: torch.device | str,
+    image_width: int = 768,
+    image_height: int = 432,
+    window: CropWindow | None = None,
+    samples_per_pixel: int = 256,
+) -> tuple[TorchScene, SceneParams]:
+    """Compile a SceneDescription into device tensors + static params.
+
+    Only the VMEM-class megakernel intersector (the reference's
+    ``"pallas"``) is ported; larger scenes raise."""
+    leaves, params = compile_scene(
+        scene, image_width=image_width, image_height=image_height,
+        window=window, samples_per_pixel=samples_per_pixel)
+    return _from_leaves(leaves, device), params
+
+
+def compile_scene(
+    scene: SceneDescription,
+    *,
+    image_width: int,
+    image_height: int,
+    window: CropWindow | None,
+    samples_per_pixel: int,
+) -> tuple[dict[str, np.ndarray], SceneParams]:
+    """The host half of :func:`build_scene`: the scene's numpy leaves,
+    named as the JAX package's (the blocked tables, including the
+    ``baabb32``/``tri_geom``/``tri_prim`` leaves no ported kernel reads
+    yet, and the sphere, disc and material arrays), and its params."""
+    scene.validate()
+
+    tri_list, vert_list, norm_list, mesh_first_tri = [], [], [], []
+    vert_base = tri_base = 0
+    for m in scene.meshes:
+        mesh_first_tri.append(tri_base)
+        t32 = m.triangles.astype(np.int32, copy=False)
+        tri_list.append(t32 + np.int32(vert_base) if vert_base else t32)
+        vert_list.append(m.vertices)
+        norm_list.append(m.normals if m.has_normals
+                         else np.zeros_like(m.vertices))
+        vert_base += len(m.vertices)
+        tri_base += len(m.triangles)
+    tri_v = (np.concatenate(tri_list) if tri_list
+             else np.zeros((0, 3), np.int32))
+    verts = (np.concatenate(vert_list) if vert_list
+             else np.zeros((0, 3), np.float32))
+    normals = (np.concatenate(norm_list) if norm_list
+               else np.zeros((0, 3), np.float32))
+    if len(tri_v) > VMEM_TABLE_MAX_TRIS:
+        raise ValueError(
+            f"{len(tri_v)} triangles: scenes above {VMEM_TABLE_MAX_TRIS} need "
+            "the HBM-streamed walk, which is not ported yet")
+
+    num_meshes, S, D = len(scene.meshes), len(scene.spheres), len(scene.discs)
+    num_geoms = num_meshes + S + D
+
+    # Scene BVH over every primitive (ref: src/app_utils.cpp:145-188); its
+    # DFS triangle-leaf order sorts the tables of tri-only scenes:
+    lo_list, hi_list, gid_list, pid_list = [], [], [], []
+    for gid, m in enumerate(scene.meshes):
+        lo, hi = m.triangle_bounds()
+        lo_list.append(lo)
+        hi_list.append(hi)
+        gid_list.append(np.full(len(lo), gid, np.int64))
+        pid_list.append(np.arange(len(lo), dtype=np.int64))
+    for i, s in enumerate(scene.spheres):
+        lo_list.append((s[:3] - s[3])[None])
+        hi_list.append((s[:3] + s[3])[None])
+        gid_list.append(np.array([num_meshes + i], np.int64))
+        pid_list.append(np.zeros(1, np.int64))
+    for i, d in enumerate(scene.discs):
+        lo_list.append((d[3:6] - d[6])[None])
+        hi_list.append((d[3:6] + d[6])[None])
+        gid_list.append(np.array([num_meshes + S + i], np.int64))
+        pid_list.append(np.zeros(1, np.int64))
+    bvh = build_bvh(np.concatenate(lo_list), np.concatenate(hi_list),
+                    np.concatenate(gid_list), np.concatenate(pid_list))
+
+    mats = scene.materials
+    mat_albedo = np.stack([m.albedo for m in mats]).astype(np.float32)
+    mat_emission = np.stack([m.emission for m in mats]).astype(np.float32)
+    mat_ior = np.array([m.ior for m in mats], np.float32)
+    mat_type = np.array([int(m.type) for m in mats], np.int32)
+    mat_emissive = np.array([1 if m.emissive else 0 for m in mats], np.int32)
+    mat_id = np.asarray(scene.mat_ids[:num_geoms], np.int32)
+
+    tri_geom_ids = np.concatenate(
+        [np.full(len(m.triangles), g, np.int32)
+         for g, m in enumerate(scene.meshes)] or [np.zeros(0, np.int32)])
+    tri_prim_ids = np.concatenate(
+        [np.arange(len(m.triangles), dtype=np.int32)
+         for m in scene.meshes] or [np.zeros(0, np.int32)])
+    tri_has_normals = np.concatenate(
+        [np.full(len(m.triangles), bool(m.has_normals))
+         for m in scene.meshes] or [np.zeros(0, bool)])
+
+    # Tri-only scenes reuse the scene BVH's leaf order (bitwise the order a
+    # tri-only SAH build gives); mixed scenes run the tables' own build:
+    tri_order = None
+    if len(tri_v) and not (S or D):
+        leaf = bvh.geom != INVALID_GEOM_ID
+        lg = bvh.geom[leaf].astype(np.int64)
+        lp = bvh.meta[leaf].astype(np.int64)
+        tri_leaf = lg < num_meshes
+        tri_order = (np.asarray(mesh_first_tri, np.int64)[lg[tri_leaf]]
+                     + lp[tri_leaf])
+
+    blocked = build_blocked_tables(
+        tri_v, verts if len(verts) else np.zeros((1, 3), np.float32),
+        tri_geom_ids, tri_prim_ids,
+        vert_normals=normals if len(normals) else None,
+        tri_has_normals=tri_has_normals,
+        tri_mat=mat_id[tri_geom_ids] if len(tri_geom_ids) else None,
+        mat_albedo=mat_albedo, mat_ior=mat_ior, mat_type=mat_type,
+        mat_emission=mat_emission, mat_emissive=mat_emissive,
+        tri_order=tri_order)
+
+    leaves = dict(blocked._asdict())
+    leaves.update(
+        spheres=_pad_rows(scene.spheres), discs=_pad_rows(scene.discs),
+        mat_id=_pad_rows(mat_id), mat_albedo=_pad_rows(mat_albedo),
+        mat_emission=_pad_rows(mat_emission), mat_ior=_pad_rows(mat_ior),
+        mat_type=_pad_rows(mat_type), mat_emissive=_pad_rows(mat_emissive),
+        sphere_geom=num_meshes + np.arange(max(S, 1), dtype=np.int32),
+        disc_geom=num_meshes + S + np.arange(max(D, 1), dtype=np.int32))
+
+    win = window or CropWindow(image_width, image_height, 0, 0)
+    params = SceneParams(
+        num_bvh_nodes=bvh.num_nodes,
+        bvh_max_depth=bvh.max_depth,
+        num_geoms=num_geoms,
+        num_meshes=num_meshes,
+        image_width=image_width,
+        image_height=image_height,
+        fov_radians=float(scene.camera.horizontal_fov),
+        anti_alias_scale=ANTI_ALIAS_SCALE,
+        max_path_length=MAX_PATH_LENGTH,
+        roulette_start_depth=ROULETTE_START_DEPTH,
+        samples_per_pixel=int(samples_per_pixel),
+        rng_seed=RNG_SEED,
+        window_w=win.w,
+        window_h=win.h,
+        window_c=win.c,
+        window_r=win.r,
+        path_trace=scene.path_trace is not None,
+    )
+    return leaves, params
