@@ -1,36 +1,57 @@
 #!/usr/bin/env python3
 """GPU smoke test of the PyTorch + CUDA port (ipu_ray_lib_tpu_torch).
 
-Drives the port's main path on one CUDA card — the Cornell box with the
-monkey plinth, 1440x1440 at 64 spp, through ``build_scene`` ->
-``render_streaming`` — after checking its kernel against the plain torch
-version and the golden image. Run from the repository root:
+Drives the port's two main paths on one CUDA card through ``build_scene``
+-> ``render_streaming``, after checking every kernel against its plain
+torch version:
+
+* the Cornell box with the monkey plinth, 1440x1440 at 64 spp (kernel
+  K1, ``ops/cuda/megakernel.cu``);
+* the spheres + NIF environment-light flagship: ``make_primitive_scene``
+  lit by ``assets/nif/synthetic_urban_4k``, 512x512 at 64 spp (K1 in
+  record mode, the env MLP ``ops/cuda/env_mlp.cu`` and the bank kernel).
+
+Run from the repository root:
 
     python3 chip_smoke.py            # the full check (one card)
     python3 chip_smoke.py --quick    # build + small-scene checks only
 
 Phases (any failed check raises, so the exit code is non-zero):
-  1. card identity (nvidia-smi name, power limit); nvcc build of the kernel;
-  2. kernel vs plain version on the card, rtol = atol = 1e-5:
+  1. card identity (nvidia-smi name, power limit); nvcc build of every
+     kernel source (one nvcc per source, in parallel);
+  2. Cornell, kernel vs plain version on the card, rtol = atol = 1e-5:
      golden scene 48x32 spp 2 (also vs tests/golden/box48x32_spp2.npy,
      done == 3072); Cornell + monkey 64x64 spp 4;
-     Cornell + monkey at the main path's slot pool (1440^2 stream,
-     R = 131072, J = 16) with spp 1 per slot — spp is the one cut there;
-     the main path's own 64-spp pixels are checked in phase 3;
-  3. main path at full size: one warm-up and three timed renders
+  3. spheres + NIF, kernel route vs plain route, rtol = atol = 1e-5 and
+     ``done`` exact: 48x32 spp 2 (also vs
+     tests/golden/spheres_nif48x32_spp2.npy, held to the CPU test's
+     tolerance) and 64x64 spp 4; the env MLP kernel vs its plain version
+     on 65,536 seeded directions, bit for bit;
+     (--quick stops here)
+  4. Cornell + monkey at the main path's slot pool (1440^2 stream,
+     R = 131072, J = 16) with spp 1 per slot — spp is the one cut there —
+     which also counts the walk's (segment, block) pairs for K1's bound;
+  5. Cornell main path at full size: one warm-up and three timed renders
      (torch.cuda.synchronize), done == 1440^2 * 64, finite image, image
      mean within 15% of the plain version's 64x64 mean; then the kernel
      alone at the same shapes, three times, with CUDA events; then the
      main path's image on the pixels of its first 256 slots (4,096
      pixels, all 64 samples each) against the kernel and the plain
      version replaying those slots, rtol = atol = 1e-5;
-  4. plain vs kernel time at 256^2 spp 4, in turns (plain, kernel,
-     kernel, plain).
-Before the last two lines: a JSON object with the kernel's launches on
-the main path, its largest deviation from the plain version, both times
-at the main path's slot pool with spp 1 (``ms``, ``plain_ms``) and the
-main path's own launch time (``main_ms``); then the card's nvidia-smi
-line. The last line is the JSON status object.
+  6. plain vs kernel time at 256^2 spp 4, in turns (plain, kernel,
+     kernel, plain);
+  7. the flagship, spheres + NIF at 512^2 spp 64: kernel route vs plain
+     route at its slot pool (R = 131072, J = 2) with spp 4, which also
+     counts its segments for K1's bound, and the bank kernel vs its plain
+     version on those records, bit for bit; then one warm-up and three
+     timed renders with the env, three without (same trajectories), done
+     == 512^2 * 64, finite image; the three kernels alone with CUDA
+     events; the plain env MLP and a torch.matmul chain (the library
+     yardstick, never called by the port) on 65,536 directions.
+Before the last two lines: a JSON object with each kernel's launches on
+its main path, its largest deviation from its plain version, its times
+and its bound (the least time the card could take for the same work);
+then the card's nvidia-smi line. The last line is the JSON status object.
 Exits non-zero, printing no result, when no CUDA device is available.
 """
 
@@ -49,6 +70,30 @@ import torch  # noqa: E402
 ROOT = os.path.dirname(os.path.abspath(__file__))
 TOL = 1e-5
 FULL, SPP = 1440, 64
+NIF_SIZE, NIF_SPP = 512, 64
+NIF_DIR = os.path.join(ROOT, "assets", "nif", "synthetic_urban_4k")
+ENV_DIRS = 65536      # seeded directions of the env MLP checks
+
+# The spheres + urban_4k golden is the JAX package's jitted render; the
+# port holds it to the split tolerance of tests/test_torch_env.py
+# (test_render_holds_spheres_nif_golden): at least this share of the
+# elements within rtol 1e-2, all within rtol 5e-2, and the image mean
+# within 5e-4 relative.
+GOLDEN_NIF_WITHIN_1E2 = 0.98
+GOLDEN_NIF_MAX_REL = 5e-2
+GOLDEN_NIF_MEAN_REL = 5e-4
+
+# Card peaks for the bounds (NVIDIA's H100 SXM data sheet, dense, at 700 W):
+PEAK_F32 = 67e12          # FLOP/s on the CUDA cores
+PEAK_BF16 = 989e12        # FLOP/s on the tensor cores
+PEAK_BYTES = 3.35e12      # HBM bytes/s
+# f32 add/sub/mul/div of one test, counted from ops/cuda/megakernel.cu
+# (compares, min/max and selects not counted, so the bound stays low):
+ROW_TEST_FLOPS = 49   # row_chain 42 (6 dots of 5, recip 4, t 2, b1/b2 6)
+#                       + acceptance 7 (et 2, eps 3, b1+b2 and 1+eps 2)
+AP_TEST_FLOPS = 45    # one sphere/disc row: oc 3, tca 5, l2 7, td 2, t 2,
+#                       dn 5, on 5, t_dsc 2, h 9, d2 5
+REC_BYTES = 40        # one path record, f32 x 10
 
 
 def log(*a):
@@ -70,6 +115,24 @@ def timed(fn):
     return out, time.perf_counter() - t0
 
 
+def event_ms(fn, reps: int = 3) -> tuple[list[float], object]:
+    """CUDA-event times (ms) of ``reps`` calls, and the last result."""
+    out, ms = None, []
+    for _ in range(reps):
+        ev0 = torch.cuda.Event(enable_timing=True)
+        ev1 = torch.cuda.Event(enable_timing=True)
+        ev0.record()
+        out = fn()
+        ev1.record()
+        torch.cuda.synchronize()
+        ms.append(ev0.elapsed_time(ev1))
+    return ms, out
+
+
+def median(xs):
+    return sorted(xs)[len(xs) // 2]
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
@@ -77,6 +140,8 @@ def main() -> int:
         return 1
     quick = "--quick" in sys.argv[1:]
 
+    from ipu_ray_lib_tpu_torch.nif.model import load_nif_env
+    from ipu_ray_lib_tpu_torch.ops import env as envk
     from ipu_ray_lib_tpu_torch.ops import megakernel as mk
     from ipu_ray_lib_tpu_torch.ops.cuda import build as cuda_build
     from ipu_ray_lib_tpu_torch.render.streaming import (
@@ -84,7 +149,8 @@ def main() -> int:
         render_streaming, slot_pool)
     from ipu_ray_lib_tpu_torch.runtime.device import cuda_device, gpu_identity
     from ipu_ray_lib_tpu_torch.scene.build import build_scene
-    from ipu_ray_lib_tpu_torch.scene.builtin import make_cornell_box_scene
+    from ipu_ray_lib_tpu_torch.scene.builtin import (make_cornell_box_scene,
+                                                     make_primitive_scene)
 
     dev = cuda_device(0)
     identity = gpu_identity()
@@ -99,7 +165,7 @@ def main() -> int:
     log(cuda_build.build_info.get("log", ""))
 
     mesh = os.path.join(ROOT, "assets", "monkey_bust.glb")
-    max_err = 0.0
+    err = {"k1": 0.0, "k1_rec": 0.0, "env": 0.0, "bank": 0.0}
 
     def stream(params, chunk=1 << 17):
         rows_np, cols_np, _ = _pixel_stream(params)
@@ -114,41 +180,41 @@ def main() -> int:
         return int((~np.isclose(a, b, rtol=TOL, atol=TOL)).any(axis=1).sum())
 
     def compare(name, scene, params, rows, cols, R, J, n_valid, spp,
-                seed=1442):
-        """Kernel and plain version on the same stream and seed (one
+                seed=1442, env=None, stats=None, key="k1"):
+        """Kernel route and plain route on the same stream and seed (one
         dispatch of K = J*spp paths per slot)."""
-        nonlocal max_err
         kw = dict(params=params, slots=R, j_per_slot=J, spp=spp,
-                  max_iters=J * spp * params.max_path_length + 16)
+                  max_iters=J * spp * params.max_path_length + 16, env=env)
         (fk, dk), t_k = timed(lambda: mk.megakernel_path_trace(
             scene, rows, cols, seed, n_valid, **kw))
         (fp, dp), t_p = timed(lambda: mk.megakernel_path_trace_ref(
-            scene, rows, cols, seed, n_valid, **kw))
+            scene, rows, cols, seed, n_valid, stats=stats, **kw))
         fk, fp = fk.cpu().numpy(), fp.cpu().numpy()
-        bad, err = close_count(fk, fp)
-        max_err = max(max_err, err)
+        bad, e = close_count(fk, fp)
+        err[key] = max(err[key], e)
         log(f"[{name}] R={R} J={J} spp={spp}: kernel {t_k:.3f} s, plain "
             f"{t_p:.3f} s, done {int(dk)}/{int(dp)}, mismatched pixels "
-            f"{bad_pixels(fk, fp)} of {R * J}, max |diff| {err:.3g}")
+            f"{bad_pixels(fk, fp)} of {R * J}, max |diff| {e:.3g}")
         if bad or int(dk) != int(dp):
             raise AssertionError(f"{name}: kernel disagrees with plain "
                                  f"({bad} elements, done {int(dk)} vs {int(dp)})")
         return fk, fp, t_k, t_p
 
-    def kernel_vs_plain(name, scene, params, spp):
+    def kernel_vs_plain(name, scene, params, spp, **kw):
         rows, cols, R, J, n_pix = stream(params)
-        return compare(name, scene, params, rows, cols, R, J, n_pix, spp)
+        return compare(name, scene, params, rows, cols, R, J, n_pix, spp,
+                       **kw)
 
-    # ---- 2. kernel vs plain, and vs the golden ----
+    # ---- 2. Cornell: kernel vs plain, and vs the golden ----
     gs, gp = build_scene(make_cornell_box_scene(None, box_only=False),
                          device=dev, image_width=48, image_height=32,
                          samples_per_pixel=2)
     kernel_vs_plain("golden 48x32", gs, gp, 2)
     golden = np.load(os.path.join(ROOT, "tests", "golden", "box48x32_spp2.npy"))
     rgb, done = render_streaming(gs, gp)
-    bad, err = close_count(rgb, golden)
+    bad, e = close_count(rgb, golden)
     log(f"[golden 48x32] render_streaming vs golden: {bad} elements "
-        f"outside 1e-5, max |diff| {err:.3g}, done {done}")
+        f"outside 1e-5, max |diff| {e:.3g}, done {done}")
     if bad or done != 48 * 32 * 2:
         raise AssertionError("golden image mismatch")
 
@@ -158,26 +224,67 @@ def main() -> int:
     _, f64, _, _ = kernel_vs_plain("monkey 64x64", ms, mp, 4)
     small_mean = float(f64[:64 * 64].mean())
 
+    # ---- 3. spheres + NIF: kernel route vs plain route, golden, env MLP ----
+    env = load_nif_env(NIF_DIR, device=dev)
+    ns, np_ = build_scene(make_primitive_scene(), device=dev, image_width=48,
+                          image_height=32, samples_per_pixel=2)
+    kernel_vs_plain("spheres+NIF 48x32", ns, np_, 2, env=env, key="k1_rec")
+    nif_golden = np.load(os.path.join(ROOT, "tests", "golden",
+                                      "spheres_nif48x32_spp2.npy"))
+    rgb, done = render_streaming(ns, np_, env=env)
+    rel = np.abs(rgb - nif_golden) / np.maximum(np.abs(nif_golden), 1e-30)
+    bad, _ = close_count(rgb, nif_golden)
+    within = float((rel <= 1e-2).mean())
+    mean_rel = abs(float(rgb.mean()) / float(nif_golden.mean()) - 1.0)
+    log(f"[spheres+NIF golden 48x32] render_streaming vs golden: {bad} of "
+        f"{rgb.size} elements outside 1e-5, {within:.4f} within rtol 1e-2, "
+        f"max rel {rel.max():.4g}, mean rel {mean_rel:.3g}, done {done}")
+    if (done != 48 * 32 * 2 or within < GOLDEN_NIF_WITHIN_1E2
+            or rel.max() > GOLDEN_NIF_MAX_REL
+            or mean_rel > GOLDEN_NIF_MEAN_REL):
+        raise AssertionError("spheres+NIF golden outside the CPU test's "
+                             "tolerance")
+    n6, p6 = build_scene(make_primitive_scene(), device=dev, image_width=64,
+                         image_height=64, samples_per_pixel=4)
+    kernel_vs_plain("spheres+NIF 64x64", n6, p6, 4, env=env, key="k1_rec")
+
+    rng = np.random.default_rng(7)
+    dirs_np = rng.normal(size=(ENV_DIRS, 3)).astype(np.float32)
+    dirs_np /= np.linalg.norm(dirs_np, axis=1, keepdims=True)
+    dirs = torch.from_numpy(dirs_np).to(dev)
+    env_k, t_ek = timed(lambda: envk.env_mlp(dirs, env))
+    env_p, t_ep = timed(lambda: envk.env_mlp_ref(dirs, env))
+    same = torch.equal(env_k, env_p)
+    e = float((env_k - env_p).abs().max())
+    err["env"] = max(err["env"], e)
+    log(f"[env MLP, {ENV_DIRS} directions] kernel {t_ek:.4f} s, plain "
+        f"{t_ep:.3f} s, bit for bit {same}, max |diff| {e:.3g}, finite "
+        f"{bool(torch.isfinite(env_k).all())}")
+    if not same:
+        raise AssertionError("env MLP kernel disagrees with its plain version")
+
+    if quick:
+        log("quick mode: stopping before the full-size phases")
+        return 0
+
+    # ---- 4. Cornell main path's slot pool at spp 1 (+ walk counts) ----
     scene, params = build_scene(make_cornell_box_scene(mesh, box_only=False),
                                 device=dev, image_width=FULL,
                                 image_height=FULL, samples_per_pixel=SPP)
     log(f"bench scene: {scene.p.shape[0]} triangle rows in "
         f"{scene.num_blocks} blocks, {scene.n_ap} sphere/disc rows")
-    if quick:
-        log("quick mode: stopping before the full-size phases")
-        return 0
-
+    walk = {}
     _, _, k_main, p_main = kernel_vs_plain("monkey 1440^2 pool", scene,
-                                           params, 1)
+                                           params, 1, stats=walk)
 
-    # ---- 3. main path at full size ----
+    # ---- 5. Cornell main path at full size ----
     mk.reset_launches()
     (rgb, done), t_warm = timed(lambda: render_streaming(scene, params))
     times = []
     for _ in range(3):
         (rgb, done), t = timed(lambda: render_streaming(scene, params))
         times.append(t)
-    launches = mk.launches
+    k1_launches = mk.launches
     paths = FULL * FULL * SPP
     best = min(times)
     finite = bool(np.isfinite(rgb).all())
@@ -185,14 +292,15 @@ def main() -> int:
     log(f"[main] {FULL}^2 spp {SPP}: warm-up {t_warm:.3f} s, runs "
         f"{', '.join(f'{t:.3f}' for t in times)} s; best {best:.3f} s = "
         f"{paths / best / 1e6:.2f} M paths/s; mean {mean:.6f} (64x64 plain "
-        f"{small_mean:.6f}); done {done}; finite {finite}; launches {launches}")
+        f"{small_mean:.6f}); done {done}; finite {finite}; launches "
+        f"{k1_launches}")
     if done != paths:
         raise AssertionError(f"done {done} != {paths}")
     if rgb.shape != (FULL, FULL, 3) or not finite:
         raise AssertionError("full-size image has the wrong shape or non-finite values")
     if abs(mean - small_mean) > 0.15 * small_mean:
         raise AssertionError("full-size image mean far from the small render's")
-    if launches < 1:
+    if k1_launches < 1:
         raise AssertionError("main path launched no kernel")
 
     # Kernel alone at the main path's shapes (CUDA events; the one launch
@@ -200,20 +308,21 @@ def main() -> int:
     rows, cols, R, J, n_pix = stream(params)
     kw = dict(params=params, slots=R, j_per_slot=J, spp=SPP,
               max_iters=J * SPP * params.max_path_length + 16, k_total=J * SPP)
-    k_ms = []
-    for _ in range(3):
-        ev0 = torch.cuda.Event(enable_timing=True)
-        ev1 = torch.cuda.Event(enable_timing=True)
-        ev0.record()
-        mk.megakernel_path_trace(scene, rows, cols, params.rng_seed, n_pix, **kw)
-        ev1.record()
-        torch.cuda.synchronize()
-        k_ms.append(ev0.elapsed_time(ev1))
-    main_ms = sorted(k_ms)[1]
-    pool_shape = f"main path's slot pool (R={R}, J={J}) at spp 1"
+    k_ms, _ = event_ms(lambda: mk.megakernel_path_trace(
+        scene, rows, cols, params.rng_seed, n_pix, **kw))
+    main_ms = median(k_ms)
     log(f"[main] kernel alone (CUDA events): "
         f"{', '.join(f'{t:.2f}' for t in k_ms)} ms; median end to end "
-        f"{sorted(times)[1] * 1e3:.2f} ms")
+        f"{median(times) * 1e3:.2f} ms")
+    # K1's bound: the (segment, block) pairs and segments the plain version
+    # counted at the pool with spp 1, scaled to spp 64:
+    k1_ops = SPP * (walk["block_tests"] * 128 * ROW_TEST_FLOPS
+                    + walk["segments"] * scene.n_ap * AP_TEST_FLOPS)
+    k1_bound_ms = k1_ops / PEAK_F32 * 1e3
+    log(f"[K1 bound] spp 1 pool: {walk['segments']} segments, "
+        f"{walk['block_tests']} admitted (segment, block) pairs; x{SPP}: "
+        f"{k1_ops:.4g} f32 FLOP -> {k1_bound_ms:.2f} ms at 67 TFLOP/s "
+        f"(kernel {main_ms:.2f} ms)")
 
     # The main path's own pixels at spp 64, held against both versions.
     # A path's pid (slot*K_tot + k) and its pixels do not depend on the
@@ -226,50 +335,209 @@ def main() -> int:
     idx = (np.arange(J)[:, None] * R + np.arange(SUB)[None]).ravel()
     want = rgb.reshape(-1, 3)[_pixel_stream(params)[2][idx]]
     sub_k, sub_p, _, _ = compare(
-        "monkey 1440^2 main path, first 256 slots", scene, params,
+        f"monkey 1440^2 main path, first {SUB} slots", scene, params,
         rows[torch.from_numpy(idx).to(dev)],
         cols[torch.from_numpy(idx).to(dev)], SUB, J, SUB * J, SPP,
         seed=params.rng_seed)
     for what, got in (("kernel", sub_k), ("plain", sub_p)):
-        bad, err = close_count(got, want)
-        max_err = max(max_err, err)
+        bad, e = close_count(got, want)
+        err["k1"] = max(err["k1"], e)
         log(f"[main path pixels] {what} on {SUB} slots vs the main path's "
             f"image: {bad_pixels(got, want)} of {SUB * J} pixels differ, "
-            f"max |diff| {err:.3g}")
+            f"max |diff| {e:.3g}")
         if bad:
             raise AssertionError(f"main-path pixels disagree with the {what} "
                                  f"version ({bad} elements)")
 
-    # ---- 4. plain vs kernel time at 256^2 spp 4 (plain, kernel, kernel, plain) ----
+    # ---- 6. plain vs kernel time at 256^2 spp 4 (plain, kernel, kernel, plain) ----
     ss, sp = build_scene(make_cornell_box_scene(mesh, box_only=False),
                          device=dev, image_width=256, image_height=256,
                          samples_per_pixel=4)
-    rows, cols, R, J, n_pix = stream(sp)
-    kw = dict(params=sp, slots=R, j_per_slot=J, spp=4,
-              max_iters=J * 4 * sp.max_path_length + 16)
+    rows6, cols6, R6, J6, n6_pix = stream(sp)
+    kw6 = dict(params=sp, slots=R6, j_per_slot=J6, spp=4,
+               max_iters=J6 * 4 * sp.max_path_length + 16)
     t_p, t_k = [], []
     for fn, acc in ((mk.megakernel_path_trace_ref, t_p),
                     (mk.megakernel_path_trace, t_k),
                     (mk.megakernel_path_trace, t_k),
                     (mk.megakernel_path_trace_ref, t_p)):
-        _, t = timed(lambda: fn(ss, rows, cols, 1442, n_pix, **kw))
+        _, t = timed(lambda: fn(ss, rows6, cols6, 1442, n6_pix, **kw6))
         acc.append(t)
     log(f"[256^2 spp 4] plain {', '.join(f'{t:.3f}' for t in t_p)} s; "
         f"kernel {', '.join(f'{t:.4f}' for t in t_k)} s")
 
-    log(json.dumps({"kernels": [{
-        "name": "megakernel_path_trace",
-        "route": "cuda",
-        "source": "ipu_ray_lib_tpu_torch/ops/cuda/megakernel.cu",
-        "replaces": "ipu_ray_lib_tpu/ops/pallas/megakernel.py:329",
-        "launches": launches,
-        "max_abs_err": max_err,
-        "ms": k_main * 1e3,
-        "plain_ms": p_main * 1e3,
-        "ms_shape": pool_shape,
-        "main_ms": main_ms,
-        "main_shape": f"main path's launch, {FULL}^2 spp {SPP}, CUDA events",
-    }]}))
+    # ---- 7. the flagship: spheres + NIF at 512^2 spp 64 ----
+    fs, fp = build_scene(make_primitive_scene(), device=dev,
+                         image_width=NIF_SIZE, image_height=NIF_SIZE,
+                         samples_per_pixel=NIF_SPP)
+    f_paths = NIF_SIZE * NIF_SIZE * NIF_SPP
+    # Kernel route vs plain route at the flagship's pool with spp 4 (and
+    # the plain version's segment count for K1's bound):
+    fwalk = {}
+    rows7, cols7, R7, J7, n7_pix = stream(fp)
+    CUT = 4
+    compare(f"spheres+NIF {NIF_SIZE}^2 pool", fs, fp, rows7, cols7, R7, J7,
+            n7_pix, CUT, env=env, stats=fwalk, key="k1_rec")
+    # Record mode alone at that shape, kernel (CUDA events) and plain:
+    kw_cut = dict(params=fp, slots=R7, j_per_slot=J7, spp=CUT,
+                  max_iters=J7 * CUT * fp.max_path_length + 16)
+    k_rec_cut, _ = event_ms(lambda: mk.trace_records(
+        fs, rows7, cols7, 1442, n7_pix, **kw_cut))
+    _, p_rec_cut = timed(lambda: mk._trace(
+        mk._accumulate_plain, fs, rows7, cols7, 1442, n7_pix, record=True,
+        **kw_cut))
+    log(f"[spheres+NIF {NIF_SIZE}^2 pool] record mode alone at spp {CUT}: "
+        f"kernel {', '.join(f'{t:.2f}' for t in k_rec_cut)} ms, plain "
+        f"{p_rec_cut:.3f} s")
+    kw7 = dict(params=fp, slots=R7, j_per_slot=J7, spp=NIF_SPP,
+               max_iters=J7 * NIF_SPP * fp.max_path_length + 16,
+               k_total=J7 * NIF_SPP)
+    if J7 * NIF_SPP > MAX_K_PER_DISPATCH or NIF_SPP > SPP_BATCH:
+        raise AssertionError("the flagship no longer runs one spp batch")
+
+    mk.reset_launches()
+    envk.reset_launches()
+    (frgb, fdone), t_warm = timed(lambda: render_streaming(fs, fp, env=env))
+    f_times = []
+    for _ in range(3):
+        (frgb, fdone), t = timed(lambda: render_streaming(fs, fp, env=env))
+        f_times.append(t)
+    launches = {"k1_rec": mk.launches, "env": envk.launches,
+                "bank": mk.bank_launches}
+    f_finite = bool(np.isfinite(frgb).all())
+    f_best = min(f_times)
+    log(f"[flagship] spheres+NIF {NIF_SIZE}^2 spp {NIF_SPP}: warm-up "
+        f"{t_warm:.3f} s, runs {', '.join(f'{t:.3f}' for t in f_times)} s; "
+        f"best {f_best:.3f} s = {f_paths / f_best / 1e6:.2f} M paths/s; mean "
+        f"{float(frgb.mean()):.6f}; done {fdone}; finite {f_finite}; "
+        f"launches {launches}")
+    if fdone != f_paths:
+        raise AssertionError(f"flagship done {fdone} != {f_paths}")
+    if frgb.shape != (NIF_SIZE, NIF_SIZE, 3) or not f_finite:
+        raise AssertionError("flagship image has the wrong shape or "
+                             "non-finite values")
+    if min(launches.values()) < 1:
+        raise AssertionError(f"the flagship skipped a kernel: {launches}")
+    nv_times = []
+    for _ in range(3):
+        _, t = timed(lambda: render_streaming(fs, fp))
+        nv_times.append(t)
+    log(f"[flagship] without env (same trajectories): "
+        f"{', '.join(f'{t:.3f}' for t in nv_times)} s; the env costs "
+        f"{(median(f_times) - median(nv_times)) * 1e3:.1f} ms per frame "
+        f"(medians)")
+
+    # The three kernels alone at the flagship's shapes (CUDA events):
+    rec_ms, (rec, fdone_t) = event_ms(lambda: mk.trace_records(
+        fs, rows7, cols7, fp.rng_seed, n7_pix, **kw7))
+    esc = mk.escaped_records(rec, fdone_t)
+    fdirs = rec[7:10][:, esc].t().contiguous()
+    n_esc = int(fdirs.shape[0])
+    mlp_ms, frgb_esc = event_ms(lambda: envk.env_mlp(fdirs, env))
+    rec[7:10][:, esc] = frgb_esc.t()
+    bank_ms, _ = event_ms(lambda: mk.bank(rec, fdone_t, NIF_SPP))
+    bank_plain, t_bank_p = timed(lambda: mk.bank_ref(rec, fdone_t, NIF_SPP))
+    bank_kern = mk.bank(rec, fdone_t, NIF_SPP)
+    e = float((bank_kern - bank_plain).abs().max())
+    err["bank"] = max(err["bank"], e)
+    log(f"[flagship kernels alone] K1 record mode "
+        f"{', '.join(f'{t:.2f}' for t in rec_ms)} ms; env MLP on {n_esc} "
+        f"escaped paths of {f_paths} "
+        f"{', '.join(f'{t:.2f}' for t in mlp_ms)} ms; bank "
+        f"{', '.join(f'{t:.3f}' for t in bank_ms)} ms (plain "
+        f"{t_bank_p * 1e3:.1f} ms, bit for bit "
+        f"{torch.equal(bank_kern, bank_plain)})")
+    if not torch.equal(bank_kern, bank_plain):
+        raise AssertionError("bank kernel disagrees with its plain version")
+
+    # Library yardstick for the env MLP (never called by the port): the
+    # same network on the same ENV_DIRS directions as a chain of bf16
+    # torch.matmul with f32 bias, features from the plain torch math.
+    from ipu_ray_lib_tpu_torch.nif.model import (decode_rgb, equirect_uvn,
+                                                 fourier_features)
+
+    def library_mlp(d):
+        un, vn = equirect_uvn(d, env.rotation)
+        feats = fourier_features(un, vn, env.config.embedding_dimension)
+        x = feats
+        for l in range(env.num_layers):
+            w, b = env.layer(l)
+            if env.config.concat_before[l]:
+                x = torch.cat([x, feats], dim=1)
+            x = torch.matmul(x.to(torch.bfloat16), w).to(torch.float32) + b
+            if env.config.activations[l] == "relu":
+                x = torch.clamp_min(x, 0.0)
+        return decode_rgb(x, env.max, env.mean, env.config.log_tone_map)
+
+    lib_ms, lib_out = event_ms(lambda: library_mlp(dirs))
+    env_k_ms, _ = event_ms(lambda: envk.env_mlp(dirs, env))
+    lib_rel = float(((lib_out - env_k) / env_k).abs().max())
+    log(f"[env MLP yardstick, {ENV_DIRS} directions] kernel "
+        f"{', '.join(f'{t:.3f}' for t in env_k_ms)} ms; torch.matmul chain "
+        f"{', '.join(f'{t:.3f}' for t in lib_ms)} ms; plain "
+        f"{t_ep * 1e3:.1f} ms; library vs kernel max rel {lib_rel:.3g}")
+
+    # Bounds (the larger of bytes / 3.35 TB/s and operations / peak):
+    macs = envk.pack_env_mlp(env).macs
+    seg64 = fwalk["segments"] * (NIF_SPP // CUT)
+    rec_ops = (fwalk["block_tests"] * (NIF_SPP // CUT) * 128 * ROW_TEST_FLOPS
+               + seg64 * fs.n_ap * AP_TEST_FLOPS)
+    rec_bytes = int(fdone_t.sum()) * REC_BYTES
+    bounds = {
+        "k1": (k1_bound_ms, "operations"),
+        "k1_rec": max((rec_ops / PEAK_F32 * 1e3, "operations"),
+                      (rec_bytes / PEAK_BYTES * 1e3, "bytes")),
+        "env": max((n_esc * 2 * macs / PEAK_BF16 * 1e3, "operations"),
+                   (n_esc * 24 / PEAK_BYTES * 1e3, "bytes")),
+        "bank": max((rec_bytes / PEAK_BYTES * 1e3, "bytes"),
+                    (n_esc * 6 / PEAK_F32 * 1e3, "operations")),
+    }
+    log(f"[bounds] K1 {bounds['k1'][0]:.3f} ms ({bounds['k1'][1]}) vs "
+        f"{main_ms:.2f} ms; K1 record mode {bounds['k1_rec'][0]:.3f} ms "
+        f"({bounds['k1_rec'][1]}; {seg64} segments at spp {NIF_SPP}) vs "
+        f"{median(rec_ms):.2f} ms; env MLP {bounds['env'][0]:.3f} ms "
+        f"({n_esc} x 2 x {macs} FLOP at 989 TFLOP/s) vs "
+        f"{median(mlp_ms):.2f} ms; bank {bounds['bank'][0]:.3f} ms "
+        f"({rec_bytes} record bytes) vs {median(bank_ms):.3f} ms")
+
+    def entry(name, source, replaces, key, n_launch, ms_, shape, plain_ms,
+              kernel_ms_plain_shape, plain_shape, library_ms=None,
+              library_shape=None):
+        """One kernel's line: ``ms`` and ``bound_ms`` on its main path;
+        ``plain_ms`` (and the kernel at the same shape) where the plain
+        version can run in this script's time."""
+        return {"name": name, "route": "cuda",
+                "source": f"ipu_ray_lib_tpu_torch/ops/cuda/{source}",
+                "replaces": replaces, "launches": n_launch,
+                "max_abs_err": err[key], "ms": ms_, "plain_ms": plain_ms,
+                "bound_ms": bounds[key][0], "bound_by": bounds[key][1],
+                "library_ms": library_ms, "ms_shape": shape,
+                "plain_shape": plain_shape,
+                "kernel_ms_at_plain_shape": kernel_ms_plain_shape,
+                "library_shape": library_shape}
+
+    mega = "ipu_ray_lib_tpu/ops/pallas/megakernel.py"
+    log(json.dumps({"kernels": [
+        entry("megakernel_path_trace", "megakernel.cu", f"{mega}:329",
+              "k1", k1_launches, main_ms,
+              f"Cornell main path's launch, {FULL}^2 spp {SPP}",
+              p_main * 1e3, k_main * 1e3,
+              f"its slot pool (R={R}, J={J}) at spp 1"),
+        entry("megakernel_path_trace[record]", "megakernel.cu",
+              f"{mega}:2362", "k1_rec", launches["k1_rec"], median(rec_ms),
+              f"flagship launch, spheres+NIF {NIF_SIZE}^2 spp {NIF_SPP}",
+              p_rec_cut * 1e3, median(k_rec_cut),
+              f"its slot pool (R={R7}, J={J7}) at spp {CUT}"),
+        entry("env_mlp", "env_mlp.cu", f"{mega}:2304", "env",
+              launches["env"], median(mlp_ms),
+              f"the flagship's {n_esc} escaped paths", t_ep * 1e3,
+              median(env_k_ms), f"{ENV_DIRS} seeded directions",
+              median(lib_ms), f"{ENV_DIRS} seeded directions"),
+        entry("bank", "megakernel.cu", f"{mega}:2409", "bank",
+              launches["bank"], median(bank_ms),
+              f"the flagship's records, {NIF_SIZE}^2 spp {NIF_SPP}",
+              t_bank_p * 1e3, median(bank_ms), "the same records"),
+    ]}))
     log(identity)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

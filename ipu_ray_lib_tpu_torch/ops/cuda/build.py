@@ -1,15 +1,17 @@
 """Build and load the hand-written CUDA kernels (nvcc + ctypes).
 
-``megakernel.cu`` has a plain C entry point, so it is compiled by ``nvcc``
-straight into a shared library (no PyTorch headers: seconds, not minutes)
-and called through ctypes with tensor ``data_ptr()``s and the current
-PyTorch stream. The build runs at first use into
+Every ``.cu`` source here has a plain C entry point, so each is compiled
+by ``nvcc`` into an object (all sources at once, one process each), and
+the objects are linked into one shared library (no PyTorch headers:
+seconds, not minutes). Its launchers are called through ctypes with
+tensor ``data_ptr()``s and the current PyTorch stream, and each returns
+``cudaGetLastError()``. The build runs at first use into
 ``ipu_ray_lib_tpu_torch/_build/``, keyed on a hash of the sources and
 flags, from the sources in the repository only. A failed build or launch
-raises; nothing falls back to the plain version.
+raises; nothing falls back to the plain versions.
 
 Flags: ``sm_90a`` (Hopper), ``-O3``, ``-fmad=false`` (no FMA contraction,
-so every product rounds as in the plain torch version), IEEE division and
+so every product rounds as in the plain torch versions), IEEE division and
 square root (nvcc's defaults; no ``--use_fast_math``).
 """
 
@@ -26,16 +28,24 @@ import time
 import torch
 
 _HERE = os.path.dirname(os.path.abspath(__file__))
-_SOURCES = ("megakernel.cu",)
+_SOURCES = ("megakernel.cu", "env_mlp.cu")
 BUILD_DIR = os.path.join(_HERE, "..", "..", "_build")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-fmad=false", "-shared", "-Xcompiler", "-fPIC",
+              "-O3", "-fmad=false", "-Xcompiler", "-fPIC",
               "-Xptxas", "-v"]
 
 _lock = threading.Lock()
 _lib = None
 # What the last build reported: seconds, ptxas resource usage, cache hit.
 build_info: dict = {}
+
+_P, _I, _U, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint, ctypes.c_float
+_SIGNATURES = {
+    "megakernel_launch": [_P] * 10 + [_I] * 9 + [_U, _I, _I] + [_F] * 5 + [_P],
+    "bank_launch": [_P] * 3 + [_I] * 3 + [_P],
+    "env_mlp_launch": [_P, _P, _I, _P, _P, _P, _I, _I, _I, _I, _P, _P],
+    "env_mlp_smem_bytes": [_I, _I],
+}
 
 
 def _nvcc() -> str:
@@ -54,21 +64,44 @@ def _compile() -> str:
     for s in srcs:
         with open(s, "rb") as f:
             h.update(f.read())
-    so = os.path.join(BUILD_DIR, f"megakernel_{h.hexdigest()[:16]}.so")
+    key = h.hexdigest()[:16]
+    so = os.path.join(BUILD_DIR, f"kernels_{key}.so")
     if os.path.exists(so):
         build_info.update(seconds=0.0, cached=True, log="")
         return so
     os.makedirs(BUILD_DIR, exist_ok=True)
-    tmp = f"{so}.{os.getpid()}.tmp"
+    nvcc = _nvcc()
+    tag = f"{key}.{os.getpid()}"
     t0 = time.perf_counter()
-    proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", tmp, *srcs],
+    objs, procs = [], []
+    for src in srcs:  # one nvcc per source, all started together
+        obj = os.path.join(BUILD_DIR, f"{os.path.basename(src)}.{tag}.o")
+        objs.append(obj)
+        procs.append(subprocess.Popen(
+            [nvcc, *NVCC_FLAGS, "-c", "-o", obj, src],
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True))
+    logs, failed = [], []
+    for src, proc in zip(srcs, procs):
+        out, err = proc.communicate()
+        logs.append(f"[{os.path.basename(src)}]\n{out}{err}".strip())
+        if proc.returncode != 0:
+            failed.append(f"nvcc {os.path.basename(src)} failed "
+                          f"({proc.returncode}):\n{out}\n{err}")
+    if failed:
+        raise RuntimeError("\n".join(failed))
+    tmp = f"{so}.{os.getpid()}.tmp"
+    proc = subprocess.run([nvcc, "-gencode", "arch=compute_90a,code=sm_90a",
+                           "-shared", "-o", tmp, *objs],
                           capture_output=True, text=True)
+    for obj in objs:
+        os.remove(obj)
     if proc.returncode != 0:
         raise RuntimeError(
-            f"nvcc failed ({proc.returncode}):\n{proc.stdout}\n{proc.stderr}")
+            f"nvcc link failed ({proc.returncode}):\n{proc.stdout}\n"
+            f"{proc.stderr}")
     os.replace(tmp, so)
     build_info.update(seconds=time.perf_counter() - t0, cached=False,
-                      log=(proc.stdout + proc.stderr).strip())
+                      log="\n".join(logs))
     return so
 
 
@@ -78,11 +111,10 @@ def load() -> ctypes.CDLL:
     with _lock:
         if _lib is None:
             lib = ctypes.CDLL(_compile())
-            fn = lib.megakernel_launch
-            fn.restype = ctypes.c_int
-            fn.argtypes = ([ctypes.c_void_p] * 9 + [ctypes.c_int] * 9
-                           + [ctypes.c_uint, ctypes.c_int, ctypes.c_int]
-                           + [ctypes.c_float] * 5 + [ctypes.c_void_p])
+            for name, argtypes in _SIGNATURES.items():
+                fn = getattr(lib, name)
+                fn.restype = ctypes.c_int
+                fn.argtypes = argtypes
             _lib = lib
         return _lib
 
@@ -98,12 +130,29 @@ def _check(name: str, t: torch.Tensor, dtype, shape=None):
         raise ValueError(f"{name} must have shape {shape}, got {tuple(t.shape)}")
 
 
-def launch_megakernel(scene, rows, cols, accum, done, *, seed: int,
+def _same_device(*ts: torch.Tensor) -> None:
+    devs = {t.device for t in ts}
+    if len(devs) != 1:
+        raise ValueError(f"tensors on several devices: {devs}")
+
+
+def _stream(dev: torch.device) -> int:
+    return torch.cuda.current_stream(dev).cuda_stream
+
+
+def _raise_on(err: int, what: str) -> None:
+    if err != 0:
+        raise RuntimeError(f"{what} launch failed: CUDA error {err}")
+
+
+def launch_megakernel(scene, rows, cols, out, done, *, seed: int,
                       n_valid: int, j0: int, R: int, J: int, spp: int,
                       K_tot: int, max_iters: int, cam, max_path_length: int,
-                      roulette_start_depth: int) -> None:
+                      roulette_start_depth: int, record: bool = False) -> None:
     """Launch the megakernel on the current stream (asynchronous).
-    ``accum`` [J, 3, R] f32 must be zeroed; ``done`` [R] i32 is written."""
+    ``out`` is the accumulator [J, 3, R] f32, zeroed, or with ``record``
+    the path records [10, J*spp, R] f32 (record mode); ``done`` [R] i32
+    is written."""
     f32 = torch.float32
     nb = scene.baabb.shape[0]
     n_ap = scene.ap.shape[0]
@@ -114,21 +163,67 @@ def launch_megakernel(scene, rows, cols, accum, done, *, seed: int,
     _check("apay", scene.apay, f32, (16, n_ap))
     _check("rows", rows, f32, (J * R,))
     _check("cols", cols, f32, (J * R,))
-    _check("accum", accum, f32, (J, 3, R))
+    if record:
+        _check("rec", out, f32, (10, J * spp, R))
+    else:
+        _check("accum", out, f32, (J, 3, R))
     _check("done", done, torch.int32, (R,))
-    devs = {t.device for t in (scene.p, scene.nrm, scene.baabb, scene.ap,
-                               scene.apay, rows, cols, accum, done)}
-    if len(devs) != 1:
-        raise ValueError(f"tensors on several devices: {devs}")
+    _same_device(scene.p, scene.nrm, scene.baabb, scene.ap, scene.apay, rows,
+                 cols, out, done)
     lib = load()
     with torch.cuda.device(rows.device):
-        stream = torch.cuda.current_stream(rows.device).cuda_stream
         err = lib.megakernel_launch(
             scene.p.data_ptr(), scene.nrm.data_ptr(), scene.baabb.data_ptr(),
             scene.ap.data_ptr(), scene.apay.data_ptr(), rows.data_ptr(),
-            cols.data_ptr(), accum.data_ptr(), done.data_ptr(),
+            cols.data_ptr(), None if record else out.data_ptr(),
+            out.data_ptr() if record else None, done.data_ptr(),
             R, J, spp, K_tot, nb, n_ap, max_path_length,
             roulette_start_depth, max_iters, seed & 0xFFFFFFFF, n_valid, j0,
-            cam.sx, cam.sy, cam.inv_w, cam.inv_h, cam.aa, stream)
-    if err != 0:
-        raise RuntimeError(f"megakernel launch failed: CUDA error {err}")
+            cam.sx, cam.sy, cam.inv_w, cam.inv_h, cam.aa,
+            _stream(rows.device))
+    _raise_on(err, "megakernel")
+
+
+def launch_bank(rec, done, accum, *, spp: int) -> None:
+    """Bank path records: ``rec`` [10, K, R] f32, ``done`` [R] i32,
+    ``accum`` [J, 3, R] f32 zeroed, J = K / spp."""
+    _, K, R = rec.shape
+    _check("rec", rec, torch.float32, (10, K, R))
+    _check("done", done, torch.int32, (R,))
+    _check("accum", accum, torch.float32, (K // spp, 3, R))
+    if K % spp:
+        raise ValueError(f"records of {K} paths per slot are not J*{spp}")
+    _same_device(rec, done, accum)
+    lib = load()
+    with torch.cuda.device(rec.device):
+        err = lib.bank_launch(rec.data_ptr(), done.data_ptr(),
+                              accum.data_ptr(), R, K, spp,
+                              _stream(rec.device))
+    _raise_on(err, "bank")
+
+
+def launch_env_mlp(dirs, out, packed) -> None:
+    """Env MLP of ``dirs`` [N, 3] f32 into ``out`` [N, 3] f32 (RGB), with
+    the weights of a :class:`~ipu_ray_lib_tpu_torch.ops.env.PackedEnv`."""
+    n = dirs.shape[0]
+    L = len(packed.layers)
+    _check("dirs", dirs, torch.float32, (n, 3))
+    _check("out", out, torch.float32, (n, 3))
+    _check("w", packed.w, torch.bfloat16)
+    _check("b", packed.b, torch.float32)
+    _check("table", packed.table, torch.int32, (L, 6))
+    _check("econst", packed.econst, torch.float32, (5,))
+    _same_device(dirs, out, packed.w, packed.b, packed.table, packed.econst)
+    lib = load()
+    E, width = packed.embedding_dimension, packed.width
+    smem = lib.env_mlp_smem_bytes(width, E)
+    if smem > 232448:
+        raise ValueError(f"env MLP of width {width} needs {smem} bytes of "
+                         "shared memory per block (227 KB available)")
+    with torch.cuda.device(dirs.device):
+        err = lib.env_mlp_launch(
+            dirs.data_ptr(), out.data_ptr(), n, packed.w.data_ptr(),
+            packed.b.data_ptr(), packed.table.data_ptr(), L, E, width,
+            int(packed.log_tone_map), packed.econst.data_ptr(),
+            _stream(dirs.device))
+    _raise_on(err, "env_mlp")

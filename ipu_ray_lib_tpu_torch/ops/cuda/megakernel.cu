@@ -27,6 +27,18 @@
 // Accumulation: accum[(j*3 + c)*R + slot]; a slot's column is written by
 // its own thread only, so no atomics and the per-pixel summation order is
 // the reference's (paths in k order).
+//
+// Record mode (rec != nullptr; the NIF environment light, the env branch
+// of the same TPU kernel, :2362-2413): where a finished path would be
+// banked, its record is written instead, at rec[f*K*R + k*R + slot]:
+// f = 0-2 colour, 3-5 throughput, 6 escaped (1 or 0), 7-9 the escape
+// direction. The environment term never steers a path, so trajectories,
+// random numbers and `done` are those of the direct mode. The env MLP
+// (env_mlp.cu) then replaces 7-9 of the escaped records by their RGB
+// radiance, and `bank` below adds each slot's records in k order:
+// c = colour (+ throughput * env when escaped, per component, as at
+// :2409-2413), accum[j(k)] += c. Without escapes that is bit for bit the
+// direct mode's banking.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -56,7 +68,8 @@ struct Params {
   const float* apay;   // [16, n_ap] sphere/disc payload
   const float* rows;   // [J*R] pixel rows of the stream
   const float* cols;   // [J*R] pixel columns
-  float* accum;        // [J*3*R] radiance sums (zeroed by the caller)
+  float* accum;        // [J*3*R] radiance sums (zeroed), or nullptr
+  float* rec;          // [10, K, R] path records, or nullptr: bank directly
   int* done;           // [R] finished paths per slot
   int R, J, spp, K_tot, nb, n_ap;
   int max_path_length, roulette_start_depth, max_iters;
@@ -224,7 +237,6 @@ __global__ void __launch_bounds__(128) megakernel(const Params P) {
   const int k_cap = vj * P.spp;
   const uint32_t pid_base =
       (uint32_t)s * (uint32_t)P.K_tot + (uint32_t)(P.j0 * P.spp);
-  float* acc = P.accum + s;
   const int ncol = P.nb * 3 * TB;
 
   int k = 0, bounce = 0, done = 0;
@@ -355,8 +367,9 @@ __global__ void __launch_bounds__(128) megakernel(const Params P) {
 
     // ---- shading, roulette ----
     bool term;
-    if (!(best_t < BIG && best_t > 0.0f)) {
-      term = true;  // escaped
+    const bool escaped = !(best_t < BIG && best_t > 0.0f);
+    if (escaped) {
+      term = true;
     } else {
       if (tpacked >= 4) {
         color = {color.x + tp.x * emission.x, color.y + tp.y * emission.y,
@@ -399,11 +412,26 @@ __global__ void __launch_bounds__(128) megakernel(const Params P) {
     }
     if (!term) continue;
 
-    // ---- bank the finished path, regenerate ----
-    const int j = k / P.spp;
-    acc[(size_t)(j * 3 + 0) * P.R] += color.x;
-    acc[(size_t)(j * 3 + 1) * P.R] += color.y;
-    acc[(size_t)(j * 3 + 2) * P.R] += color.z;
+    // ---- bank (or record) the finished path, regenerate ----
+    if (P.rec != nullptr) {
+      const size_t KR = (size_t)K * P.R;
+      float* r = P.rec + (size_t)k * P.R + s;
+      r[0] = color.x;
+      r[KR] = color.y;
+      r[2 * KR] = color.z;
+      r[3 * KR] = tp.x;
+      r[4 * KR] = tp.y;
+      r[5 * KR] = tp.z;
+      r[6 * KR] = escaped ? 1.0f : 0.0f;
+      r[7 * KR] = d.x;
+      r[8 * KR] = d.y;
+      r[9 * KR] = d.z;
+    } else {
+      float* acc = P.accum + (size_t)(k / P.spp) * 3 * P.R + s;
+      acc[0] += color.x;
+      acc[P.R] += color.y;
+      acc[2 * (size_t)P.R] += color.z;
+    }
     ++done;
     k = min(k + 1, K);
     bounce = 0;
@@ -417,12 +445,36 @@ __global__ void __launch_bounds__(128) megakernel(const Params P) {
   P.done[s] = done;
 }
 
+// One thread per slot: add the slot's done[s] records in k order.
+__global__ void __launch_bounds__(128)
+bank_kernel(const float* __restrict__ rec, const int* __restrict__ done,
+            float* __restrict__ accum, int R, int K, int spp) {
+  const int s = blockIdx.x * blockDim.x + threadIdx.x;
+  if (s >= R) return;
+  const size_t KR = (size_t)K * R;
+  float* acc = accum + s;
+  const int n = done[s];
+  for (int k = 0; k < n; ++k) {
+    const float* r = rec + (size_t)k * R + s;
+    float cx = r[0], cy = r[KR], cz = r[2 * KR];
+    if (r[6 * KR] != 0.0f) {
+      cx = __fadd_rn(cx, __fmul_rn(r[3 * KR], r[7 * KR]));
+      cy = __fadd_rn(cy, __fmul_rn(r[4 * KR], r[8 * KR]));
+      cz = __fadd_rn(cz, __fmul_rn(r[5 * KR], r[9 * KR]));
+    }
+    const int j = k / spp;
+    acc[(size_t)(j * 3 + 0) * R] += cx;
+    acc[(size_t)(j * 3 + 1) * R] += cy;
+    acc[(size_t)(j * 3 + 2) * R] += cz;
+  }
+}
+
 }  // namespace
 
 extern "C" int megakernel_launch(
     const float* p, const float* nrm, const float* baabb, const float* ap,
     const float* apay, const float* rows, const float* cols, float* accum,
-    int* done, int R, int J, int spp, int K_tot, int nb, int n_ap,
+    float* rec, int* done, int R, int J, int spp, int K_tot, int nb, int n_ap,
     int max_path_length, int roulette_start_depth, int max_iters,
     unsigned int seed, int n_valid, int j0, float sx, float sy, float inv_w,
     float inv_h, float aa, void* stream) {
@@ -435,6 +487,7 @@ extern "C" int megakernel_launch(
   P.rows = rows;
   P.cols = cols;
   P.accum = accum;
+  P.rec = rec;
   P.done = done;
   P.R = R;
   P.J = J;
@@ -456,5 +509,14 @@ extern "C" int megakernel_launch(
   const int threads = 128;
   const int blocks = (R + threads - 1) / threads;
   megakernel<<<blocks, threads, 0, static_cast<cudaStream_t>(stream)>>>(P);
+  return static_cast<int>(cudaGetLastError());
+}
+
+extern "C" int bank_launch(const float* rec, const int* done, float* accum,
+                           int R, int K, int spp, void* stream) {
+  const int threads = 128;
+  const int blocks = (R + threads - 1) / threads;
+  bank_kernel<<<blocks, threads, 0, static_cast<cudaStream_t>(stream)>>>(
+      rec, done, accum, R, K, spp);
   return static_cast<int>(cudaGetLastError());
 }

@@ -15,6 +15,15 @@ Two implementations with one contract:
 * :func:`megakernel_path_trace_ref`, a wavefront over all slots in plain
   torch, for CPU tensors and for checking the kernel on the card.
 
+With a NIF environment light (``env``, the JAX kernel's ``env_cfg``
+branch) a finished path adds ``throughput * env(direction)`` when it
+escaped. The env term never steers a path, so the work runs as a short
+wavefront: the kernel (or its plain twin) traces the same paths in record
+mode, writing each finished path's colour, throughput, escape flag and
+direction; the env MLP (ops/env.py) evaluates all escaped records at
+once; ``bank`` adds each slot's records in k order, so every pixel sums
+its paths in the reference's order.
+
 Both apply the same per-lane block cull and the same operation order,
 and draw the same counter-hash random numbers (ops/rng.py): path
 ``k`` of slot ``s`` uses pid ``s*K_tot + j0*spp + k``; its camera jitter
@@ -37,6 +46,7 @@ import torch
 
 from . import bxdf
 from .camera import CameraConsts, camera_consts, camera_ray
+from .env import env_mlp, env_mlp_ref
 from .intersect import (INF, analytic_hit, barycentrics, dense_rows,
                         slab_admit, slab_inv)
 from .rng import normal2, uniform01
@@ -45,14 +55,18 @@ from .vec3 import add3, normalize3, scale3, where3
 
 _MASK = 0xFFFFFFFF
 
-# CUDA kernel launches made by megakernel_path_trace since the last reset
-# (the launch count that shows a run went through the kernel):
+# Number of records per path (colour 3, throughput 3, escaped, direction 3):
+REC_FIELDS = 10
+
+# CUDA kernel launches since the last reset (the counts that show a run
+# went through the kernels): the megakernel, and the bank kernel.
 launches = 0
+bank_launches = 0
 
 
 def reset_launches() -> None:
-    global launches
-    launches = 0
+    global launches, bank_launches
+    launches = bank_launches = 0
 
 
 def _valid_paths(slot: torch.Tensor, n_valid: int, R: int, J: int, j0: int,
@@ -66,9 +80,13 @@ def _valid_paths(slot: torch.Tensor, n_valid: int, R: int, J: int, j0: int,
 def _accumulate_plain(scene, rows, cols, seed: int, n_valid: int, j0: int, *,
                       R: int, J: int, spp: int, K_tot: int, max_iters: int,
                       cam: CameraConsts, max_path_length: int,
-                      roulette_start_depth: int):
-    """Plain-torch twin of the kernel: returns (accum [J, 3, R] f32,
-    done [R] i64). Temporaries stay [128, R] per triangle block."""
+                      roulette_start_depth: int, record: bool = False,
+                      stats: dict | None = None):
+    """Plain-torch twin of the kernel: returns (accum [J, 3, R] f32, or
+    with ``record`` the path records [10, J*spp, R] f32; done [R] i64).
+    Temporaries stay [128, R] per triangle block. ``stats`` (a dict)
+    gains ``segments`` (ray segments traced) and ``block_tests`` (the
+    (segment, 128-row block) pairs the per-lane cull admitted)."""
     dev = rows.device
     f32 = torch.float32
     K = J * spp
@@ -88,7 +106,10 @@ def _accumulate_plain(scene, rows, cols, seed: int, n_valid: int, j0: int, *,
                           g1, g2, cam)
 
     accum = torch.zeros(J * 3 * R, dtype=f32, device=dev)
+    rec = (torch.empty((REC_FIELDS, K, R), dtype=f32, device=dev)
+           if record else None)
     done = torch.zeros(R, dtype=torch.int64, device=dev)
+    n_seg = n_pairs = torch.zeros((), dtype=torch.int64, device=dev)
     k = torch.zeros(R, dtype=torch.int64, device=dev)
     bounce = torch.zeros_like(k)
     active = k_cap > 0
@@ -108,10 +129,14 @@ def _accumulate_plain(scene, rows, cols, seed: int, n_valid: int, j0: int, *,
         best_t = torch.where(active, INF, -1.0)
         best_row = torch.full((R,), -1, dtype=torch.int64, device=dev)
         inv = slab_inv(d)
+        if stats is not None:
+            n_seg = n_seg + active.sum()
         for blk in range(nb):
             adm = slab_admit(o, inv, active, baabb[blk])
             if not bool(adm.any()):
                 continue
+            if stats is not None:
+                n_pairs = n_pairs + adm.sum()
             t, ok = dense_rows(p[blk * TB:(blk + 1) * TB], o, d, o_mag)
             tm = torch.where(ok & adm, t, INF)
             bt = torch.amin(tm, dim=0)
@@ -189,12 +214,16 @@ def _accumulate_plain(scene, rows, cols, seed: int, n_valid: int, j0: int, *,
         over = live & (bounce >= max_path_length)
         term = escaped | killed | over
 
-        # ---- bank finished paths into the slot's accumulator column ----
+        # ---- bank (or record) finished paths ----
         if bool(term.any()):
             ts = slot[term]
-            base = (k[term] // spp) * (3 * R) + ts
-            for c in range(3):
-                accum[base + c * R] += color[c][term]
+            if record:
+                fields = torch.stack([*color, *tp, escaped.to(f32), *d])
+                rec[:, k[term], ts] = fields[:, term]
+            else:
+                base = (k[term] // spp) * (3 * R) + ts
+                for c in range(3):
+                    accum[base + c * R] += color[c][term]
         done += term.to(torch.int64)
         k = torch.where(term, torch.clamp(k + 1, max=K), k)
         active = active & ~term
@@ -208,30 +237,89 @@ def _accumulate_plain(scene, rows, cols, seed: int, n_valid: int, j0: int, *,
         d = where3(spawn, cd, d)
         tp = where3(spawn, (torch.ones_like(zero),) * 3, tp)
         active = active | spawn
-    return accum.reshape(J, 3, R), done
+    if stats is not None:
+        stats["segments"] = stats.get("segments", 0) + int(n_seg)
+        stats["block_tests"] = stats.get("block_tests", 0) + int(n_pairs)
+    return (rec if record else accum.reshape(J, 3, R)), done
 
 
 def _accumulate_cuda(scene, rows, cols, seed: int, n_valid: int, j0: int, *,
                      R: int, J: int, spp: int, K_tot: int, max_iters: int,
                      cam: CameraConsts, max_path_length: int,
-                     roulette_start_depth: int):
-    """Launch the CUDA kernel; returns (accum [J, 3, R] f32, done [R] i32)."""
+                     roulette_start_depth: int, record: bool = False):
+    """Launch the CUDA kernel; returns (accum [J, 3, R] f32, or with
+    ``record`` the records [10, J*spp, R] f32; done [R] i32)."""
     global launches
     from .cuda.build import launch_megakernel
 
-    accum = torch.zeros((J, 3, R), dtype=torch.float32, device=rows.device)
-    done = torch.zeros(R, dtype=torch.int32, device=rows.device)
+    dev = rows.device
+    out = (torch.empty((REC_FIELDS, J * spp, R), dtype=torch.float32,
+                       device=dev) if record
+           else torch.zeros((J, 3, R), dtype=torch.float32, device=dev))
+    done = torch.zeros(R, dtype=torch.int32, device=dev)
     launch_megakernel(
-        scene, rows, cols, accum, done, seed=seed, n_valid=n_valid, j0=j0,
+        scene, rows, cols, out, done, seed=seed, n_valid=n_valid, j0=j0,
         R=R, J=J, spp=spp, K_tot=K_tot, max_iters=max_iters, cam=cam,
         max_path_length=max_path_length,
-        roulette_start_depth=roulette_start_depth)
+        roulette_start_depth=roulette_start_depth, record=record)
     launches += 1
-    return accum, done
+    return out, done
 
 
-def _path_trace(accumulate, scene, rows, cols, seed, n_valid, *, params,
-                slots, j_per_slot, spp, max_iters, j0=0, k_total=None):
+def bank_ref(rec: torch.Tensor, done: torch.Tensor, spp: int) -> torch.Tensor:
+    """Plain version of the bank kernel: records [10, K, R] and done [R]
+    -> accum [J, 3, R], J = K / spp. A slot adds its done[s] records in k
+    order: colour, plus throughput * env (fields 7-9 hold the env RGB
+    after :func:`shade_records`) when the path escaped."""
+    _, K, R = rec.shape
+    accum = torch.zeros((K // spp, 3, R), dtype=torch.float32,
+                        device=rec.device)
+    n_max = int(done.max()) if done.numel() else 0
+    for k in range(n_max):
+        live = torch.nonzero(done > k).squeeze(1)
+        r = rec[:, k, live]
+        c = torch.where(r[6] != 0.0, r[0:3] + r[3:6] * r[7:10], r[0:3])
+        accum[k // spp][:, live] += c
+    return accum
+
+
+def bank(rec: torch.Tensor, done: torch.Tensor, spp: int) -> torch.Tensor:
+    """Bank path records (the kernel for CUDA tensors, else
+    :func:`bank_ref`)."""
+    global bank_launches
+    if rec.device.type == "cpu":
+        return bank_ref(rec, done, spp)
+    from .cuda.build import launch_bank
+
+    _, K, R = rec.shape
+    accum = torch.zeros((K // spp, 3, R), dtype=torch.float32,
+                        device=rec.device)
+    launch_bank(rec, done, accum, spp=spp)
+    bank_launches += 1
+    return accum
+
+
+def escaped_records(rec: torch.Tensor, done: torch.Tensor) -> torch.Tensor:
+    """[K, R] mask of the records that are real (k < done) and escaped."""
+    K = rec.shape[1]
+    k = torch.arange(K, device=rec.device)[:, None]
+    return (rec[6] != 0.0) & (k < done[None, :])
+
+
+def shade_records(rec: torch.Tensor, done: torch.Tensor, env, mlp) -> int:
+    """Replace the direction fields (7-9) of the escaped records by
+    ``mlp(directions, env)``, the env RGB; in place. Returns the number
+    of escaped paths."""
+    esc = escaped_records(rec, done)
+    dirs = rec[7:10][:, esc].t().contiguous()
+    if dirs.shape[0]:
+        rec[7:10][:, esc] = mlp(dirs, env).t()
+    return int(dirs.shape[0])
+
+
+def _trace(accumulate, scene, rows, cols, seed, n_valid, *, params, slots,
+           j_per_slot, spp, max_iters, j0=0, k_total=None, record=False,
+           **extra):
     R, J = int(slots), int(j_per_slot)
     if rows.shape != (R * J,) or cols.shape != (R * J,):
         raise ValueError(f"rows/cols must be [{R * J}], got "
@@ -239,13 +327,50 @@ def _path_trace(accumulate, scene, rows, cols, seed, n_valid, *, params,
     if rows.device != scene.device or cols.device != scene.device:
         raise ValueError("rows, cols and the scene must share a device")
     K_tot = J * spp if k_total is None else int(k_total)
-    accum, done = accumulate(
+    return accumulate(
         scene, rows.to(torch.float32).contiguous(),
         cols.to(torch.float32).contiguous(), int(seed) & _MASK, int(n_valid),
         int(j0), R=R, J=J, spp=int(spp), K_tot=K_tot,
         max_iters=int(max_iters), cam=camera_consts(params),
         max_path_length=int(params.max_path_length),
-        roulette_start_depth=int(params.roulette_start_depth))
+        roulette_start_depth=int(params.roulette_start_depth),
+        record=record, **extra)
+
+
+def _accumulator(scene):
+    dev = scene.device.type
+    if dev == "cuda":
+        return _accumulate_cuda
+    if dev == "cpu":
+        return _accumulate_plain
+    raise ValueError(f"unsupported device {scene.device}")
+
+
+def trace_records(scene, rows, cols, seed, n_valid, *, params, slots,
+                  j_per_slot, spp, max_iters, j0=0, k_total=None):
+    """The path trace in record mode alone (the kernel for CUDA tensors,
+    else the plain version): returns (rec [10, J*spp, R] f32, done [R]),
+    the records :func:`shade_records` and :func:`bank` take."""
+    return _trace(_accumulator(scene), scene, rows, cols, seed, n_valid,
+                  params=params, slots=slots, j_per_slot=j_per_slot, spp=spp,
+                  max_iters=max_iters, j0=j0, k_total=k_total, record=True)
+
+
+def _path_trace(accumulate, mlp, bank_fn, scene, rows, cols, seed, n_valid,
+                *, params, slots, j_per_slot, spp, max_iters, j0=0,
+                k_total=None, env=None, **extra):
+    R, J = int(slots), int(j_per_slot)
+    if env is not None and env.device != scene.device:
+        raise ValueError(f"env on {env.device}, scene on {scene.device}")
+    out, done = _trace(accumulate, scene, rows, cols, seed, n_valid,
+                       params=params, slots=R, j_per_slot=J, spp=spp,
+                       max_iters=max_iters, j0=j0, k_total=k_total,
+                       record=env is not None, **extra)
+    if env is None:
+        accum = out
+    else:
+        shade_records(out, done, env, mlp)
+        accum = bank_fn(out, done, int(spp))
     # [J, 3, R] -> per-pixel [R*J, 3] (padded-stream pixel s + j*R at row
     # j*R + s), averaged over spp:
     flat = accum.permute(0, 2, 1).reshape(R * J, 3) * float(np.float32(1.0 / spp))
@@ -254,35 +379,34 @@ def _path_trace(accumulate, scene, rows, cols, seed, n_valid, *, params,
 
 def megakernel_path_trace_ref(scene, rows, cols, seed, n_valid, *, params,
                               slots, j_per_slot, spp, max_iters, j0=0,
-                              k_total=None):
+                              k_total=None, env=None, stats=None):
     """Plain-torch version of :func:`megakernel_path_trace` (same
-    arguments, same result) on any device."""
-    return _path_trace(_accumulate_plain, scene, rows, cols, seed, n_valid,
-                       params=params, slots=slots, j_per_slot=j_per_slot,
-                       spp=spp, max_iters=max_iters, j0=j0, k_total=k_total)
+    arguments, same result) on any device: the plain path trace, and
+    with ``env`` the plain env MLP and bank. ``stats`` (a dict) gains the
+    walk counts of ``_accumulate_plain``."""
+    return _path_trace(_accumulate_plain, env_mlp_ref, bank_ref, scene, rows,
+                       cols, seed, n_valid, params=params, slots=slots,
+                       j_per_slot=j_per_slot, spp=spp, max_iters=max_iters,
+                       j0=j0, k_total=k_total, env=env, stats=stats)
 
 
 def megakernel_path_trace(scene, rows, cols, seed, n_valid, *, params,
                           slots, j_per_slot, spp, max_iters, j0=0,
-                          k_total=None):
+                          k_total=None, env=None):
     """Path-trace ``slots * j_per_slot`` padded-stream pixels at ``spp``.
 
     rows/cols: [slots*j_per_slot] f32 pixel coordinates of the stream;
     seed: u32 batch seed; n_valid: real pixel count of the stream;
     j0/k_total: this dispatch serves stream rows [j0, j0+J) of a
-    k_total-paths-per-slot schedule (defaults: one dispatch).
+    k_total-paths-per-slot schedule (defaults: one dispatch); env: a
+    :class:`~ipu_ray_lib_tpu_torch.nif.model.NifEnv` on the scene's
+    device lights escaped paths (None: they add nothing).
     Returns (flat [R*J, 3] f32 spp-averaged radiance, done i64 scalar
     tensor: the number of finished paths).
 
-    CUDA tensors run the CUDA kernel (building it at first use; a failed
-    build or launch raises). CPU tensors run the plain version."""
-    dev = scene.device.type
-    if dev == "cuda":
-        accumulate = _accumulate_cuda
-    elif dev == "cpu":
-        accumulate = _accumulate_plain
-    else:
-        raise ValueError(f"unsupported device {scene.device}")
-    return _path_trace(accumulate, scene, rows, cols, seed, n_valid,
-                       params=params, slots=slots, j_per_slot=j_per_slot,
-                       spp=spp, max_iters=max_iters, j0=j0, k_total=k_total)
+    CUDA tensors run the CUDA kernels (built at first use; a failed build
+    or launch raises). CPU tensors run the plain versions."""
+    return _path_trace(_accumulator(scene), env_mlp, bank, scene, rows, cols,
+                       seed, n_valid, params=params, slots=slots,
+                       j_per_slot=j_per_slot, spp=spp, max_iters=max_iters,
+                       j0=j0, k_total=k_total, env=env)

@@ -1,6 +1,6 @@
 """Streaming path tracer with path regeneration: the full-frame loop around
 the megakernel (port of ``render_streaming``, ipu_ray_lib_tpu/render/
-streaming.py:584, megakernel path, no environment light).
+streaming.py:584, megakernel path, optionally NIF-lit).
 
 A fixed pool of R ray slots serves a tile-ordered pixel stream: slot s
 owns the padded-stream pixels {s, s+R, ...}, J of them; each slot runs
@@ -15,6 +15,11 @@ readback with compute; the union of groups equals one dispatch bit for
 bit, so this module runs one group, [(0, J)]. ``b_cap`` comes from the
 global J (the reference computed it per group, a known fault that binds
 only when J > 32).
+
+A NIF environment light (``env``) is evaluated once per dispatch over
+every escaped path (ops/megakernel.py), so the reference's env flush
+cadence and count knobs (``RAY_ENV_EVERY``/``RAY_ENV_COUNT``, scheduling
+only) have no counterpart here.
 """
 
 from __future__ import annotations
@@ -65,10 +70,12 @@ def slot_pool(n_pix: int, chunk_slots: int) -> tuple[int, int]:
     return R, -(-n_pix // R)
 
 
-def render_streaming(scene, params, chunk_slots: int = 1 << 17):
+def render_streaming(scene, params, chunk_slots: int = 1 << 17, env=None):
     """Full-window streaming render on the scene's device at
-    ``params.samples_per_pixel``, seeded by ``params.rng_seed``; returns
-    (rgb [H, W, 3] float32 numpy, done: the number of finished paths)."""
+    ``params.samples_per_pixel``, seeded by ``params.rng_seed``, lit by the
+    NIF ``env`` (a :class:`~ipu_ray_lib_tpu_torch.nif.model.NifEnv` on the
+    scene's device) when given; returns (rgb [H, W, 3] float32 numpy,
+    done: the number of finished paths)."""
     spp = params.samples_per_pixel
     seed = params.rng_seed
     w, h = params.window_w, params.window_h
@@ -90,7 +97,7 @@ def render_streaming(scene, params, chunk_slots: int = 1 << 17):
             scene, rows, cols, (seed + 0x9E3779B9 * bi) & 0xFFFFFFFF, n_pix,
             params=params, slots=R, j_per_slot=J, spp=b,
             max_iters=J * b * params.max_path_length + 16, j0=0,
-            k_total=J * b)
+            k_total=J * b, env=env)
         wgt = float(np.float32(b / spp))
         flat_acc = (flat_b * wgt if flat_acc is None
                     else flat_acc + flat_b * wgt)

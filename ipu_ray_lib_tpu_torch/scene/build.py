@@ -296,7 +296,8 @@ def compile_scene(
         tri_geom_ids, tri_prim_ids,
         vert_normals=normals if len(normals) else None,
         tri_has_normals=tri_has_normals,
-        tri_mat=mat_id[tri_geom_ids] if len(tri_geom_ids) else None,
+        tri_mat=(mat_id[tri_geom_ids] if len(tri_geom_ids)
+                 else np.zeros(0, np.int32)),
         mat_albedo=mat_albedo, mat_ior=mat_ior, mat_type=mat_type,
         mat_emission=mat_emission, mat_emissive=mat_emissive,
         tri_order=tri_order)

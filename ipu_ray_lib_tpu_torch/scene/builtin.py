@@ -1,5 +1,5 @@
-"""Built-in scenes: Cornell box (+blocks, spheres, disc, mesh plinth) and
-the heightfield stress scene.
+"""Built-in scenes: Cornell box (+blocks, spheres, disc, mesh plinth), the
+primitive-only "spheres" scene and the heightfield stress scene.
 
 A jax-free copy of ``ipu_ray_lib_tpu/scene/builtin.py`` (same geometry,
 same materials, same float32 arithmetic), so the port builds the very
@@ -211,3 +211,41 @@ def make_stress_scene(grid: int = 512) -> SceneDescription:
     scene.validate()
     return scene
 
+
+
+def make_primitive_scene() -> SceneDescription:
+    """Primitive-only 'spheres' scene for NIF/HDRI demos: five spheres and
+    a floor disc, no triangles (ref: src/scene_utils.cpp:557-597)."""
+    scene = SceneDescription()
+    scene.camera = Camera(horizontal_fov=float(np.pi / 2))
+
+    scene.spheres = np.array(
+        [
+            [-1.8575, -0.98714, -3.6, 0.6],      # left
+            [0.74795, -0.55, -4.3816, 1.05],     # middle
+            [1.9929, -1.08666, -3.23, 0.5],      # right
+            [-0.19931, -1.183, -2.75, 0.4],      # front diffuse part
+            [-0.19931, -1.183, -2.75, 0.4010],   # front clear-coat part
+        ],
+        np.float32,
+    )
+    scene.discs = np.array([[0, 1, 0, 0.0, -1.6, -5.22, 3.5]], np.float32)
+
+    zero = np.zeros(3, np.float32)
+    one = np.ones(3, np.float32)
+    sphere_colour = np.array([1.0, 0.89, 0.55], np.float32)
+    clear_coat = np.array([0.8, 0.06, 0.391], np.float32)
+    floor_colour = np.array([0.98, 0.76, 0.66], np.float32)
+    glass_tint = np.array([0.75, 0.75, 0.75], np.float32)
+
+    scene.materials = [
+        Material(sphere_colour, zero, MaterialType.DIFFUSE),
+        Material(one, zero, MaterialType.SPECULAR),
+        Material(glass_tint, zero, MaterialType.REFRACTIVE),
+        Material(clear_coat, zero, MaterialType.DIFFUSE),
+        Material(one, zero, MaterialType.REFRACTIVE),
+        Material(floor_colour, zero, MaterialType.DIFFUSE),
+    ]
+    scene.mat_ids = [0, 1, 2, 3, 4, 5]
+    scene.validate()
+    return scene

@@ -5,8 +5,9 @@
 * It matches the JAX ``render_streaming`` with a slot pool of 512 (J = 3
   pixels per slot) and with ``SPP_BATCH`` = 1 in both modules — the spp
   batch seed schedule is part of the RNG contract.
-* The port never imports jax: every module imports in a process where
-  jax is blocked.
+* The port never imports jax, h5py or the JAX package: every module
+  imports, and the NIF weights load, in a process where jax and h5py are
+  blocked.
 """
 
 import os
@@ -109,15 +110,24 @@ def _port_modules():
 
 
 def test_every_module_imports_without_jax():
+    """Every module imports, and the NIF path loads its weights, in a
+    process where jax and h5py are blocked (the card's machine has
+    neither)."""
     mods = _port_modules()
-    assert "ipu_ray_lib_tpu_torch.ops.megakernel" in mods
+    for m in ("ops.megakernel", "ops.env", "nif.hdf5", "nif.metadata",
+              "nif.model", "scene.builtin", "render.streaming"):
+        assert f"ipu_ray_lib_tpu_torch.{m}" in mods, m
     code = (
         "import importlib, sys\n"
         "sys.modules['jax'] = None\n"
+        "sys.modules['h5py'] = None\n"
         f"for m in {mods!r}:\n"
         "    importlib.import_module(m)\n"
+        "from ipu_ray_lib_tpu_torch.nif.model import load_nif_env\n"
+        "env = load_nif_env('assets/nif/synthetic_urban_4k', device='cpu')\n"
+        "assert env.num_layers == 6\n"
         "bad = [m for m, v in sys.modules.items() if v is not None and "
-        "m.split('.')[0] in ('jax', 'jaxlib', 'ipu_ray_lib_tpu')]\n"
+        "m.split('.')[0] in ('jax', 'jaxlib', 'h5py', 'ipu_ray_lib_tpu')]\n"
         "assert not bad, bad\n")
     root = pathlib.Path(ipu_ray_lib_tpu_torch.__file__).parent.parent
     out = subprocess.run([sys.executable, "-c", code], cwd=root,
@@ -127,6 +137,7 @@ def test_every_module_imports_without_jax():
 
 def test_no_jax_import_statements():
     pkg = pathlib.Path(ipu_ray_lib_tpu_torch.__file__).parent
-    pat = re.compile(r"^\s*(import jax|from jax)", re.M)
-    hits = [str(p) for p in pkg.rglob("*.py") if pat.search(p.read_text())]
+    pat = re.compile(r"^\s*(import|from) (jax|h5py|ipu_ray_lib_tpu)\b", re.M)
+    files = list(pkg.rglob("*.py")) + [pkg.parent / "chip_smoke.py"]
+    hits = [str(p) for p in files if pat.search(p.read_text())]
     assert not hits, hits
