@@ -45,9 +45,13 @@ Phases (any failed check raises, so the exit code is non-zero):
      counts its segments for K1's bound, and the bank kernel vs its plain
      version on those records, bit for bit; then one warm-up and three
      timed renders with the env, three without (same trajectories), done
-     == 512^2 * 64, finite image; the three kernels alone with CUDA
-     events; the plain env MLP and a torch.matmul chain (the library
-     yardstick, never called by the port) on 65,536 directions.
+     == 512^2 * 64, finite image; the flagship's image on the pixels of
+     its first 2,048 slots (4,096 pixels, all 64 samples each) against
+     the kernel route and the plain route replaying those slots, rtol =
+     atol = 1e-5; the three kernels alone with CUDA events; the env MLP
+     kernel against its plain version on every escape of the flagship
+     (bit for bit); a torch.matmul chain (the library yardstick, never
+     called by the port) on those escapes and on 65,536 directions.
 Before the last two lines: a JSON object with each kernel's launches on
 its main path, its largest deviation from its plain version, its times
 and its bound (the least time the card could take for the same work);
@@ -427,6 +431,27 @@ def main() -> int:
         f"{(median(f_times) - median(nv_times)) * 1e3:.1f} ms per frame "
         f"(medians)")
 
+    # The flagship's own pixels at spp 64 against both routes: the first
+    # SUB7 slots of its pool replayed with the same J, spp, k_total and
+    # seed, as phase 5 does for the Cornell main path.
+    SUB7 = 2048
+    idx7 = (np.arange(J7)[:, None] * R7 + np.arange(SUB7)[None]).ravel()
+    idx7_t = torch.from_numpy(idx7).to(dev)
+    want7 = frgb.reshape(-1, 3)[_pixel_stream(fp)[2][idx7]]
+    sub_k, sub_p, _, _ = compare(
+        f"spheres+NIF {NIF_SIZE}^2 flagship, first {SUB7} slots", fs, fp,
+        rows7[idx7_t], cols7[idx7_t], SUB7, J7, SUB7 * J7, NIF_SPP,
+        seed=fp.rng_seed, env=env, key="k1_rec")
+    for what, got in (("kernel", sub_k), ("plain", sub_p)):
+        bad, e = close_count(got, want7)
+        err["k1_rec"] = max(err["k1_rec"], e)
+        log(f"[flagship pixels] {what} route on {SUB7} slots vs the "
+            f"flagship's image: {bad_pixels(got, want7)} of {SUB7 * J7} "
+            f"pixels differ, max |diff| {e:.3g}")
+        if bad:
+            raise AssertionError(f"flagship pixels disagree with the {what} "
+                                 f"route ({bad} elements)")
+
     # The three kernels alone at the flagship's shapes (CUDA events):
     rec_ms, (rec, fdone_t) = event_ms(lambda: mk.trace_records(
         fs, rows7, cols7, fp.rng_seed, n7_pix, **kw7))
@@ -450,35 +475,61 @@ def main() -> int:
     if not torch.equal(bank_kern, bank_plain):
         raise AssertionError("bank kernel disagrees with its plain version")
 
+    # The env MLP kernel on every escape of the flagship against its plain
+    # version, in chunks, bit for bit:
+    env_bad, t_env_plain = 0, 0.0
+    for i in range(0, n_esc, 1 << 18):
+        ref, t = timed(lambda: envk.env_mlp_ref(fdirs[i:i + (1 << 18)], env))
+        got = frgb_esc[i:i + (1 << 18)]
+        t_env_plain += t
+        env_bad += int((got != ref).sum())
+        err["env"] = max(err["env"], float((got - ref).abs().max()))
+    log(f"[flagship env MLP] kernel vs plain on all {n_esc} escapes: "
+        f"{env_bad} elements differ, max |diff| {err['env']:.3g}; plain "
+        f"{t_env_plain:.2f} s")
+    if env_bad:
+        raise AssertionError("env MLP kernel disagrees with its plain "
+                             "version on the flagship's escapes")
+
     # Library yardstick for the env MLP (never called by the port): the
-    # same network on the same ENV_DIRS directions as a chain of bf16
-    # torch.matmul with f32 bias, features from the plain torch math.
+    # same network as a chain of bf16 torch.matmul with f32 bias, features
+    # from the plain torch math, on the flagship's escaped batch (in
+    # chunks of 2M directions, to bound its f32 temporaries) and on the
+    # ENV_DIRS seeded directions.
     from ipu_ray_lib_tpu_torch.nif.model import (decode_rgb, equirect_uvn,
                                                  fourier_features)
 
-    def library_mlp(d):
+    def library_chunk(d):
         un, vn = equirect_uvn(d, env.rotation)
         feats = fourier_features(un, vn, env.config.embedding_dimension)
         x = feats
-        for l in range(env.num_layers):
+        for l, (_, _, relu, concat) in enumerate(env.layers):
             w, b = env.layer(l)
-            if env.config.concat_before[l]:
+            if concat:
                 x = torch.cat([x, feats], dim=1)
             x = torch.matmul(x.to(torch.bfloat16), w).to(torch.float32) + b
-            if env.config.activations[l] == "relu":
+            if relu:
                 x = torch.clamp_min(x, 0.0)
         return decode_rgb(x, env.max, env.mean, env.config.log_tone_map)
 
-    lib_ms, lib_out = event_ms(lambda: library_mlp(dirs))
+    def library_mlp(d, chunk=1 << 21):
+        return torch.cat([library_chunk(d[i:i + chunk])
+                          for i in range(0, d.shape[0], chunk)])
+
+    lib_ms, lib_out = event_ms(lambda: library_mlp(fdirs))
+    lib_rel = float(((lib_out - frgb_esc) / frgb_esc).abs().max())
+    lib_small_ms, _ = event_ms(lambda: library_mlp(dirs))
     env_k_ms, _ = event_ms(lambda: envk.env_mlp(dirs, env))
-    lib_rel = float(((lib_out - env_k) / env_k).abs().max())
-    log(f"[env MLP yardstick, {ENV_DIRS} directions] kernel "
-        f"{', '.join(f'{t:.3f}' for t in env_k_ms)} ms; torch.matmul chain "
-        f"{', '.join(f'{t:.3f}' for t in lib_ms)} ms; plain "
-        f"{t_ep * 1e3:.1f} ms; library vs kernel max rel {lib_rel:.3g}")
+    log(f"[env MLP yardstick] on the flagship's {n_esc} escapes: "
+        f"torch.matmul chain {', '.join(f'{t:.2f}' for t in lib_ms)} ms "
+        f"against the kernel's {median(mlp_ms):.2f} ms (library vs kernel "
+        f"max rel {lib_rel:.3g}); on {ENV_DIRS} directions: chain "
+        f"{', '.join(f'{t:.3f}' for t in lib_small_ms)} ms, kernel "
+        f"{', '.join(f'{t:.3f}' for t in env_k_ms)} ms, plain "
+        f"{t_ep * 1e3:.1f} ms")
 
     # Bounds (the larger of bytes / 3.35 TB/s and operations / peak):
-    macs = envk.pack_env_mlp(env).macs
+    macs = env.macs
     seg64 = fwalk["segments"] * (NIF_SPP // CUT)
     rec_ops = (fwalk["block_tests"] * (NIF_SPP // CUT) * 128 * ROW_TEST_FLOPS
                + seg64 * fs.n_ap * AP_TEST_FLOPS)
@@ -502,7 +553,7 @@ def main() -> int:
 
     def entry(name, source, replaces, key, n_launch, ms_, shape, plain_ms,
               kernel_ms_plain_shape, plain_shape, library_ms=None,
-              library_shape=None):
+              library_shape=None, **more):
         """One kernel's line: ``ms`` and ``bound_ms`` on its main path;
         ``plain_ms`` (and the kernel at the same shape) where the plain
         version can run in this script's time."""
@@ -514,15 +565,17 @@ def main() -> int:
                 "library_ms": library_ms, "ms_shape": shape,
                 "plain_shape": plain_shape,
                 "kernel_ms_at_plain_shape": kernel_ms_plain_shape,
-                "library_shape": library_shape}
+                "library_shape": library_shape, **more}
 
     mega = "ipu_ray_lib_tpu/ops/pallas/megakernel.py"
     log(json.dumps({"kernels": [
+        # ``main_ms``: the name ``ms`` had for this launch before ``ms``
+        # became the main path's time for every kernel (kept one slice).
         entry("megakernel_path_trace", "megakernel.cu", f"{mega}:329",
               "k1", k1_launches, main_ms,
               f"Cornell main path's launch, {FULL}^2 spp {SPP}",
               p_main * 1e3, k_main * 1e3,
-              f"its slot pool (R={R}, J={J}) at spp 1"),
+              f"its slot pool (R={R}, J={J}) at spp 1", main_ms=main_ms),
         entry("megakernel_path_trace[record]", "megakernel.cu",
               f"{mega}:2362", "k1_rec", launches["k1_rec"], median(rec_ms),
               f"flagship launch, spheres+NIF {NIF_SIZE}^2 spp {NIF_SPP}",
@@ -530,9 +583,13 @@ def main() -> int:
               f"its slot pool (R={R7}, J={J7}) at spp {CUT}"),
         entry("env_mlp", "env_mlp.cu", f"{mega}:2304", "env",
               launches["env"], median(mlp_ms),
-              f"the flagship's {n_esc} escaped paths", t_ep * 1e3,
-              median(env_k_ms), f"{ENV_DIRS} seeded directions",
-              median(lib_ms), f"{ENV_DIRS} seeded directions"),
+              f"the flagship's {n_esc} escaped paths", t_env_plain * 1e3,
+              median(mlp_ms), "the same escapes, in chunks of 262144",
+              median(lib_ms), "the same escapes, in chunks of 2097152",
+              kernel_ms_small=median(env_k_ms),
+              library_ms_small=median(lib_small_ms),
+              plain_ms_small=t_ep * 1e3,
+              small_shape=f"{ENV_DIRS} seeded directions"),
         entry("bank", "megakernel.cu", f"{mega}:2409", "bank",
               launches["bank"], median(bank_ms),
               f"the flagship's records, {NIF_SIZE}^2 spp {NIF_SPP}",

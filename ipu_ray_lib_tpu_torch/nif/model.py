@@ -147,13 +147,17 @@ def detect_structure(kernel_shapes: Sequence[tuple[int, int]],
 
 
 class NifEnv(nn.Module):
-    """A NIF environment light on one device.
+    """A NIF environment light on one device, packed once in the layout
+    the kernel reads (``pack_env_mlp``'s, without the 128 padding).
 
-    Buffers: ``w{l}`` [cin, cout] bf16 layer kernels (the f32 weights
-    rounded to nearest bf16, as the JAX kernel's ``wstack``), ``b{l}``
-    [cout] f32 biases, ``max`` and ``rotation`` f32 scalars, ``mean`` [3]
-    f32 (BGR). ``forward(dirs [N, 3])`` returns the RGB radiance [N, 3]
-    through ``ops.env.env_mlp`` (the CUDA kernel for CUDA tensors)."""
+    Buffers: ``w`` bf16, layer l's kernel [cin, cout] row-major from
+    ``woff`` (the f32 weights rounded to nearest bf16, as the JAX kernel's
+    ``wstack``); ``b`` f32, its bias from ``boff``; ``table`` [L, 6] int32
+    rows (cin, cout, relu, concat, woff, boff), offsets multiples of 8
+    elements so every layer starts 16-byte aligned; ``econst`` [5] f32:
+    rotation, max, mean (BGR). ``forward(dirs [N, 3])`` returns the RGB
+    radiance [N, 3] through ``ops.env.env_mlp`` (the CUDA kernel for CUDA
+    tensors)."""
 
     def __init__(self, config: NifConfig, kernels, biases, max_, mean,
                  rotation=0.0):
@@ -166,27 +170,70 @@ class NifEnv(nn.Module):
         if len(kernels) != len(config.activations):
             raise ValueError("one activation per layer expected")
         self.config = config
+        layers, rows, ws, bs = [], [], [], []
+        woff = boff = 0
         for l, (k, b) in enumerate(zip(kernels, biases)):
-            k = torch.as_tensor(np.asarray(k, np.float32))
-            b = (torch.zeros(k.shape[1]) if b is None
-                 else torch.as_tensor(np.asarray(b, np.float32)))
-            self.register_buffer(f"w{l}", k.to(torch.bfloat16))
-            self.register_buffer(f"b{l}", b.clone())
-        self.register_buffer("max", torch.tensor(np.float32(max_)))
-        self.register_buffer("mean", torch.as_tensor(
-            np.asarray(mean, np.float32)).clone())
-        self.register_buffer("rotation", torch.tensor(np.float32(rotation)))
+            k = torch.from_numpy(np.array(k, np.float32))
+            cin, cout = int(k.shape[0]), int(k.shape[1])
+            b = (torch.zeros(cout) if b is None
+                 else torch.from_numpy(np.array(b, np.float32)))
+            relu = config.activations[l] == "relu"
+            concat = bool(config.concat_before[l])
+            layers.append((cin, cout, relu, concat))
+            rows.append([cin, cout, int(relu), int(concat), woff, boff])
+            wlen, blen = -(-cin * cout // 8) * 8, -(-cout // 8) * 8
+            ws.append(nn.functional.pad(k.reshape(-1), (0, wlen - cin * cout)))
+            bs.append(nn.functional.pad(b, (0, blen - cout)))
+            woff += wlen
+            boff += blen
+        if layers[0][0] != 4 * E or layers[-1][1] != 3:
+            raise ValueError(f"NIF MLP must map {4 * E} features to 3 outputs, "
+                             f"got {layers[0][0]} -> {layers[-1][1]}")
+        self.layers = tuple(layers)  # (cin, cout, relu, concat) per layer
+        self.offsets = tuple((r[4], r[5]) for r in rows)  # (woff, boff)
+        self.register_buffer("w", torch.cat(ws).to(torch.bfloat16))
+        self.register_buffer("b", torch.cat(bs))
+        self.register_buffer("table", torch.tensor(rows, dtype=torch.int32))
+        self.register_buffer("econst", torch.from_numpy(np.array(
+            [np.float32(rotation), np.float32(max_),
+             *np.asarray(mean, np.float32).ravel()], np.float32)))
 
     @property
     def num_layers(self) -> int:
-        return len(self.config.activations)
+        return len(self.layers)
 
     def layer(self, l: int) -> tuple[torch.Tensor, torch.Tensor]:
-        return getattr(self, f"w{l}"), getattr(self, f"b{l}")
+        """Layer l's bf16 kernel [cin, cout] and f32 bias [cout] (views)."""
+        (cin, cout, _, _), (woff, boff) = self.layers[l], self.offsets[l]
+        return (self.w[woff:woff + cin * cout].view(cin, cout),
+                self.b[boff:boff + cout])
+
+    @property
+    def rotation(self) -> torch.Tensor:
+        return self.econst[0]
+
+    @property
+    def max(self) -> torch.Tensor:
+        return self.econst[1]
+
+    @property
+    def mean(self) -> torch.Tensor:
+        return self.econst[2:5]
+
+    @property
+    def width(self) -> int:
+        """Activation row width: the widest layer input or output, even."""
+        m = max(max(cin, cout) for cin, cout, _, _ in self.layers)
+        return m + (m & 1)
+
+    @property
+    def macs(self) -> int:
+        """Multiply-adds per direction."""
+        return sum(cin * cout for cin, cout, _, _ in self.layers)
 
     @property
     def device(self) -> torch.device:
-        return self.w0.device
+        return self.w.device
 
     def forward(self, dirs: torch.Tensor) -> torch.Tensor:
         from ..ops.env import env_mlp

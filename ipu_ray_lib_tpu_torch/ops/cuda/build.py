@@ -202,28 +202,28 @@ def launch_bank(rec, done, accum, *, spp: int) -> None:
     _raise_on(err, "bank")
 
 
-def launch_env_mlp(dirs, out, packed) -> None:
+def launch_env_mlp(dirs, out, env) -> None:
     """Env MLP of ``dirs`` [N, 3] f32 into ``out`` [N, 3] f32 (RGB), with
-    the weights of a :class:`~ipu_ray_lib_tpu_torch.ops.env.PackedEnv`."""
+    the packed weights of a :class:`~ipu_ray_lib_tpu_torch.nif.model.NifEnv`."""
     n = dirs.shape[0]
-    L = len(packed.layers)
+    L = env.num_layers
     _check("dirs", dirs, torch.float32, (n, 3))
     _check("out", out, torch.float32, (n, 3))
-    _check("w", packed.w, torch.bfloat16)
-    _check("b", packed.b, torch.float32)
-    _check("table", packed.table, torch.int32, (L, 6))
-    _check("econst", packed.econst, torch.float32, (5,))
-    _same_device(dirs, out, packed.w, packed.b, packed.table, packed.econst)
+    _check("w", env.w, torch.bfloat16)
+    _check("b", env.b, torch.float32)
+    _check("table", env.table, torch.int32, (L, 6))
+    _check("econst", env.econst, torch.float32, (5,))
+    _same_device(dirs, out, env.w, env.b, env.table, env.econst)
     lib = load()
-    E, width = packed.embedding_dimension, packed.width
+    E, width = env.config.embedding_dimension, env.width
     smem = lib.env_mlp_smem_bytes(width, E)
     if smem > 232448:
         raise ValueError(f"env MLP of width {width} needs {smem} bytes of "
                          "shared memory per block (227 KB available)")
     with torch.cuda.device(dirs.device):
         err = lib.env_mlp_launch(
-            dirs.data_ptr(), out.data_ptr(), n, packed.w.data_ptr(),
-            packed.b.data_ptr(), packed.table.data_ptr(), L, E, width,
-            int(packed.log_tone_map), packed.econst.data_ptr(),
+            dirs.data_ptr(), out.data_ptr(), n, env.w.data_ptr(),
+            env.b.data_ptr(), env.table.data_ptr(), L, E, width,
+            int(env.config.log_tone_map), env.econst.data_ptr(),
             _stream(dirs.device))
     _raise_on(err, "env_mlp")

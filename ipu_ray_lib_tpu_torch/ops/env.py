@@ -1,8 +1,9 @@
 """The NIF environment MLP: escape directions -> RGB radiance.
 
 Port of the env branch of the TPU megakernel (``_env``,
-ipu_ray_lib_tpu/ops/pallas/megakernel.py:2304-2361) and of its packer
-``pack_env_mlp`` (:2507-2558). Two implementations with one contract:
+ipu_ray_lib_tpu/ops/pallas/megakernel.py:2304-2361). Its weights come
+packed by :class:`~ipu_ray_lib_tpu_torch.nif.model.NifEnv` (the port's
+``pack_env_mlp``, :2507-2558). Two implementations with one contract:
 
 * the CUDA kernel (``ops/cuda/env_mlp.cu``) for CUDA tensors;
 * :func:`env_mlp_ref`, plain torch, for CPU tensors and for checking the
@@ -17,8 +18,6 @@ kernel's; it is slow and meant for small batches and checks.
 
 from __future__ import annotations
 
-from dataclasses import dataclass
-
 import torch
 
 from ..nif.model import decode_rgb, equirect_uvn, fourier_features
@@ -30,68 +29,6 @@ launches = 0
 def reset_launches() -> None:
     global launches
     launches = 0
-
-
-@dataclass
-class PackedEnv:
-    """The MLP packed for the kernel (``pack_env_mlp``'s layout without the
-    128 padding): layer l's bf16 kernel [cin, cout] row-major at ``w``
-    [woff[l]:], its f32 bias at ``b`` [boff[l]:]; ``table`` [L, 6] int32
-    rows (cin, cout, relu, concat, woff, boff); ``econst`` [5] f32:
-    rotation, max, mean (BGR)."""
-
-    layers: tuple  # (cin, cout, relu, concat) per layer
-    embedding_dimension: int
-    log_tone_map: bool
-    w: torch.Tensor
-    b: torch.Tensor
-    table: torch.Tensor
-    econst: torch.Tensor
-
-    @property
-    def width(self) -> int:
-        """Activation row width: the widest layer input or output, even."""
-        m = max(max(cin, cout) for cin, cout, _, _ in self.layers)
-        return m + (m & 1)
-
-    @property
-    def macs(self) -> int:
-        """Multiply-adds per direction."""
-        return sum(cin * cout for cin, cout, _, _ in self.layers)
-
-
-def pack_env_mlp(env) -> PackedEnv:
-    """Pack a :class:`~ipu_ray_lib_tpu_torch.nif.model.NifEnv` for the
-    kernel, on the env's device. Offsets are multiples of 8 elements, so
-    every layer's weights start 16-byte aligned."""
-    cfg = env.config
-    E = cfg.embedding_dimension
-    layers, ws, bs, rows = [], [], [], []
-    woff = boff = 0
-    for l in range(env.num_layers):
-        w, b = env.layer(l)
-        cin, cout = int(w.shape[0]), int(w.shape[1])
-        relu = cfg.activations[l] == "relu"
-        concat = bool(cfg.concat_before[l])
-        layers.append((cin, cout, relu, concat))
-        rows.append([cin, cout, int(relu), int(concat), woff, boff])
-        wpad = -(-cin * cout // 8) * 8
-        bpad = -(-cout // 8) * 8
-        ws.append(torch.nn.functional.pad(w.reshape(-1), (0, wpad - cin * cout)))
-        bs.append(torch.nn.functional.pad(b, (0, bpad - cout)))
-        woff += wpad
-        boff += bpad
-    if layers[0][0] != 4 * E or layers[-1][1] != 3:
-        raise ValueError(f"NIF MLP must map {4 * E} features to 3 outputs, "
-                         f"got {layers[0][0]} -> {layers[-1][1]}")
-    dev = env.device
-    return PackedEnv(
-        layers=tuple(layers), embedding_dimension=E,
-        log_tone_map=bool(cfg.log_tone_map),
-        w=torch.cat(ws).contiguous(), b=torch.cat(bs).contiguous(),
-        table=torch.tensor(rows, dtype=torch.int32, device=dev),
-        econst=torch.cat([env.rotation.reshape(1), env.max.reshape(1),
-                          env.mean]).to(torch.float32).contiguous())
 
 
 def _check(dirs: torch.Tensor, env) -> None:
@@ -107,22 +44,22 @@ def env_mlp_ref(dirs: torch.Tensor, env) -> torch.Tensor:
     kernel's order, on any device."""
     _check(dirs, env)
     cfg = env.config
-    E = cfg.embedding_dimension
     un, vn = equirect_uvn(dirs, env.rotation)
-    feats = fourier_features(un, vn, E)
+    feats = fourier_features(un, vn, cfg.embedding_dimension)
     x = feats
-    for l in range(env.num_layers):
+    for l, (_, _, relu, concat) in enumerate(env.layers):
         w, b = env.layer(l)
-        if cfg.concat_before[l]:
+        if concat:
             x = torch.cat([x, feats], dim=1)
-        xb = x.to(torch.bfloat16).to(torch.float32)
+        # [cin, N]: input i's column for every direction, contiguous
+        xt = x.to(torch.bfloat16).to(torch.float32).t().contiguous()
         wf = w.to(torch.float32)
         acc = torch.zeros((x.shape[0], wf.shape[1]), dtype=torch.float32,
                           device=x.device)
         for i in range(wf.shape[0]):  # ascending input index
-            acc = acc + xb[:, i:i + 1] * wf[i]
+            acc.addcmul_(xt[i, :, None], wf[i])  # exact product, one rounding
         x = acc + b
-        if cfg.activations[l] == "relu":
+        if relu:
             x = torch.clamp_min(x, 0.0)
     return decode_rgb(x, env.max, env.mean, cfg.log_tone_map)
 
@@ -142,6 +79,6 @@ def env_mlp(dirs: torch.Tensor, env) -> torch.Tensor:
 
     out = torch.empty_like(dirs)
     if dirs.shape[0]:
-        launch_env_mlp(dirs.contiguous(), out, pack_env_mlp(env))
+        launch_env_mlp(dirs.contiguous(), out, env)
         launches += 1
     return out

@@ -21,6 +21,7 @@ import numpy as np
 import pytest
 import torch
 
+import jax
 import jax.numpy as jnp
 from jax import lax
 
@@ -147,13 +148,14 @@ def test_structure_matches_jax(urban):
 
 
 def test_packed_layers_match_jax_pack(urban):
-    """pack_env_mlp's bf16 wstack / f32 ebias / econst, padding removed."""
+    """NifEnv's one packed layout is pack_env_mlp's bf16 wstack / f32
+    ebias / econst with the padding removed."""
     env, env_fn, params = urban
     (P, E, layers, log_tm), (wstack, ebias, econst) = JM.pack_env_mlp(
         env_fn.nif_config, params)
-    packed = envk.pack_env_mlp(env)
-    assert packed.layers == layers and packed.embedding_dimension == E
-    assert packed.log_tone_map == log_tm
+    packed = env
+    assert packed.layers == layers and env.config.embedding_dimension == E
+    assert env.config.log_tone_map == log_tm
     w = np.asarray(wstack.astype(jnp.float32))
     be = np.asarray(ebias)
     for l, (cin, cout, _, _) in enumerate(layers):
@@ -169,6 +171,10 @@ def test_packed_layers_match_jax_pack(urban):
     assert packed.macs == 441280
     assert packed.table.dtype == torch.int32
     assert all(int(o) % 8 == 0 for o in packed.table[:, 4:].flatten())
+    for l, (cin, cout, _, _) in enumerate(layers):  # layer() views it
+        w_l, b_l = env.layer(l)
+        assert w_l.shape == (cin, cout) and b_l.shape == (cout,)
+        assert w_l.data_ptr() == env.w[int(packed.table[l, 4]):].data_ptr()
 
 
 def _directions(n, seed):
@@ -202,6 +208,25 @@ def test_uv_map_matches_kernel_twins(rot_deg):
     un, vn = equirect_uvn(torch.from_numpy(d), torch.tensor(rot))
     np.testing.assert_array_equal(un.numpy(), np.asarray(un_j)[0])
     np.testing.assert_array_equal(vn.numpy(), np.asarray(vn_j)[0])
+
+
+def test_jitted_uv_map_differs_from_op_by_op():
+    """The same jnp UV map under ``jax.jit``, as the JAX render runs it in
+    its jitted kernel, rounds otherwise than op by op. Measured on the
+    directions of test_uv_map_matches_kernel_twins: un differs in 41.6%
+    and vn in 42.7% of them (66.3% either), by at most 2.4e-7 (two ulps
+    of 1). The port follows the op-by-op form (the test above); the E =
+    12 features scale that by up to 2,048. What it does to a render is
+    in tests/test_torch_env.py."""
+    d = _directions(4096, 1)
+    un_o, vn_o = (np.asarray(a)[0] for a in _jax_uvn(d, 0.0))
+    un_j, vn_j = (np.asarray(a)[0]
+                  for a in jax.jit(lambda dd: _jax_uvn(dd, 0.0))(d))
+    un_d, vn_d = un_o != un_j, vn_o != vn_j
+    assert 0.3 < un_d.mean() < 0.55 and 0.3 < vn_d.mean() < 0.55
+    assert 0.55 < (un_d | vn_d).mean() < 0.8
+    assert np.abs(un_o - un_j).max() <= 2.4e-7
+    assert np.abs(vn_o - vn_j).max() <= 2.4e-7
 
 
 def test_features_are_correctly_rounded():
