@@ -1,20 +1,24 @@
 #!/usr/bin/env python3
 """GPU smoke test of the PyTorch + CUDA port (ipu_ray_lib_tpu_torch).
 
-Drives the port's two main paths on one CUDA card through ``build_scene``
--> ``render_streaming``, after checking every kernel against its plain
-torch version:
+Drives the port's paths on one CUDA card through ``build_scene`` ->
+``render_streaming``, after checking every kernel against its plain torch
+version:
 
 * the Cornell box with the monkey plinth, 1440x1440 at 64 spp (kernel
   K1, ``ops/cuda/megakernel.cu``);
 * the spheres + NIF environment-light flagship: ``make_primitive_scene``
   lit by ``assets/nif/synthetic_urban_4k``, 512x512 at 64 spp (K1 in
-  record mode, the env MLP ``ops/cuda/env_mlp.cu`` and the bank kernel).
+  record mode, the env MLP ``ops/cuda/env_mlp.cu`` and the bank kernel);
+* scenes of any size in HBM mode (K3, the same kernel's HBM walk): the
+  stress heightfield ladder at grids 512, 1024 and 2048 (522,242,
+  2,093,058 and 8,380,418 triangles; the bf16 payload engages at 2048)
+  at 256x256 spp 8, and grid 512 at 1440x1440 spp 64.
 
 Run from the repository root:
 
-    python3 chip_smoke.py            # the full check (one card)
-    python3 chip_smoke.py --quick    # build + small-scene checks only
+    python3 chip_smoke.py              # the full check (one card)
+    python3 chip_smoke.py --quick      # build + small-scene checks only
 
 Phases (any failed check raises, so the exit code is non-zero):
   1. card identity (nvidia-smi name, power limit); nvcc build of every
@@ -27,7 +31,13 @@ Phases (any failed check raises, so the exit code is non-zero):
      tests/golden/spheres_nif48x32_spp2.npy, held to the CPU test's
      tolerance) and 64x64 spp 4; the env MLP kernel vs its plain version
      on 65,536 seeded directions, bit for bit;
-     (--quick stops here)
+  3b. HBM mode (K3), kernel route vs plain route, rtol = atol = 1e-5 and
+     ``done`` exact: stress24 32x32 spp 2 max_path_length 4 (also
+     ``render_streaming`` vs tests/golden/stress24_hbm32x32_spp2.npy,
+     done == 2048); Cornell + monkey 64x64 spp 4 with the f32 and with
+     the bf16 payload; stress24 with the bf16 payload; stress24 lit by
+     the NIF, 48x32 spp 2 (record mode, env MLP, bank); --quick stops
+     here;
   4. Cornell + monkey at the main path's slot pool (1440^2 stream,
      R = 131072, J = 16) with spp 1 per slot — spp is the one cut there —
      which also counts the walk's (segment, block) pairs for K1's bound;
@@ -51,7 +61,18 @@ Phases (any failed check raises, so the exit code is non-zero):
      atol = 1e-5; the three kernels alone with CUDA events; the env MLP
      kernel against its plain version on every escape of the flagship
      (bit for bit); a torch.matmul chain (the library yardstick, never
-     called by the port) on those escapes and on 65,536 directions.
+     called by the port) on those escapes and on 65,536 directions;
+  8. the stress ladder, grids 512, 1024 and 2048 at 256^2 spp 8,
+     max_path_length 5, in HBM mode: host build time; kernel vs plain at
+     the frame's pool with spp 1, where the plain version counts the
+     walk at each level (K3's bound); one warm-up and three timed
+     renders, done == 256^2 * 8, finite image, K3 launched and K1 not;
+     K3 alone with CUDA events; the frame's own pixels on its first
+     slots and on a block of slots around its median lit slot, replayed
+     by both routes, rtol = atol = 1e-5;
+  9. grid 512 at the Cornell main path's traffic, 1440^2 spp 64: kernel
+     vs plain at its pool with spp 1 (the walk counts for K3's bound),
+     one warm-up and three timed renders, done, finite, K3 alone.
 Before the last two lines: a JSON object with each kernel's launches on
 its main path, its largest deviation from its plain version, its times
 and its bound (the least time the card could take for the same work);
@@ -77,6 +98,17 @@ FULL, SPP = 1440, 64
 NIF_SIZE, NIF_SPP = 512, 64
 NIF_DIR = os.path.join(ROOT, "assets", "nif", "synthetic_urban_4k")
 ENV_DIRS = 65536      # seeded directions of the env MLP checks
+SUB_MAIN = 256        # Cornell main-path slots replayed by both versions
+SUB_NIF = 2048        # flagship slots replayed by both routes
+# The stress ladder at the JAX package's big-scene configuration
+# (experiments/bigscene_bench.py:29-45): 256^2, spp 8, max_path_length 5.
+LADDER = (512, 1024, 2048)
+BIG_SIZE, BIG_SPP, BIG_MPL = 256, 8, 5
+MAIN_GRID = 512       # the rung also rendered at the Cornell main traffic
+# Slots of each rung's frame replayed by both routes: (its first slots, a
+# block around its median lit slot), sized so the plain replay stays
+# within about a minute.
+LADDER_REPLAY = {512: (4096, 4096), 1024: (1024, 1024), 2048: (1024, 512)}
 
 # The spheres + urban_4k golden is the JAX package's jitted render; the
 # port holds it to the split tolerance of tests/test_torch_env.py
@@ -93,6 +125,7 @@ PEAK_BF16 = 989e12        # FLOP/s on the tensor cores
 PEAK_BYTES = 3.35e12      # HBM bytes/s
 # f32 add/sub/mul/div of one test, counted from ops/cuda/megakernel.cu
 # (compares, min/max and selects not counted, so the bound stays low):
+SLAB_TEST_FLOPS = 15  # one AABB: per axis 2 sub, 2 mul, 1 scale
 ROW_TEST_FLOPS = 49   # row_chain 42 (6 dots of 5, recip 4, t 2, b1/b2 6)
 #                       + acceptance 7 (et 2, eps 3, b1+b2 and 1+eps 2)
 AP_TEST_FLOPS = 45    # one sphere/disc row: oc 3, tca 5, l2 7, td 2, t 2,
@@ -154,7 +187,8 @@ def main() -> int:
     from ipu_ray_lib_tpu_torch.runtime.device import cuda_device, gpu_identity
     from ipu_ray_lib_tpu_torch.scene.build import build_scene
     from ipu_ray_lib_tpu_torch.scene.builtin import (make_cornell_box_scene,
-                                                     make_primitive_scene)
+                                                     make_primitive_scene,
+                                                     make_stress_scene)
 
     dev = cuda_device(0)
     identity = gpu_identity()
@@ -169,7 +203,7 @@ def main() -> int:
     log(cuda_build.build_info.get("log", ""))
 
     mesh = os.path.join(ROOT, "assets", "monkey_bust.glb")
-    err = {"k1": 0.0, "k1_rec": 0.0, "env": 0.0, "bank": 0.0}
+    err = {"k1": 0.0, "k1_rec": 0.0, "env": 0.0, "bank": 0.0, "k3": 0.0}
 
     def stream(params, chunk=1 << 17):
         rows_np, cols_np, _ = _pixel_stream(params)
@@ -184,11 +218,13 @@ def main() -> int:
         return int((~np.isclose(a, b, rtol=TOL, atol=TOL)).any(axis=1).sum())
 
     def compare(name, scene, params, rows, cols, R, J, n_valid, spp,
-                seed=1442, env=None, stats=None, key="k1"):
+                seed=1442, env=None, stats=None, key="k1", slot0=0):
         """Kernel route and plain route on the same stream and seed (one
-        dispatch of K = J*spp paths per slot)."""
+        dispatch of K = J*spp paths per slot; the slots are slots
+        [slot0, slot0 + R) of their pool)."""
         kw = dict(params=params, slots=R, j_per_slot=J, spp=spp,
-                  max_iters=J * spp * params.max_path_length + 16, env=env)
+                  max_iters=J * spp * params.max_path_length + 16, env=env,
+                  slot0=slot0)
         (fk, dk), t_k = timed(lambda: mk.megakernel_path_trace(
             scene, rows, cols, seed, n_valid, **kw))
         (fp, dp), t_p = timed(lambda: mk.megakernel_path_trace_ref(
@@ -208,6 +244,31 @@ def main() -> int:
         rows, cols, R, J, n_pix = stream(params)
         return compare(name, scene, params, rows, cols, R, J, n_pix, spp,
                        **kw)
+
+    def replay(name, scene, params, rgb, rows, cols, R, J, spp, slot0, n,
+               key, env=None):
+        """A frame's own pixels on its slots [slot0, slot0 + n) (all J
+        stream rows, all spp samples; the frame ran one spp batch seeded
+        params.rng_seed), replayed by the kernel and the plain route and
+        held against the frame's image at rtol = atol = 1e-5."""
+        idx = (np.arange(J)[:, None] * R + slot0 + np.arange(n)[None]).ravel()
+        want = rgb.reshape(-1, 3)[_pixel_stream(params)[2][idx]]
+        idx_t = torch.from_numpy(idx).to(dev)
+        sub_k, sub_p, t_k, t_p = compare(
+            f"{name}, slots {slot0}..{slot0 + n - 1}", scene, params,
+            rows[idx_t], cols[idx_t], n, J, n * J, spp,
+            seed=params.rng_seed, env=env, key=key, slot0=slot0)
+        for what, got in (("kernel", sub_k), ("plain", sub_p)):
+            bad, e = close_count(got, want)
+            err[key] = max(err[key], e)
+            log(f"[{name} pixels] {what} on slots {slot0}..{slot0 + n - 1} "
+                f"vs the frame's image: {bad_pixels(got, want)} of {n * J} "
+                f"pixels differ, max |diff| {e:.3g}, lit "
+                f"{int((want.sum(axis=1) > 0).sum())}")
+            if bad:
+                raise AssertionError(f"{name} pixels disagree with the "
+                                     f"{what} route ({bad} elements)")
+        return t_k, t_p
 
     # ---- 2. Cornell: kernel vs plain, and vs the golden ----
     gs, gp = build_scene(make_cornell_box_scene(None, box_only=False),
@@ -266,6 +327,151 @@ def main() -> int:
         f"{bool(torch.isfinite(env_k).all())}")
     if not same:
         raise AssertionError("env MLP kernel disagrees with its plain version")
+
+    # ---- 3b. HBM mode (K3): kernel vs plain, the stress golden ----
+    def hbm_scene(scene_desc, w, h, spp, **kw):
+        return build_scene(scene_desc, device=dev, image_width=w,
+                           image_height=h, samples_per_pixel=spp,
+                           intersector="pallas-hbm", **kw)
+
+    hs, hp = hbm_scene(make_stress_scene(24), 32, 32, 2, max_path_length=4)
+    kernel_vs_plain("stress24 HBM 32x32", hs, hp, 2, key="k3")
+    hgold = np.load(os.path.join(ROOT, "tests", "golden",
+                                 "stress24_hbm32x32_spp2.npy"))
+    rgb, done = render_streaming(hs, hp)
+    bad, e = close_count(rgb, hgold)
+    log(f"[stress24 HBM golden] render_streaming vs golden: {bad} elements "
+        f"outside 1e-5, max |diff| {e:.3g}, done {done}")
+    if bad or done != 32 * 32 * 2:
+        raise AssertionError("HBM golden image mismatch")
+    hm, hmp = hbm_scene(make_cornell_box_scene(mesh, box_only=False), 64,
+                        64, 4)
+    kernel_vs_plain("monkey 64x64 HBM", hm, hmp, 4, key="k3")
+    hm, hmp = hbm_scene(make_cornell_box_scene(mesh, box_only=False), 64,
+                        64, 4, payload_split=True)
+    kernel_vs_plain("monkey 64x64 HBM, bf16 payload", hm, hmp, 4, key="k3")
+    hs, hp = hbm_scene(make_stress_scene(24), 32, 32, 2, max_path_length=4,
+                       payload_split=True)
+    kernel_vs_plain("stress24 HBM 32x32, bf16 payload", hs, hp, 2, key="k3")
+    hs, hp = hbm_scene(make_stress_scene(24), 48, 32, 2)
+    kernel_vs_plain("stress24 HBM + NIF 48x32", hs, hp, 2, env=env, key="k3")
+
+    def records_vs_plain(name, scene, params, rows, cols, R, J, n_valid,
+                         walk):
+        """K3 in record mode against the plain route at one path per
+        pixel (spp 1): every finished path's colour, throughput, escape
+        flag and last direction, which follow each hit the walk finds;
+        ``walk`` gains the plain version's counts at each level."""
+        kw = dict(params=params, slots=R, j_per_slot=J, spp=1,
+                  max_iters=J * params.max_path_length + 16)
+        (rk, dk), t_k = timed(lambda: mk.trace_records(
+            scene, rows, cols, 1442, n_valid, **kw))
+        (rp_, dp), t_p = timed(lambda: mk._trace(
+            mk._accumulate_plain, scene, rows, cols, 1442, n_valid,
+            record=True, stats=walk, **kw))
+        real = (torch.arange(J, device=dev)[:, None]
+                < dp.to(dev)[None, :])
+        got, want = rk[:, real].cpu().numpy(), rp_[:, real].cpu().numpy()
+        bad, e = close_count(got, want)
+        err["k3"] = max(err["k3"], e)
+        n_esc = int(want[6].sum())
+        log(f"[{name}] R={R} J={J} spp 1, record mode: kernel {t_k:.3f} s, "
+            f"plain {t_p:.3f} s, done {int(dk.sum())}/{int(dp.sum())}, "
+            f"{bad} of {got.size} record fields differ, max |diff| {e:.3g}; "
+            f"{got.shape[1]} paths, {n_esc} escaped; walk {walk}")
+        if bad or not torch.equal(dk.cpu().to(torch.int64), dp.cpu()):
+            raise AssertionError(f"{name}: K3 records disagree with the "
+                                 f"plain version ({bad} fields)")
+        return t_k, t_p
+
+    def hbm_bound(scene, walk, scale, R, J):
+        """K3's bound: the larger of its operations (the plain walk's
+        counts x scale) at the f32 peak and its bytes (every table read
+        once, the stream read, the accumulator and done written once)."""
+        slab = (walk["group_tests"] + walk["super_tests"]
+                + walk["member_tests"])
+        ops = scale * (slab * SLAB_TEST_FLOPS
+                       + walk["block_tests"] * 128 * ROW_TEST_FLOPS
+                       + walk["segments"] * scene.n_ap * AP_TEST_FLOPS)
+        nbytes = (sum(t.numel() * t.element_size() for t in (
+            scene.p, scene.nrm, scene.baabb, scene.saabb, scene.sgaabb,
+            scene.ap, scene.apay)) + R * J * (2 + 3) * 4 + R * 4)
+        return max((ops / PEAK_F32 * 1e3, "operations"),
+                   (nbytes / PEAK_BYTES * 1e3, "bytes")), ops, nbytes
+
+    def rung(grid, width, spp, mpl, replays):
+        """One scene of the stress ladder: host build, the walk counts of
+        the plain version at the frame's pool with spp 1 (kernel vs plain
+        there too), one warm-up and three timed renders, K3 alone, the
+        frame's own pixels replayed by both routes."""
+        t0 = time.perf_counter()
+        desc = make_stress_scene(grid)
+        t_make = time.perf_counter() - t0
+        rs, rp = build_scene(desc, device=dev, image_width=width,
+                             image_height=width, samples_per_pixel=spp,
+                             max_path_length=mpl)
+        torch.cuda.synchronize()
+        t_build = time.perf_counter() - t0
+        n_tri = len(desc.meshes[0].triangles)
+        nb = rs.num_blocks
+        split = bool((rs.nrm == rs.nrm.to(torch.bfloat16).float()).all())
+        log(f"[stress{grid}] {n_tri} triangles, {nb} blocks, "
+            f"{rs.saabb.shape[0]} supers, {rs.sgaabb.shape[0]} groups, "
+            f"{nb * 128} padded rows, bf16 payload {split}; intersector "
+            f"{rp.intersector}; host build {t_build:.2f} s (scene "
+            f"{t_make:.2f} s); tables "
+            f"{(rs.p.numel() + rs.nrm.numel()) * 4 / 1e6:.1f} MB; "
+            f"{width}^2 spp {spp} max_path_length {mpl}")
+        if rp.intersector != "pallas-hbm":
+            raise AssertionError("the ladder must run the HBM walk")
+        rows, cols, R, J, n_pix = stream(rp)
+        walk = {}
+        t_k1, t_p1 = records_vs_plain(f"stress{grid} pool", rs, rp, rows,
+                                      cols, R, J, n_pix, walk)
+        if J * spp > MAX_K_PER_DISPATCH or spp > SPP_BATCH:
+            raise AssertionError("the frame no longer runs one spp batch")
+        mk.reset_launches()
+        (rgb, done), t_warm = timed(lambda: render_streaming(rs, rp))
+        times = []
+        for _ in range(3):
+            (rgb, done), t = timed(lambda: render_streaming(rs, rp))
+            times.append(t)
+        n_launch = mk.hbm_launches
+        paths = width * width * spp
+        finite = bool(np.isfinite(rgb).all())
+        log(f"[stress{grid} frame] {width}^2 spp {spp}: warm-up "
+            f"{t_warm:.3f} s, runs {', '.join(f'{t:.4f}' for t in times)} s;"
+            f" best {min(times):.4f} s = {paths / min(times) / 1e6:.2f} M "
+            f"paths/s; mean {float(rgb.mean()):.6f}; done {done}; finite "
+            f"{finite}; K3 launches {n_launch}, K1 launches {mk.launches}")
+        if done != paths or not finite or rgb.shape != (width, width, 3):
+            raise AssertionError(f"stress{grid} frame: done {done} of "
+                                 f"{paths}, finite {finite}")
+        if n_launch < 1 or mk.launches:
+            raise AssertionError("the frame did not run K3 alone")
+        kw = dict(params=rp, slots=R, j_per_slot=J, spp=spp,
+                  max_iters=J * spp * mpl + 16, k_total=J * spp)
+        k_ms, _ = event_ms(lambda: mk.megakernel_path_trace(
+            rs, rows, cols, rp.rng_seed, n_pix, **kw))
+        (bound, by), ops, nbytes = hbm_bound(rs, walk, spp, R, J)
+        log(f"[stress{grid} K3 alone] {', '.join(f'{t:.2f}' for t in k_ms)} "
+            f"ms (CUDA events); bound {bound:.3f} ms ({by}: {ops:.4g} FLOP, "
+            f"{nbytes / 1e6:.1f} MB)")
+        # The slots whose pixels the frame lit (slot s owns stream
+        # positions s + j*R):
+        lit = rgb.reshape(-1, 3)[_pixel_stream(rp)[2]].sum(axis=1) > 0
+        lit = np.flatnonzero(np.pad(lit, (0, R * J - lit.size))
+                             .reshape(J, R).any(axis=0))
+        if not lit.size:
+            raise AssertionError(f"stress{grid} frame: no lit pixel")
+        n_first, n_lit = (min(n, R) for n in replays)
+        lit0 = min(int(lit[lit.size // 2]) // 256 * 256, R - n_lit)
+        for slot0, n in ((0, n_first), (lit0, n_lit)):
+            replay(f"stress{grid} frame", rs, rp, rgb, rows, cols, R, J,
+                   spp, slot0, n, "k3")
+        return dict(build_s=t_build, times=times, k_ms=k_ms, bound=bound,
+                    by=by, launches=n_launch, walk=walk, plain_s=t_p1,
+                    kernel_s=t_k1, R=R, J=J)
 
     if quick:
         log("quick mode: stopping before the full-size phases")
@@ -335,23 +541,8 @@ def main() -> int:
     # here, seeded params.rng_seed, weight 1), replays those slots' paths.
     if J * SPP > MAX_K_PER_DISPATCH or SPP > SPP_BATCH:
         raise AssertionError("the main path no longer runs one spp batch")
-    SUB = 256
-    idx = (np.arange(J)[:, None] * R + np.arange(SUB)[None]).ravel()
-    want = rgb.reshape(-1, 3)[_pixel_stream(params)[2][idx]]
-    sub_k, sub_p, _, _ = compare(
-        f"monkey 1440^2 main path, first {SUB} slots", scene, params,
-        rows[torch.from_numpy(idx).to(dev)],
-        cols[torch.from_numpy(idx).to(dev)], SUB, J, SUB * J, SPP,
-        seed=params.rng_seed)
-    for what, got in (("kernel", sub_k), ("plain", sub_p)):
-        bad, e = close_count(got, want)
-        err["k1"] = max(err["k1"], e)
-        log(f"[main path pixels] {what} on {SUB} slots vs the main path's "
-            f"image: {bad_pixels(got, want)} of {SUB * J} pixels differ, "
-            f"max |diff| {e:.3g}")
-        if bad:
-            raise AssertionError(f"main-path pixels disagree with the {what} "
-                                 f"version ({bad} elements)")
+    replay("monkey 1440^2 main path", scene, params, rgb, rows, cols, R, J,
+           SPP, 0, SUB_MAIN, "k1")
 
     # ---- 6. plain vs kernel time at 256^2 spp 4 (plain, kernel, kernel, plain) ----
     ss, sp = build_scene(make_cornell_box_scene(mesh, box_only=False),
@@ -434,23 +625,8 @@ def main() -> int:
     # The flagship's own pixels at spp 64 against both routes: the first
     # SUB7 slots of its pool replayed with the same J, spp, k_total and
     # seed, as phase 5 does for the Cornell main path.
-    SUB7 = 2048
-    idx7 = (np.arange(J7)[:, None] * R7 + np.arange(SUB7)[None]).ravel()
-    idx7_t = torch.from_numpy(idx7).to(dev)
-    want7 = frgb.reshape(-1, 3)[_pixel_stream(fp)[2][idx7]]
-    sub_k, sub_p, _, _ = compare(
-        f"spheres+NIF {NIF_SIZE}^2 flagship, first {SUB7} slots", fs, fp,
-        rows7[idx7_t], cols7[idx7_t], SUB7, J7, SUB7 * J7, NIF_SPP,
-        seed=fp.rng_seed, env=env, key="k1_rec")
-    for what, got in (("kernel", sub_k), ("plain", sub_p)):
-        bad, e = close_count(got, want7)
-        err["k1_rec"] = max(err["k1_rec"], e)
-        log(f"[flagship pixels] {what} route on {SUB7} slots vs the "
-            f"flagship's image: {bad_pixels(got, want7)} of {SUB7 * J7} "
-            f"pixels differ, max |diff| {e:.3g}")
-        if bad:
-            raise AssertionError(f"flagship pixels disagree with the {what} "
-                                 f"route ({bad} elements)")
+    replay(f"spheres+NIF {NIF_SIZE}^2 flagship", fs, fp, frgb, rows7, cols7,
+           R7, J7, NIF_SPP, 0, SUB_NIF, "k1_rec", env=env)
 
     # The three kernels alone at the flagship's shapes (CUDA events):
     rec_ms, (rec, fdone_t) = event_ms(lambda: mk.trace_records(
@@ -528,6 +704,49 @@ def main() -> int:
         f"{', '.join(f'{t:.3f}' for t in env_k_ms)} ms, plain "
         f"{t_ep * 1e3:.1f} ms")
 
+    # ---- 8. the stress ladder in HBM mode (K3) ----
+    ladder = {g: rung(g, BIG_SIZE, BIG_SPP, BIG_MPL, LADDER_REPLAY[g])
+              for g in LADDER}
+
+    # ---- 9. grid 512 at the Cornell main path's traffic: 1440^2 spp 64,
+    # the default max_path_length; the walk counts for K3's bound at its
+    # pool with spp 1 ----
+    bs, bp = build_scene(make_stress_scene(MAIN_GRID), device=dev,
+                         image_width=FULL, image_height=FULL,
+                         samples_per_pixel=SPP)
+    rows9, cols9, R9, J9, n9_pix = stream(bp)
+    walk9 = {}
+    records_vs_plain(f"stress{MAIN_GRID} {FULL}^2 pool", bs, bp, rows9,
+                     cols9, R9, J9, n9_pix, walk9)
+    mk.reset_launches()
+    (rgb9, done9), t_warm = timed(lambda: render_streaming(bs, bp))
+    times9 = []
+    for _ in range(3):
+        (rgb9, done9), t = timed(lambda: render_streaming(bs, bp))
+        times9.append(t)
+    k3_launches = mk.hbm_launches
+    finite9 = bool(np.isfinite(rgb9).all())
+    log(f"[stress{MAIN_GRID} main traffic] {FULL}^2 spp {SPP}: warm-up "
+        f"{t_warm:.3f} s, runs {', '.join(f'{t:.3f}' for t in times9)} s; best "
+        f"{min(times9):.3f} s = {paths / min(times9) / 1e6:.2f} M paths/s; "
+        f"mean {float(rgb9.mean()):.6f}; done {done9}; finite {finite9}; K3 "
+        f"launches {k3_launches}")
+    if done9 != paths or not finite9 or rgb9.shape != (FULL, FULL, 3):
+        raise AssertionError(f"stress{MAIN_GRID} main-traffic frame: done "
+                             f"{done9}, finite {finite9}")
+    if k3_launches < 1 or mk.launches:
+        raise AssertionError("the main-traffic frame did not run K3 alone")
+    kw9 = dict(params=bp, slots=R9, j_per_slot=J9, spp=SPP,
+               max_iters=J9 * SPP * bp.max_path_length + 16,
+               k_total=J9 * SPP)
+    k3_ms, _ = event_ms(lambda: mk.megakernel_path_trace(
+        bs, rows9, cols9, bp.rng_seed, n9_pix, **kw9))
+    (k3_bound, k3_by), k3_ops, k3_bytes = hbm_bound(bs, walk9, SPP, R9, J9)
+    log(f"[stress{MAIN_GRID} main traffic] K3 alone "
+        f"{', '.join(f'{t:.2f}' for t in k3_ms)} ms (CUDA events); bound "
+        f"{k3_bound:.3f} ms ({k3_by}: {k3_ops:.4g} FLOP = the pool's spp-1 "
+        f"counts x{SPP}, {k3_bytes / 1e6:.1f} MB)")
+
     # Bounds (the larger of bytes / 3.35 TB/s and operations / peak):
     macs = env.macs
     seg64 = fwalk["segments"] * (NIF_SPP // CUT)
@@ -542,6 +761,7 @@ def main() -> int:
                    (n_esc * 24 / PEAK_BYTES * 1e3, "bytes")),
         "bank": max((rec_bytes / PEAK_BYTES * 1e3, "bytes"),
                     (n_esc * 6 / PEAK_F32 * 1e3, "operations")),
+        "k3": (k3_bound, k3_by),
     }
     log(f"[bounds] K1 {bounds['k1'][0]:.3f} ms ({bounds['k1'][1]}) vs "
         f"{main_ms:.2f} ms; K1 record mode {bounds['k1_rec'][0]:.3f} ms "
@@ -568,14 +788,13 @@ def main() -> int:
                 "library_shape": library_shape, **more}
 
     mega = "ipu_ray_lib_tpu/ops/pallas/megakernel.py"
+    r512 = ladder[MAIN_GRID]
     log(json.dumps({"kernels": [
-        # ``main_ms``: the name ``ms`` had for this launch before ``ms``
-        # became the main path's time for every kernel (kept one slice).
         entry("megakernel_path_trace", "megakernel.cu", f"{mega}:329",
               "k1", k1_launches, main_ms,
               f"Cornell main path's launch, {FULL}^2 spp {SPP}",
               p_main * 1e3, k_main * 1e3,
-              f"its slot pool (R={R}, J={J}) at spp 1", main_ms=main_ms),
+              f"its slot pool (R={R}, J={J}) at spp 1"),
         entry("megakernel_path_trace[record]", "megakernel.cu",
               f"{mega}:2362", "k1_rec", launches["k1_rec"], median(rec_ms),
               f"flagship launch, spheres+NIF {NIF_SIZE}^2 spp {NIF_SPP}",
@@ -594,6 +813,17 @@ def main() -> int:
               launches["bank"], median(bank_ms),
               f"the flagship's records, {NIF_SIZE}^2 spp {NIF_SPP}",
               t_bank_p * 1e3, median(bank_ms), "the same records"),
+        entry("megakernel_path_trace[hbm]", "megakernel.cu", f"{mega}:1056",
+              "k3", k3_launches, median(k3_ms),
+              f"stress grid 512 (522,242 triangles) at {FULL}^2 spp {SPP}",
+              r512["plain_s"] * 1e3, r512["kernel_s"] * 1e3,
+              f"the grid-512 rung's slot pool (R={r512['R']}, "
+              f"J={r512['J']}) at spp 1, {BIG_SIZE}^2, max_path_length "
+              f"{BIG_MPL}",
+              ladder_ms={str(g): median(r["k_ms"]) for g, r in ladder.items()},
+              ladder_bound_ms={str(g): r["bound"] for g, r in ladder.items()},
+              ladder_shape=f"{BIG_SIZE}^2 spp {BIG_SPP}, max_path_length "
+                           f"{BIG_MPL}"),
     ]}))
     log(identity)
     print(json.dumps({"ok": True, "device": {

@@ -41,7 +41,8 @@ build_info: dict = {}
 
 _P, _I, _U, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint, ctypes.c_float
 _SIGNATURES = {
-    "megakernel_launch": [_P] * 10 + [_I] * 9 + [_U, _I, _I] + [_F] * 5 + [_P],
+    "megakernel_launch": [_P] * 12 + [_I] * 11 + [_U] + [_I] * 4 + [_F] * 5
+                         + [_P],
     "bank_launch": [_P] * 3 + [_I] * 3 + [_P],
     "env_mlp_launch": [_P, _P, _I, _P, _P, _P, _I, _I, _I, _I, _P, _P],
     "env_mlp_smem_bytes": [_I, _I],
@@ -146,19 +147,26 @@ def _raise_on(err: int, what: str) -> None:
 
 
 def launch_megakernel(scene, rows, cols, out, done, *, seed: int,
-                      n_valid: int, j0: int, R: int, J: int, spp: int,
+                      n_valid: int, j0: int, slot0: int, R: int, J: int,
+                      spp: int,
                       K_tot: int, max_iters: int, cam, max_path_length: int,
-                      roulette_start_depth: int, record: bool = False) -> None:
-    """Launch the megakernel on the current stream (asynchronous).
-    ``out`` is the accumulator [J, 3, R] f32, zeroed, or with ``record``
-    the path records [10, J*spp, R] f32 (record mode); ``done`` [R] i32
-    is written."""
+                      roulette_start_depth: int, record: bool = False,
+                      hbm: bool = False) -> None:
+    """Launch the megakernel on the current stream (asynchronous): K1's
+    VMEM-mode walk, or K3's HBM-mode walk with ``hbm``. ``out`` is the
+    accumulator [J, 3, R] f32, zeroed, or with ``record`` the path records
+    [10, J*spp, R] f32 (record mode); ``done`` [R] i32 is written."""
     f32 = torch.float32
     nb = scene.baabb.shape[0]
+    ns, ng = -(-nb // 8), -(-nb // 64)
     n_ap = scene.ap.shape[0]
     _check("p", scene.p, f32, (nb * 128, 16))
     _check("nrm", scene.nrm, f32, (8, nb * 3 * 128))
     _check("baabb", scene.baabb, f32, (nb, 8))
+    _check("saabb", scene.saabb, f32, (ns, 8))
+    _check("sgaabb", scene.sgaabb, f32, (ng, 8))
+    if nb % 8:
+        raise ValueError(f"{nb} blocks are not whole supers of 8")
     _check("ap", scene.ap, f32, (n_ap, 16))
     _check("apay", scene.apay, f32, (16, n_ap))
     _check("rows", rows, f32, (J * R,))
@@ -168,18 +176,19 @@ def launch_megakernel(scene, rows, cols, out, done, *, seed: int,
     else:
         _check("accum", out, f32, (J, 3, R))
     _check("done", done, torch.int32, (R,))
-    _same_device(scene.p, scene.nrm, scene.baabb, scene.ap, scene.apay, rows,
-                 cols, out, done)
+    _same_device(scene.p, scene.nrm, scene.baabb, scene.saabb, scene.sgaabb,
+                 scene.ap, scene.apay, rows, cols, out, done)
     lib = load()
     with torch.cuda.device(rows.device):
         err = lib.megakernel_launch(
             scene.p.data_ptr(), scene.nrm.data_ptr(), scene.baabb.data_ptr(),
+            scene.saabb.data_ptr(), scene.sgaabb.data_ptr(),
             scene.ap.data_ptr(), scene.apay.data_ptr(), rows.data_ptr(),
             cols.data_ptr(), None if record else out.data_ptr(),
             out.data_ptr() if record else None, done.data_ptr(),
-            R, J, spp, K_tot, nb, n_ap, max_path_length,
+            R, J, spp, K_tot, nb, ns, ng, n_ap, max_path_length,
             roulette_start_depth, max_iters, seed & 0xFFFFFFFF, n_valid, j0,
-            cam.sx, cam.sy, cam.inv_w, cam.inv_h, cam.aa,
+            slot0, int(hbm), cam.sx, cam.sy, cam.inv_w, cam.inv_h, cam.aa,
             _stream(rows.device))
     _raise_on(err, "megakernel")
 

@@ -2,9 +2,10 @@
 // pool of ray slots in one kernel.
 //
 // Replaces the TPU kernel ipu_ray_lib_tpu/ops/pallas/megakernel.py
-// `_mega_kernel` (VMEM mode, no environment light), which advances
-// lane-major bundles of slots in lockstep and walks triangle blocks
-// flagged for the whole bundle. Here one thread owns one slot and loops
+// `_mega_kernel` in VMEM mode (K1) and in HBM mode (K3, `hbm=True`,
+// :1056-1549), which advances lane-major bundles of slots in lockstep and
+// walks triangle blocks flagged for the whole bundle. Here one thread owns
+// one slot and loops
 // over the slot's K = J*spp paths on its own: camera ray, per-lane block
 // cull, watertight triangle walk, deferred payload, sphere/disc tests,
 // emission, BxDF sampling, roulette, banking into the slot's accumulator
@@ -15,14 +16,29 @@
 // torch version beside it (ops/megakernel.py, megakernel_path_trace_ref)
 // is the check.
 //
+// The two modes differ only in the triangle walk and the payload
+// (template parameter kHbm; K1's VMEM instantiation is unchanged):
+// - VMEM (K1): a lane tests every block whose AABB its slab admits, and
+//   rounds the winner's barycentrics to bf16 before the payload;
+// - HBM (K3): a lane walks the super-group AABBs, the 8 supers of each
+//   admitted group, then refines each admitted super's 8 member blocks
+//   against their AABBs and its best t at the super's entry (tin *
+//   SLAB_LO < best_t, :1150-1162) and tests the rows of the blocks that
+//   pass, in ascending order; the payload takes the winner's f32
+//   barycentrics (:1362-1365, 1403-1405). The TPU streams each flagged
+//   super through VMEM by DMA; here the tables stay in device memory and
+//   are read through the caches. The TPU culls per bundle, this kernel
+//   per lane: both are conservative.
+//
 // What bounds it on this card: the dense row test, ~50 f32 operations per
 // (ray, triangle) pair with no FMA, over the rows of every block the
-// lane's slab admits; the tables (p: 64 B per triangle row, a few hundred
-// KB for the bench scene) stay in L1/L2, and a warp whose lanes admit the
-// same block reads each row once as a broadcast. What the design does
-// about it now: nothing beyond the per-lane cull — it is the simple,
-// exact first version. Faster walks (BVH per thread, warp-cooperative
-// blocks, wavefront sorting) are later work.
+// lane's walk admits; in HBM mode also ~15 per slab test at each level.
+// The tables (p: 64 B per triangle row) stay in L1/L2 for small scenes;
+// at millions of triangles a lane's blocks come from HBM. A warp whose
+// lanes admit the same block reads each row once as a broadcast. What
+// the design does about it now: nothing beyond the per-lane cull — it is
+// the simple, exact first version. Faster walks (shared-memory row
+// staging, warp-cooperative blocks, wavefront sorting) are later work.
 //
 // Accumulation: accum[(j*3 + c)*R + slot]; a slot's column is written by
 // its own thread only, so no atomics and the per-pixel summation order is
@@ -44,14 +60,18 @@
 #include <cuda_bf16.h>
 #include <stdint.h>
 
+#include <type_traits>
+
 namespace {
 
 constexpr int TB = 128;  // triangle rows per block
+constexpr int SB = 8;    // blocks per super, supers per super-group
 
 // f32 constants by bit pattern, equal to the host's np.float32 values:
 __device__ __forceinline__ float kInf() { return __int_as_float(0x7f800000); }
 __device__ __forceinline__ float kBig() { return __int_as_float(0x7cf0bdc2); }        // 1e37
 __device__ __forceinline__ float kSlabScale() { return __int_as_float(0x3f800005); }  // 1+6e-7
+__device__ __forceinline__ float kSlabLo() { return __int_as_float(0x3f7ffff6); }     // 1-6e-7
 __device__ __forceinline__ float kEpsClamp() { return __int_as_float(0x3a83126f); }   // 1e-3
 __device__ __forceinline__ float kTiny() { return __int_as_float(0x0da24260); }       // 1e-30
 __device__ __forceinline__ float kU1Min() { return __int_as_float(0x2b8cbccc); }      // 1e-12
@@ -64,6 +84,8 @@ struct Params {
   const float* p;      // [nb*TB, 16] triangle rows
   const float* nrm;    // [8, nb*3*TB] normal basis + material
   const float* baabb;  // [nb, 8] block AABBs
+  const float* saabb;  // [ns, 8] super AABBs (HBM mode)
+  const float* sgaabb; // [ng, 8] super-group AABBs (HBM mode)
   const float* ap;     // [n_ap, 16] sphere/disc rows
   const float* apay;   // [16, n_ap] sphere/disc payload
   const float* rows;   // [J*R] pixel rows of the stream
@@ -71,10 +93,10 @@ struct Params {
   float* accum;        // [J*3*R] radiance sums (zeroed), or nullptr
   float* rec;          // [10, K, R] path records, or nullptr: bank directly
   int* done;           // [R] finished paths per slot
-  int R, J, spp, K_tot, nb, n_ap;
+  int R, J, spp, K_tot, nb, ns, ng, n_ap;
   int max_path_length, roulette_start_depth, max_iters;
   uint32_t seed;
-  int n_valid, j0;
+  int n_valid, j0, s0;  // s0: the first slot's index in the pool
   float sx, sy, inv_w, inv_h, aa;
 };
 
@@ -224,6 +246,56 @@ __device__ __forceinline__ RowTest row_chain(const float* c, V3 o, V3 d) {
   return {t, og1 + t * dg1 - c[1], og2 + t * dg2 - c[2], on, r};
 }
 
+// Slab test of one AABB (lo.xyz, hi.xyz; megakernel.py:576-615): admits
+// when tin <= tout and the box is not an inverted padding box; tin is the
+// entry bound.
+__device__ __forceinline__ bool slab(const float* box, V3 o, float ix,
+                                     float iy, float iz, float& tin) {
+  float tout = kBig();
+  tin = 0.0f;
+  {
+    const float t0 = (__ldg(box + 0) - o.x) * ix, t1 = (__ldg(box + 3) - o.x) * ix;
+    tin = jmax(tin, jmin(t0, t1));
+    tout = jmin(tout, jmax(t0, t1) * kSlabScale());
+  }
+  {
+    const float t0 = (__ldg(box + 1) - o.y) * iy, t1 = (__ldg(box + 4) - o.y) * iy;
+    tin = jmax(tin, jmin(t0, t1));
+    tout = jmin(tout, jmax(t0, t1) * kSlabScale());
+  }
+  {
+    const float t0 = (__ldg(box + 2) - o.z) * iz, t1 = (__ldg(box + 5) - o.z) * iz;
+    tin = jmax(tin, jmin(t0, t1));
+    tout = jmin(tout, jmax(t0, t1) * kSlabScale());
+  }
+  return tin <= tout && __ldg(box + 0) < kBig();
+}
+
+// The 128 rows of block b: strictly smaller t replaces, so the lowest row
+// wins a tie.
+__device__ __forceinline__ void walk_block(const float* p, int b, V3 o, V3 d,
+                                           float omag, float& best_t,
+                                           int& best_row) {
+  const float4* rows4 = reinterpret_cast<const float4*>(p) + (size_t)b * TB * 4;
+  for (int r = 0; r < TB; ++r) {
+    float c[16];
+    *reinterpret_cast<float4*>(c + 0) = __ldg(rows4 + r * 4 + 0);
+    *reinterpret_cast<float4*>(c + 4) = __ldg(rows4 + r * 4 + 1);
+    *reinterpret_cast<float4*>(c + 8) = __ldg(rows4 + r * 4 + 2);
+    *reinterpret_cast<float4*>(c + 12) = __ldg(rows4 + r * 4 + 3);
+    const RowTest rt = row_chain(c, o, d);
+    const float et = (c[14] + fabsf(rt.on)) * fabsf(rt.r);
+    const float eps = jmin(c[12] + c[13] * (omag + et), kEpsClamp());
+    const bool ok = (jmin(rt.b1, rt.b2) >= -eps) && (rt.b1 + rt.b2 <= 1.0f + eps) &&
+                    (rt.t > 0.0f);
+    if (ok && rt.t < best_t) {
+      best_t = rt.t;
+      best_row = b * TB + r;
+    }
+  }
+}
+
+template <bool kHbm>
 __global__ void __launch_bounds__(128) megakernel(const Params P) {
   const int s = blockIdx.x * blockDim.x + threadIdx.x;
   if (s >= P.R) return;
@@ -236,8 +308,11 @@ __global__ void __launch_bounds__(128) megakernel(const Params P) {
   const int vj = min(max(-q - P.j0, 0), P.J);
   const int k_cap = vj * P.spp;
   const uint32_t pid_base =
-      (uint32_t)s * (uint32_t)P.K_tot + (uint32_t)(P.j0 * P.spp);
-  const int ncol = P.nb * 3 * TB;
+      (uint32_t)(s + P.s0) * (uint32_t)P.K_tot + (uint32_t)(P.j0 * P.spp);
+  // Table offsets: 64-bit in HBM mode (p holds 134 M floats at grid
+  // 2048); K1 keeps its 32-bit ones (its code, and its speed, unchanged).
+  using Off = typename std::conditional<kHbm, size_t, int>::type;
+  const Off ncol = (Off)P.nb * 3 * TB;
 
   int k = 0, bounce = 0, done = 0;
   bool active = k_cap > 0;
@@ -249,51 +324,75 @@ __global__ void __launch_bounds__(128) megakernel(const Params P) {
     const float omag = jmax(jmax(fabsf(o.x), fabsf(o.y)), fabsf(o.z));
     const uint32_t pid = pid_base + (uint32_t)k;
 
-    // ---- triangle walk over the blocks this lane's slab admits ----
+    // ---- triangle walk ----
     float best_t = INF;
     int best_row = -1;
     const float ix = 1.0f / (d.x == 0.0f ? kTiny() : d.x);
     const float iy = 1.0f / (d.y == 0.0f ? kTiny() : d.y);
     const float iz = 1.0f / (d.z == 0.0f ? kTiny() : d.z);
-    for (int b = 0; b < P.nb; ++b) {
-      const float* box = P.baabb + b * 8;
-      float tin = 0.0f, tout = BIG;
-      {
-        const float t0 = (__ldg(box + 0) - o.x) * ix, t1 = (__ldg(box + 3) - o.x) * ix;
-        tin = jmax(tin, jmin(t0, t1));
-        tout = jmin(tout, jmax(t0, t1) * kSlabScale());
+    if (kHbm) {
+      // super-groups -> supers -> member blocks refined against best t
+      for (int g = 0; g < P.ng; ++g) {
+        float tin;
+        if (!slab(P.sgaabb + (size_t)g * 8, o, ix, iy, iz, tin)) continue;
+        const int s_end = min((g + 1) * SB, P.ns);
+        for (int sp = g * SB; sp < s_end; ++sp) {
+          if (!slab(P.saabb + (size_t)sp * 8, o, ix, iy, iz, tin)) continue;
+          unsigned need = 0u;
+          for (int m = 0; m < SB; ++m) {
+            if (slab(P.baabb + ((size_t)sp * SB + m) * 8, o, ix, iy, iz, tin) &&
+                tin * kSlabLo() < best_t)
+              need |= 1u << m;
+          }
+          for (int m = 0; m < SB; ++m)
+            if ((need >> m) & 1u) walk_block(P.p, sp * SB + m, o, d, omag, best_t, best_row);
+        }
       }
-      {
-        const float t0 = (__ldg(box + 1) - o.y) * iy, t1 = (__ldg(box + 4) - o.y) * iy;
-        tin = jmax(tin, jmin(t0, t1));
-        tout = jmin(tout, jmax(t0, t1) * kSlabScale());
-      }
-      {
-        const float t0 = (__ldg(box + 2) - o.z) * iz, t1 = (__ldg(box + 5) - o.z) * iz;
-        tin = jmax(tin, jmin(t0, t1));
-        tout = jmin(tout, jmax(t0, t1) * kSlabScale());
-      }
-      if (!(tin <= tout && __ldg(box + 0) < BIG)) continue;
-      const float4* rows4 = reinterpret_cast<const float4*>(P.p) + (size_t)b * TB * 4;
-      for (int r = 0; r < TB; ++r) {
-        float c[16];
-        *reinterpret_cast<float4*>(c + 0) = __ldg(rows4 + r * 4 + 0);
-        *reinterpret_cast<float4*>(c + 4) = __ldg(rows4 + r * 4 + 1);
-        *reinterpret_cast<float4*>(c + 8) = __ldg(rows4 + r * 4 + 2);
-        *reinterpret_cast<float4*>(c + 12) = __ldg(rows4 + r * 4 + 3);
-        const RowTest rt = row_chain(c, o, d);
-        const float et = (c[14] + fabsf(rt.on)) * fabsf(rt.r);
-        const float eps = jmin(c[12] + c[13] * (omag + et), kEpsClamp());
-        const bool ok = (jmin(rt.b1, rt.b2) >= -eps) && (rt.b1 + rt.b2 <= 1.0f + eps) &&
-                        (rt.t > 0.0f);
-        if (ok && rt.t < best_t) {
-          best_t = rt.t;
-          best_row = b * TB + r;
+    } else {
+      // K1's block walk, written out here: routed through slab() and
+      // walk_block() it compiled otherwise and ran 2-3% slower on an
+      // H100 (the Cornell 1440^2 spp 64 launch).
+      for (int b = 0; b < P.nb; ++b) {
+        const float* box = P.baabb + b * 8;
+        float tin = 0.0f, tout = BIG;
+        {
+          const float t0 = (__ldg(box + 0) - o.x) * ix, t1 = (__ldg(box + 3) - o.x) * ix;
+          tin = jmax(tin, jmin(t0, t1));
+          tout = jmin(tout, jmax(t0, t1) * kSlabScale());
+        }
+        {
+          const float t0 = (__ldg(box + 1) - o.y) * iy, t1 = (__ldg(box + 4) - o.y) * iy;
+          tin = jmax(tin, jmin(t0, t1));
+          tout = jmin(tout, jmax(t0, t1) * kSlabScale());
+        }
+        {
+          const float t0 = (__ldg(box + 2) - o.z) * iz, t1 = (__ldg(box + 5) - o.z) * iz;
+          tin = jmax(tin, jmin(t0, t1));
+          tout = jmin(tout, jmax(t0, t1) * kSlabScale());
+        }
+        if (!(tin <= tout && __ldg(box + 0) < BIG)) continue;
+        const float4* rows4 = reinterpret_cast<const float4*>(P.p) + (size_t)b * TB * 4;
+        for (int r = 0; r < TB; ++r) {
+          float c[16];
+          *reinterpret_cast<float4*>(c + 0) = __ldg(rows4 + r * 4 + 0);
+          *reinterpret_cast<float4*>(c + 4) = __ldg(rows4 + r * 4 + 1);
+          *reinterpret_cast<float4*>(c + 8) = __ldg(rows4 + r * 4 + 2);
+          *reinterpret_cast<float4*>(c + 12) = __ldg(rows4 + r * 4 + 3);
+          const RowTest rt = row_chain(c, o, d);
+          const float et = (c[14] + fabsf(rt.on)) * fabsf(rt.r);
+          const float eps = jmin(c[12] + c[13] * (omag + et), kEpsClamp());
+          const bool ok = (jmin(rt.b1, rt.b2) >= -eps) && (rt.b1 + rt.b2 <= 1.0f + eps) &&
+                          (rt.t > 0.0f);
+          if (ok && rt.t < best_t) {
+            best_t = rt.t;
+            best_row = b * TB + r;
+          }
         }
       }
     }
 
-    // ---- deferred payload of the winning triangle ----
+    // ---- payload of the winning triangle (bf16 barycentrics in VMEM
+    // mode, f32 in HBM mode) ----
     V3 nxyz = {0.0f, 0.0f, 0.0f}, albedo = {0.0f, 0.0f, 0.0f};
     V3 emission = {0.0f, 0.0f, 0.0f};
     float tpk = 0.0f, ior = 0.0f;
@@ -304,8 +403,9 @@ __global__ void __launch_bounds__(128) megakernel(const Params P) {
       *reinterpret_cast<float4*>(c + 4) = __ldg(row4 + 1);
       *reinterpret_cast<float4*>(c + 8) = __ldg(row4 + 2);
       const RowTest rt = row_chain(c, o, d);
-      const float b1b = bf16_round(rt.b1), b2b = bf16_round(rt.b2);
-      const int c0 = (best_row / TB) * 3 * TB + best_row % TB;
+      const float b1b = kHbm ? rt.b1 : bf16_round(rt.b1);
+      const float b2b = kHbm ? rt.b2 : bf16_round(rt.b2);
+      const Off c0 = (Off)(best_row / TB) * 3 * TB + best_row % TB;
       const float* seg0 = P.nrm + c0;
       const float* seg1 = seg0 + TB;
       const float* seg2 = seg0 + 2 * TB;
@@ -472,16 +572,19 @@ bank_kernel(const float* __restrict__ rec, const int* __restrict__ done,
 }  // namespace
 
 extern "C" int megakernel_launch(
-    const float* p, const float* nrm, const float* baabb, const float* ap,
-    const float* apay, const float* rows, const float* cols, float* accum,
-    float* rec, int* done, int R, int J, int spp, int K_tot, int nb, int n_ap,
-    int max_path_length, int roulette_start_depth, int max_iters,
-    unsigned int seed, int n_valid, int j0, float sx, float sy, float inv_w,
-    float inv_h, float aa, void* stream) {
+    const float* p, const float* nrm, const float* baabb, const float* saabb,
+    const float* sgaabb, const float* ap, const float* apay, const float* rows,
+    const float* cols, float* accum, float* rec, int* done, int R, int J,
+    int spp, int K_tot, int nb, int ns, int ng, int n_ap, int max_path_length,
+    int roulette_start_depth, int max_iters, unsigned int seed, int n_valid,
+    int j0, int s0, int hbm, float sx, float sy, float inv_w, float inv_h, float aa,
+    void* stream) {
   Params P;
   P.p = p;
   P.nrm = nrm;
   P.baabb = baabb;
+  P.saabb = saabb;
+  P.sgaabb = sgaabb;
   P.ap = ap;
   P.apay = apay;
   P.rows = rows;
@@ -494,6 +597,8 @@ extern "C" int megakernel_launch(
   P.spp = spp;
   P.K_tot = K_tot;
   P.nb = nb;
+  P.ns = ns;
+  P.ng = ng;
   P.n_ap = n_ap;
   P.max_path_length = max_path_length;
   P.roulette_start_depth = roulette_start_depth;
@@ -501,6 +606,7 @@ extern "C" int megakernel_launch(
   P.seed = seed;
   P.n_valid = n_valid;
   P.j0 = j0;
+  P.s0 = s0;
   P.sx = sx;
   P.sy = sy;
   P.inv_w = inv_w;
@@ -508,7 +614,10 @@ extern "C" int megakernel_launch(
   P.aa = aa;
   const int threads = 128;
   const int blocks = (R + threads - 1) / threads;
-  megakernel<<<blocks, threads, 0, static_cast<cudaStream_t>(stream)>>>(P);
+  if (hbm)
+    megakernel<true><<<blocks, threads, 0, static_cast<cudaStream_t>(stream)>>>(P);
+  else
+    megakernel<false><<<blocks, threads, 0, static_cast<cudaStream_t>(stream)>>>(P);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -1,10 +1,13 @@
 """Ray tests of the megakernel, as plain torch on component-tuple vec3s.
 
-* :func:`slab_admit` — the block-AABB slab test (megakernel.py:576-616):
+* :func:`slab_test` / :func:`slab_admit` — the AABB slab test
+  (megakernel.py:576-616; the HBM walk's member refinement :1150-1162):
   a lane tests a block's triangles only when its own slab admits the
   block. Conservative: ``tout`` is widened by ``SLAB_SCALE``, so no hit
   the dense test would accept is lost, and the lane's closest hit is the
-  one a walk over every block finds.
+  one a walk over every block finds. ``slab_test`` also returns the
+  entry bound ``tin`` that the HBM walk's refinement holds against the
+  lane's best t (shrunk by ``SLAB_LO``).
 * :func:`dense_rows` — the watertight plane + barycentric row test
   (:898-956) and :func:`barycentrics`, the same chain re-run for the
   winning row in the deferred payload pass (:1974-2018).
@@ -24,6 +27,7 @@ import torch
 INF = float("inf")
 BIG = 1e37                       # float32(1e37) is exactly this value's f32
 SLAB_SCALE = float(np.float32(1.0 + 6e-7))
+SLAB_LO = float(np.float32(1.0 - 6e-7))
 _EPS_CLAMP = float(np.float32(1e-3))
 
 
@@ -38,17 +42,26 @@ def slab_inv(d):
     return tuple(torch.reciprocal(torch.where(c == 0.0, 1e-30, c)) for c in d)
 
 
-def slab_admit(o, inv, active, box):
-    """Lanes whose slab interval meets the AABB ``box`` ([8]: lo.xyz,
-    hi.xyz, pad). Padding boxes (lo = +inf) never admit."""
+def slab_test(o, inv, active, box):
+    """(admit, tin) of every lane against the AABB ``box`` ([8]: lo.xyz,
+    hi.xyz, pad; or [n, 8], giving [n, R] results): ``tin`` starts at 0,
+    ``tout`` at ``BIG`` (-1 for inactive lanes) and takes the exit widened
+    by ``SLAB_SCALE``. Inverted padding boxes (lo = +inf) never admit."""
+    col = (lambda c: box[c]) if box.dim() == 1 else (lambda c: box[:, c, None])
     tin = torch.zeros_like(o[0])
     tout = torch.where(active, BIG, -1.0)
     for a in range(3):
-        t0 = (box[a] - o[a]) * inv[a]
-        t1 = (box[a + 3] - o[a]) * inv[a]
+        t0 = (col(a) - o[a]) * inv[a]
+        t1 = (col(a + 3) - o[a]) * inv[a]
         tin = torch.maximum(tin, torch.minimum(t0, t1))
         tout = torch.minimum(tout, torch.maximum(t0, t1) * SLAB_SCALE)
-    return (tin <= tout) & (box[0] < BIG)
+    return (tin <= tout) & (col(0) < BIG), tin
+
+
+def slab_admit(o, inv, active, box):
+    """Lanes whose slab interval meets the AABB ``box`` (see
+    :func:`slab_test`)."""
+    return slab_test(o, inv, active, box)[0]
 
 
 def _tdot(col, c0, r):

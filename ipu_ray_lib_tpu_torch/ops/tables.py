@@ -1,10 +1,11 @@
 """Blocked triangle tables for the path-trace megakernel (host, numpy).
 
-Port of the VMEM subset of ``ipu_ray_lib_tpu/ops/pallas/tables.py``
-``build_blocked_tables``: the same triangle order, the same f64 precompute
-rounded to f32 once, the same layouts — so the tables equal the JAX
-package's bit for bit (tests/test_torch_tables.py). The TPU-only tables
-(pn8/pay8/payt/saabb/sgaabb/baabb8/baabb16) are not built.
+Port of ``ipu_ray_lib_tpu/ops/pallas/tables.py`` ``build_blocked_tables``:
+the same triangle order, the same f64 precompute rounded to f32 once, the
+same layouts — so the tables equal the JAX package's bit for bit
+(tests/test_torch_tables.py, tests/test_torch_hbm.py). The TPU-only
+layouts (pn8/pay8/payt/baabb8/baabb16) are not built: ``p`` and ``nrm``
+hold the same values at any scene size.
 
 Triangles are ordered by the depth-first leaf order of a binned-SAH BVH
 (Morton order as the fallback) and packed into blocks of ``TB`` rows with
@@ -21,6 +22,9 @@ Layouts (f32 unless noted):
   baabb  [nb, 8]      block AABB lo.xyz, hi.xyz, pad 2 (padding blocks
                       hold inverted boxes lo=+inf, hi=-inf)
   baabb32 [nb*4, 8]   32-row sub-block AABBs
+  saabb  [ns, 8]      super AABBs (ns = nb / SB supers of SB blocks)
+  sgaabb [ceil(ns/SB), 8]  super-group AABBs (groups of SB supers; the
+                      tail group pads with inverted boxes)
   tri_geom/tri_prim [nb*TB] i32, padding -> -1
 """
 
@@ -29,12 +33,18 @@ from __future__ import annotations
 from typing import NamedTuple
 
 import numpy as np
+import torch
 
 from ..utils.constants import WATERTIGHT_EPS_SCALE
 
 TB = 128   # triangles per block
-SB = 8     # block count pads to a multiple of this (the JAX super size)
+SB = 8     # blocks per super, supers per super-group
 SUBB = 32  # rows per sub-block AABB
+
+# Above this many padded triangle rows the JAX package moves the payload
+# into its bf16 ``pay8`` table, on every backend; here the payload values
+# (the ``nrm`` table) are rounded to bf16 and kept in f32, the same values:
+HBM_SPLIT_MIN_TRIS = 4_000_000
 
 
 class BlockedTables(NamedTuple):
@@ -42,8 +52,16 @@ class BlockedTables(NamedTuple):
     nrm: np.ndarray       # [8, nb*3*TB] f32
     baabb: np.ndarray     # [nb, 8] f32
     baabb32: np.ndarray   # [nb*TB/SUBB, 8] f32
+    saabb: np.ndarray     # [ns, 8] f32
+    sgaabb: np.ndarray    # [ceil(ns/SB), 8] f32
     tri_geom: np.ndarray  # [nb*TB] i32
     tri_prim: np.ndarray  # [nb*TB] i32
+
+
+def bf16_round(a: np.ndarray) -> np.ndarray:
+    """f32 values rounded to the nearest bf16 (ties to even), as f32."""
+    t = torch.from_numpy(np.ascontiguousarray(a, np.float32))
+    return t.to(torch.bfloat16).to(torch.float32).numpy()
 
 
 def _morton3(x: np.ndarray) -> np.ndarray:
@@ -110,7 +128,13 @@ def build_blocked_tables(tri_v: np.ndarray, verts: np.ndarray,
                          mat_type: np.ndarray | None = None,
                          mat_emission: np.ndarray | None = None,
                          mat_emissive: np.ndarray | None = None,
-                         tri_order: np.ndarray | None = None) -> BlockedTables:
+                         tri_order: np.ndarray | None = None,
+                         payload_split: bool | None = None) -> BlockedTables:
+    """The blocked tables of a triangle list (see the module docstring).
+
+    ``payload_split``: round the ``nrm`` values to bf16 (kept in f32), as
+    the JAX package's ``pay8`` table stores them; None turns it on above
+    ``HBM_SPLIT_MIN_TRIS`` padded rows."""
     T = len(tri_v)
     if T == 0:
         tri_v = np.zeros((1, 3), np.int64)
@@ -212,6 +236,10 @@ def build_blocked_tables(tri_v: np.ndarray, verts: np.ndarray,
     nrm[4, :, 1] = padT(mat_iors).reshape(nb, TB)
     nrm[5:8, :, 1] = blocked(mat_em)
     nrm = nrm.reshape(8, nb * 3 * TB)
+    if payload_split is None:
+        payload_split = Tp > HBM_SPLIT_MIN_TRIS
+    if payload_split:
+        nrm = bf16_round(nrm)
 
     n_p, g1_p, g2_p, p0_p = padT(n), padT(g1), padT(g2), padT(p0)
     p = np.zeros((Tp, 16), np.float32)
@@ -234,14 +262,25 @@ def build_blocked_tables(tri_v: np.ndarray, verts: np.ndarray,
     tlo_p[:T] = np.minimum(np.minimum(p0, p1), p2).astype(np.float32)
     thi_p[:T] = np.maximum(np.maximum(p0, p1), p2).astype(np.float32)
 
-    def group_aabb(g):
-        k = Tp // g
+    def group_aabb(lo, hi, g):
+        k = lo.shape[0] // g
         out = np.zeros((k, 8), np.float32)
-        out[:, 0:3] = tlo_p.reshape(k, g, 3).min(axis=1)
-        out[:, 3:6] = thi_p.reshape(k, g, 3).max(axis=1)
+        out[:, 0:3] = lo.reshape(k, g, 3).min(axis=1)
+        out[:, 3:6] = hi.reshape(k, g, 3).max(axis=1)
         return out
 
+    saabb = group_aabb(tlo_p, thi_p, SB * TB)
+    # Super-group AABBs; the tail group's missing supers are inverted
+    # boxes, so its union covers its real supers only:
+    sg_pad = (-saabb.shape[0]) % SB
+    sg_lo = np.concatenate(
+        [saabb[:, 0:3], np.full((sg_pad, 3), np.inf, np.float32)])
+    sg_hi = np.concatenate(
+        [saabb[:, 3:6], np.full((sg_pad, 3), -np.inf, np.float32)])
+
     return BlockedTables(
-        p=p, nrm=nrm, baabb=group_aabb(TB), baabb32=group_aabb(SUBB),
+        p=p, nrm=nrm, baabb=group_aabb(tlo_p, thi_p, TB),
+        baabb32=group_aabb(tlo_p, thi_p, SUBB), saabb=saabb,
+        sgaabb=group_aabb(sg_lo, sg_hi, SB),
         tri_geom=np.pad(tri_geom, (0, Tp - T), constant_values=-1),
         tri_prim=np.pad(tri_prim, (0, Tp - T), constant_values=-1))

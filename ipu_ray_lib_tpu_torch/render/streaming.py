@@ -1,6 +1,7 @@
 """Streaming path tracer with path regeneration: the full-frame loop around
 the megakernel (port of ``render_streaming``, ipu_ray_lib_tpu/render/
-streaming.py:584, megakernel path, optionally NIF-lit).
+streaming.py:584, megakernel path, optionally NIF-lit, at any scene
+size).
 
 A fixed pool of R ray slots serves a tile-ordered pixel stream: slot s
 owns the padded-stream pixels {s, s+R, ...}, J of them; each slot runs
@@ -15,6 +16,12 @@ readback with compute; the union of groups equals one dispatch bit for
 bit, so this module runs one group, [(0, J)]. ``b_cap`` comes from the
 global J (the reference computed it per group, a known fault that binds
 only when J > 32).
+
+The walk follows ``params.intersector`` (``"pallas"``: K1's VMEM-mode
+walk; ``"pallas-hbm"``: K3's HBM-mode walk, ops/megakernel.py). The mode
+changes nothing here: the reference's HBM mode alters only its TPU bundle
+count (streaming.py:724-725); the pool, the pixel stream, the batches and
+the seeds are the same.
 
 A NIF environment light (``env``) is evaluated once per dispatch over
 every escaped path (ops/megakernel.py), so the reference's env flush

@@ -1,11 +1,17 @@
 """Scene compilation: SceneDescription -> tensors for the megakernel.
 
 Port of ``ipu_ray_lib_tpu/scene/build.py`` ``build_scene`` for the
-megakernel path. The host work (vertex rebasing, the geometry registry,
-the scene BVH whose leaf order sorts tri-only scenes, the blocked tables
-and the sphere/disc tables) is the JAX package's, in numpy; the result is
-a :class:`TorchScene` of tensors on the requested device and the same
+megakernel path, at any scene size. The host work (vertex rebasing, the
+geometry registry, the scene BVH whose leaf order sorts tri-only scenes
+and every scene above the VMEM ceiling, the blocked tables and the
+sphere/disc tables) is the JAX package's, in numpy; the result is a
+:class:`TorchScene` of tensors on the requested device and the same
 static :class:`SceneParams`.
+
+Two intersectors, as in the JAX package: ``"pallas"`` (the VMEM-mode
+walk, kernel K1) and ``"pallas-hbm"`` (the HBM-mode walk, K3: super-group,
+super and block culls, f32 winner barycentrics in the payload). ``"auto"``
+resolves as the JAX package does on its accelerator.
 
 GeomID order matches the reference: meshes, then spheres, then discs.
 """
@@ -18,12 +24,14 @@ import numpy as np
 import torch
 
 from ..bvh.builder import INVALID_GEOM_ID, build_bvh
-from ..ops.tables import build_blocked_tables
+from ..ops.tables import SB, TB, build_blocked_tables
 from .types import CropWindow, SceneDescription
 
-# Scenes above this many triangles need the JAX package's HBM-streamed
-# walk, which this port has not reached yet (ROADMAP queue 1):
+# The JAX package's VMEM ceiling: "auto" picks the HBM walk for scenes
+# with more primitives, and mixed scenes with more triangles take the
+# scene BVH's leaf order (ipu_ray_lib_tpu/scene/build.py:246, :304-316):
 VMEM_TABLE_MAX_TRIS = 65536
+INTERSECTORS = ("pallas", "pallas-hbm")
 
 # Render settings: the reference's defaults, which its benchmark uses.
 ANTI_ALIAS_SCALE = 0.25
@@ -53,7 +61,7 @@ class SceneParams:
     window_c: int
     window_r: int
     path_trace: bool
-    intersector: str = "pallas"  # the one intersector ported so far
+    intersector: str = "pallas"  # "pallas" (VMEM walk) or "pallas-hbm"
 
 
 @dataclass
@@ -63,6 +71,8 @@ class TorchScene:
     p: torch.Tensor           # [nb*128, 16] f32 triangle rows
     nrm: torch.Tensor         # [8, nb*384] f32 normal basis + material
     baabb: torch.Tensor       # [nb, 8] f32 block AABBs
+    saabb: torch.Tensor       # [nb/8, 8] f32 super AABBs
+    sgaabb: torch.Tensor      # [ceil(nb/64), 8] f32 super-group AABBs
     ap: torch.Tensor          # [P, 16] f32 sphere/disc geometry rows
     apay: torch.Tensor        # [16, P] f32 sphere/disc payload columns
 
@@ -141,7 +151,7 @@ def analytic_tables(spheres, discs, sphere_geom, disc_geom, mat_id,
 # Leaves of the JAX package's SceneArrays (and its BlockedSceneTables)
 # that a TorchScene is made from: the triangle tables go to the device as
 # they are; the sphere, disc and material leaves only feed ap/apay.
-_TABLES = ("p", "nrm", "baabb")
+_TABLES = ("p", "nrm", "baabb", "saabb", "sgaabb")
 _CARRIED = _TABLES + ("spheres", "discs", "mat_id", "mat_albedo",
                       "mat_emission", "mat_ior", "mat_type", "mat_emissive",
                       "sphere_geom", "disc_geom")
@@ -167,11 +177,40 @@ def from_jax_arrays(leaves: dict[str, np.ndarray], device) -> TorchScene:
     ``leaves`` maps leaf names to numpy arrays: the SceneArrays fields and
     the fields of its ``blocked`` tables flattened into one dict (as
     ``{**arrays._asdict(), **arrays.blocked._asdict()}`` after
-    ``np.asarray``). Only the leaves the megakernel path reads are kept."""
+    ``np.asarray``). Only the leaves the megakernel path reads are kept.
+    Above its VMEM ceiling the JAX package builds no ``p``/``nrm``; they
+    are then unpacked from its ``pn8`` (and ``pay8``) super slabs."""
+    leaves = dict(leaves)
+    if (leaves.get("p") is None and leaves.get("nrm") is None
+            and leaves.get("pn8") is not None):
+        leaves["p"], leaves["nrm"] = unpack_super_slabs(
+            np.asarray(leaves["pn8"]), leaves.get("pay8"))
     missing = [k for k in _CARRIED if leaves.get(k) is None]
     if missing:
         raise KeyError(f"from_jax_arrays: missing leaves {missing}")
     return _from_leaves({k: np.asarray(leaves[k]) for k in _CARRIED}, device)
+
+
+def unpack_super_slabs(pn8: np.ndarray, pay8=None):
+    """(p [nb*TB, 16], nrm [8, nb*3*TB]) f32 from the JAX package's HBM
+    super slabs (its tables.py pn8/pay8 contract): each super's SB blocks
+    sit side by side in ``pn8``'s TB p rows; the members' nrm chunks
+    follow below them, or lie in the bf16 ``pay8`` table [nb*24, TB]."""
+    w = SB * 16
+    if pay8 is None:
+        sup = pn8.reshape(-1, TB + SB * 3 * 8, w)
+        chunks = sup[:, TB:, :]
+    else:
+        sup = pn8.reshape(-1, TB, w)
+        chunks = np.asarray(pay8).astype(np.float32)
+    ns = sup.shape[0]
+    nb = ns * SB
+    p = (sup[:, :TB, :].reshape(ns, TB, SB, 16).transpose(0, 2, 1, 3)
+         .reshape(nb * TB, 16))
+    nrm = (chunks.reshape(nb * 3, 8, TB).transpose(1, 0, 2)
+           .reshape(8, nb * 3 * TB))
+    return (np.ascontiguousarray(p, np.float32),
+            np.ascontiguousarray(nrm, np.float32))
 
 
 def _pad_rows(a: np.ndarray, min_rows: int = 1) -> np.ndarray:
@@ -190,15 +229,39 @@ def build_scene(
     image_height: int = 432,
     window: CropWindow | None = None,
     samples_per_pixel: int = 256,
+    intersector: str = "auto",
+    max_path_length: int = MAX_PATH_LENGTH,
+    payload_split: bool | None = None,
 ) -> tuple[TorchScene, SceneParams]:
-    """Compile a SceneDescription into device tensors + static params.
+    """Compile a SceneDescription of any size into device tensors + static
+    params.
 
-    Only the VMEM-class megakernel intersector (the reference's
-    ``"pallas"``) is ported; larger scenes raise."""
+    ``intersector``: ``"pallas"`` (the VMEM-mode walk), ``"pallas-hbm"``
+    (the HBM-mode walk) or ``"auto"`` (``"pallas"`` up to
+    ``VMEM_TABLE_MAX_TRIS`` triangles + spheres + discs, else
+    ``"pallas-hbm"``). ``payload_split`` (HBM mode only): round the
+    payload to bf16 as the JAX package's ``pay8`` does; None turns it on
+    above ``HBM_SPLIT_MIN_TRIS`` padded triangle rows."""
     leaves, params = compile_scene(
         scene, image_width=image_width, image_height=image_height,
-        window=window, samples_per_pixel=samples_per_pixel)
+        window=window, samples_per_pixel=samples_per_pixel,
+        intersector=intersector, max_path_length=max_path_length,
+        payload_split=payload_split)
     return _from_leaves(leaves, device), params
+
+
+def resolve_intersector(intersector: str, n_prims: int) -> str:
+    """The JAX package's choice on its accelerator (its build.py:246)."""
+    if intersector == "auto":
+        return "pallas" if n_prims <= VMEM_TABLE_MAX_TRIS else "pallas-hbm"
+    if intersector in ("dense", "bvh"):
+        raise ValueError(
+            f"intersector={intersector!r} is not ported: it belongs to the "
+            "XLA-loop integrator (ROADMAP queue 1); use 'pallas', "
+            "'pallas-hbm' or 'auto'")
+    if intersector not in INTERSECTORS:
+        raise ValueError(f"unknown intersector {intersector!r}")
+    return intersector
 
 
 def compile_scene(
@@ -208,11 +271,15 @@ def compile_scene(
     image_height: int,
     window: CropWindow | None,
     samples_per_pixel: int,
+    intersector: str = "auto",
+    max_path_length: int = MAX_PATH_LENGTH,
+    payload_split: bool | None = None,
 ) -> tuple[dict[str, np.ndarray], SceneParams]:
-    """The host half of :func:`build_scene`: the scene's numpy leaves,
-    named as the JAX package's (the blocked tables, including the
-    ``baabb32``/``tri_geom``/``tri_prim`` leaves no ported kernel reads
-    yet, and the sphere, disc and material arrays), and its params."""
+    """The host half of :func:`build_scene` (same arguments): the scene's
+    numpy leaves, named as the JAX package's (the blocked tables,
+    including the ``baabb32``/``tri_geom``/``tri_prim`` leaves no ported
+    kernel reads yet, and the sphere, disc and material arrays), and its
+    params."""
     scene.validate()
 
     tri_list, vert_list, norm_list, mesh_first_tri = [], [], [], []
@@ -232,13 +299,14 @@ def compile_scene(
              else np.zeros((0, 3), np.float32))
     normals = (np.concatenate(norm_list) if norm_list
                else np.zeros((0, 3), np.float32))
-    if len(tri_v) > VMEM_TABLE_MAX_TRIS:
-        raise ValueError(
-            f"{len(tri_v)} triangles: scenes above {VMEM_TABLE_MAX_TRIS} need "
-            "the HBM-streamed walk, which is not ported yet")
 
     num_meshes, S, D = len(scene.meshes), len(scene.spheres), len(scene.discs)
     num_geoms = num_meshes + S + D
+    intersector = resolve_intersector(intersector, len(tri_v) + S + D)
+    if intersector == "pallas":
+        if payload_split:
+            raise ValueError("payload_split is an HBM-mode option")
+        payload_split = False
 
     # Scene BVH over every primitive (ref: src/app_utils.cpp:145-188); its
     # DFS triangle-leaf order sorts the tables of tri-only scenes:
@@ -281,9 +349,10 @@ def compile_scene(
          for m in scene.meshes] or [np.zeros(0, bool)])
 
     # Tri-only scenes reuse the scene BVH's leaf order (bitwise the order a
-    # tri-only SAH build gives); mixed scenes run the tables' own build:
+    # tri-only SAH build gives), and so do mixed scenes above the VMEM
+    # ceiling; smaller mixed scenes run the tables' own build:
     tri_order = None
-    if len(tri_v) and not (S or D):
+    if len(tri_v) and (not (S or D) or len(tri_v) > VMEM_TABLE_MAX_TRIS):
         leaf = bvh.geom != INVALID_GEOM_ID
         lg = bvh.geom[leaf].astype(np.int64)
         lp = bvh.meta[leaf].astype(np.int64)
@@ -300,7 +369,7 @@ def compile_scene(
                  else np.zeros(0, np.int32)),
         mat_albedo=mat_albedo, mat_ior=mat_ior, mat_type=mat_type,
         mat_emission=mat_emission, mat_emissive=mat_emissive,
-        tri_order=tri_order)
+        tri_order=tri_order, payload_split=payload_split)
 
     leaves = dict(blocked._asdict())
     leaves.update(
@@ -321,7 +390,7 @@ def compile_scene(
         image_height=image_height,
         fov_radians=float(scene.camera.horizontal_fov),
         anti_alias_scale=ANTI_ALIAS_SCALE,
-        max_path_length=MAX_PATH_LENGTH,
+        max_path_length=int(max_path_length),
         roulette_start_depth=ROULETTE_START_DEPTH,
         samples_per_pixel=int(samples_per_pixel),
         rng_seed=RNG_SEED,
@@ -330,5 +399,6 @@ def compile_scene(
         window_c=win.c,
         window_r=win.r,
         path_trace=scene.path_trace is not None,
+        intersector=intersector,
     )
     return leaves, params

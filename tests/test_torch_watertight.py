@@ -4,9 +4,11 @@ The port counterpart of tests/test_watertight.py. Rays aimed exactly at
 the shared edges, edge points and vertices of a skewed, tilted, irregular
 tessellation must hit at least one incident triangle through the port's
 per-lane block cull (``slab_admit``) and widened dense row test
-(``dense_rows``) — the plain version of the kernel's walk. A pixel-aligned
-vertex grid rendered through the port's megakernel must leave no dark
-pixel inside the grid.
+(``dense_rows``) — the plain version of the kernel's walk — and through
+the HBM-mode walk (``_walk_hbm``: super-group, super and refined
+member-block culls). A pixel-aligned vertex grid rendered through the
+port's megakernel, in either mode, must leave no dark pixel inside the
+grid.
 """
 
 import dataclasses
@@ -126,17 +128,53 @@ def _pixel_vertex_scene(size=32):
     return scene
 
 
-def test_megakernel_no_cracks_at_vertices():
-    """Every interior pixel ray of the render passes through a shared
-    vertex; a dark interior pixel would be a crack in the port's walk."""
+def _vertex_grid_dark_pixels(intersector):
+    """Dark interior pixels of the pixel-aligned vertex grid rendered
+    through the port's megakernel (plain version) in one mode."""
     size = 32
     ts, params = build_scene(_pixel_vertex_scene(size), device="cpu",
                              image_width=size, image_height=size,
-                             samples_per_pixel=1)
+                             samples_per_pixel=1, intersector=intersector)
     params = dataclasses.replace(params, anti_alias_scale=0.0,
                                  max_path_length=2)
     mk.reset_launches()
     img, done = render_streaming(ts, params)
-    assert done == size * size and mk.launches == 0
-    dark = int((img[1:-1, 1:-1].sum(axis=-1) <= 0).sum())
+    assert done == size * size and mk.launches == mk.hbm_launches == 0
+    assert params.intersector == intersector
+    return int((img[1:-1, 1:-1].sum(axis=-1) <= 0).sum())
+
+
+def test_megakernel_no_cracks_at_vertices():
+    """Every interior pixel ray of the render passes through a shared
+    vertex; a dark interior pixel would be a crack in the port's walk."""
+    dark = _vertex_grid_dark_pixels("pallas")
     assert dark == 0, f"{dark} cracked pixels at mesh vertices"
+
+
+def test_megakernel_no_cracks_at_vertices_hbm():
+    """The same grid through the HBM-mode walk (super-group, super and
+    refined member-block culls; tests/test_watertight.py's hbm case)."""
+    dark = _vertex_grid_dark_pixels("pallas-hbm")
+    assert dark == 0, f"{dark} cracked pixels at mesh vertices (HBM walk)"
+
+
+@pytest.mark.parametrize("n,seed", [(12, 3), (9, 5), (16, 11)])
+def test_no_cracks_on_shared_edges_hbm(n, seed):
+    """Edge rays through the HBM-mode walk (``_walk_hbm``): the group,
+    super and member culls drop no hit the dense test accepts."""
+    scene, verts, tris = _skewed_grid_scene(n, seed)
+    ts, _ = build_scene(scene, device="cpu", image_width=8, image_height=8,
+                        samples_per_pixel=1, intersector="pallas-hbm")
+    targets = _edge_targets(verts, tris, seed=seed)
+    d = targets / np.linalg.norm(targets, axis=-1, keepdims=True)
+    d = torch.from_numpy(d.astype(np.float32))
+    R = d.shape[0]
+    zero = torch.zeros(R)
+    o, d = (zero, zero, zero), (d[:, 0], d[:, 1], d[:, 2])
+    best_t, best_row = mk._walk_hbm(
+        ts, o, d, slab_inv(d), torch.ones(R, dtype=torch.bool), zero,
+        torch.full((R,), INF), torch.full((R,), -1, dtype=torch.int64), None)
+    _, want_t = _walk(ts, o, d)
+    assert bool((best_row >= 0).all()), (
+        f"{int((best_row < 0).sum())}/{R} edge rays leaked")
+    assert torch.equal(best_t, want_t)
