@@ -13,7 +13,10 @@ version:
 * scenes of any size in HBM mode (K3, the same kernel's HBM walk): the
   stress heightfield ladder at grids 512, 1024 and 2048 (522,242,
   2,093,058 and 8,380,418 triangles; the bf16 payload engages at 2048)
-  at 256x256 spp 8, and grid 512 at 1440x1440 spp 64.
+  at 256x256 spp 8, and grid 512 at 1440x1440 spp 64;
+* the shadow trace with its six AOVs: ``render(mode="shadow-trace")`` on
+  the Cornell box with the monkey at 1440x1440 (the fused shadow kernel
+  K4, ``ops/cuda/shadow.cu``).
 
 Run from the repository root:
 
@@ -36,7 +39,12 @@ Phases (any failed check raises, so the exit code is non-zero):
      ``render_streaming`` vs tests/golden/stress24_hbm32x32_spp2.npy,
      done == 2048); Cornell + monkey 64x64 spp 4 with the f32 and with
      the bf16 payload; stress24 with the bf16 payload; stress24 lit by
-     the NIF, 48x32 spp 2 (record mode, env MLP, bank); --quick stops
+     the NIF, 48x32 spp 2 (record mode, env MLP, bank);
+  3c. the shadow trace (K4), kernel vs plain version, every output bit
+     for bit: the Cornell box 48x32, Cornell + monkey 64x64, a mesh with
+     vertex normals 64x64, 3,000 random rays from spread origins; and
+     ``render`` on the card against tests/golden/shadow_box48x32.npz
+     (the JAX package's render), every AOV bit for bit; --quick stops
      here;
   4. Cornell + monkey at the main path's slot pool (1440^2 stream,
      R = 131072, J = 16) with spp 1 per slot — spp is the one cut there —
@@ -50,6 +58,15 @@ Phases (any failed check raises, so the exit code is non-zero):
      version replaying those slots, rtol = atol = 1e-5;
   6. plain vs kernel time at 256^2 spp 4, in turns (plain, kernel,
      kernel, plain);
+  6b. the shadow-trace main path: ``render`` of phase 4's scene at
+     1440^2, one warm-up, three timed frames with all AOVs and three with
+     normals only (hits, finite AOVs where hit, K4 launched); the frame's
+     parts with CUDA events (camera + cull, K4 alone, epilogue,
+     un-tiling) and its device-to-host copy; K4 against its plain version
+     over the whole frame, bit for bit, which also counts the (bundle,
+     block) pairs for K4's bound; the frame's own pixels on its first 16
+     bundles and on 16 around its median lit pixel replayed by the plain
+     route, every AOV bit for bit;
   7. the flagship, spheres + NIF at 512^2 spp 64: kernel route vs plain
      route at its slot pool (R = 131072, J = 2) with spp 4, which also
      counts its segments for K1's bound, and the bank kernel vs its plain
@@ -131,6 +148,12 @@ ROW_TEST_FLOPS = 49   # row_chain 42 (6 dots of 5, recip 4, t 2, b1/b2 6)
 AP_TEST_FLOPS = 45    # one sphere/disc row: oc 3, tca 5, l2 7, td 2, t 2,
 #                       dn 5, on 5, t_dsc 2, h 9, d2 5
 REC_BYTES = 40        # one path record, f32 x 10
+# The shadow trace (K4): its frame's first bundles replayed by the plain
+# route, and the bundles the plain version advances together on the card.
+SHADOW_REPLAY = 16
+SHADOW_REF_BUNDLES = 64
+SLAB_FLAG_FLOPS = 18  # one (ray, block) slab flag: per axis 1 div, 2 sub, 3 mul
+SHADOW_AP_FLOPS = 25  # one (ray, sphere or disc) test of K4's twins
 
 
 def log(*a):
@@ -177,10 +200,16 @@ def main() -> int:
         return 1
     quick = "--quick" in sys.argv[1:]
 
+    from ipu_ray_lib_tpu_torch.bvh.builder import INVALID_GEOM_ID
     from ipu_ray_lib_tpu_torch.nif.model import load_nif_env
     from ipu_ray_lib_tpu_torch.ops import env as envk
     from ipu_ray_lib_tpu_torch.ops import megakernel as mk
+    from ipu_ray_lib_tpu_torch.ops import shadow as sh
+    from ipu_ray_lib_tpu_torch.ops.camera import generate_camera_rays
+    from ipu_ray_lib_tpu_torch.render.renderer import render
+    from ipu_ray_lib_tpu_torch.scene import types as st
     from ipu_ray_lib_tpu_torch.ops.cuda import build as cuda_build
+    from ipu_ray_lib_tpu_torch.render.shadow import DEFAULT_LIGHT_POS
     from ipu_ray_lib_tpu_torch.render.streaming import (
         MAX_K_PER_DISPATCH, SPP_BATCH, _pixel_stream,
         render_streaming, slot_pool)
@@ -203,7 +232,8 @@ def main() -> int:
     log(cuda_build.build_info.get("log", ""))
 
     mesh = os.path.join(ROOT, "assets", "monkey_bust.glb")
-    err = {"k1": 0.0, "k1_rec": 0.0, "env": 0.0, "bank": 0.0, "k3": 0.0}
+    err = {"k1": 0.0, "k1_rec": 0.0, "env": 0.0, "bank": 0.0, "k3": 0.0,
+           "k4": 0.0}
 
     def stream(params, chunk=1 << 17):
         rows_np, cols_np, _ = _pixel_stream(params)
@@ -473,6 +503,117 @@ def main() -> int:
                     by=by, launches=n_launch, walk=walk, plain_s=t_p1,
                     kernel_s=t_k1, R=R, J=J)
 
+    # ---- 3c. the shadow trace (K4): kernel vs plain, bit for bit ----
+    def k4_vs_plain(name, scene, origins, dirs, stats=None,
+                    bundles=sh.REF_BUNDLES):
+        """K4 and its plain version on the same culled rays; all outputs
+        held bit for bit (== on every element; inf == inf)."""
+        args = sh.shadow_inputs(scene, origins, dirs)
+        light = DEFAULT_LIGHT_POS
+        (kf, ki), t_k = timed(lambda: sh.shadow_trace_cuda(scene, *args,
+                                                           light=light))
+        (pf, pi), t_p = timed(lambda: sh.shadow_trace_ref(
+            scene, *args, light=light, stats=stats, bundles=bundles))
+        same = torch.equal(kf, pf) and torch.equal(ki, pi)
+        fin = torch.isfinite(kf) & torch.isfinite(pf)
+        e = float((kf - pf)[fin].abs().max()) if bool(fin.any()) else 0.0
+        err["k4"] = max(err["k4"], e)
+        n = dirs.shape[0]
+        log(f"[K4 {name}] {n} rays, {args[0].shape[0]} bundles: kernel "
+            f"{t_k:.4f} s, plain {t_p:.3f} s; bit for bit {same} (max "
+            f"|diff| {e:.3g}); hits tri {int((ki[0, :n] >= 0).sum())}, sphere "
+            f"{int((ki[1, :n] >= 0).sum())}, disc {int((ki[2, :n] >= 0).sum())}, "
+            f"occluded {int(ki[3, :n].sum())}")
+        if not same:
+            bad = int((kf != pf).any(0).logical_or((ki != pi).any(0)).sum())
+            raise AssertionError(f"K4 {name}: kernel disagrees with plain on "
+                                 f"{bad} rays")
+        return kf, ki, t_k, t_p
+
+    def frame_rays(params):
+        """All pixels of a window as camera directions, stream order."""
+        rows_np, cols_np, _ = _pixel_stream(params)
+        rows = torch.from_numpy(rows_np).to(dev)
+        cols = torch.from_numpy(cols_np).to(dev)
+        return generate_camera_rays(rows, cols, params.image_width,
+                                    params.image_height,
+                                    params.fov_radians)[1]
+
+    def smooth_scene():
+        """A UV-sphere mesh with vertex normals over a floor, under an
+        emissive quad: its shading normal depends on the barycentrics."""
+        n_lat, n_lon, c = 6, 10, np.array([0.0, -0.4, -3.2])
+        th = np.linspace(0.25, np.pi - 0.25, n_lat + 1)
+        ph = np.linspace(0.0, 2 * np.pi, n_lon + 1)[:-1]
+        tt, pp = np.meshgrid(th, ph, indexing="ij")
+        nrm = np.stack([np.sin(tt) * np.cos(pp), np.cos(tt),
+                        np.sin(tt) * np.sin(pp)], -1).reshape(-1, 3)
+        idx = np.arange((n_lat + 1) * n_lon).reshape(n_lat + 1, n_lon)
+        nx = np.roll(idx, -1, axis=1)
+        a, b, cc, d = idx[:-1], idx[1:], nx[:-1], nx[1:]
+        tris = np.concatenate([np.stack([a, b, cc], -1).reshape(-1, 3),
+                               np.stack([b, d, cc], -1).reshape(-1, 3)])
+        quad = np.array([[0, 1, 2], [0, 2, 3]])
+        desc = st.SceneDescription()
+        desc.meshes = [
+            st.HostMesh(triangles=tris, vertices=c + nrm,
+                        normals=nrm.astype(np.float32)),
+            st.HostMesh(triangles=quad, vertices=np.array(
+                [[-6, -1.4, 0], [6, -1.4, 0], [6, -1.4, -12], [-6, -1.4, -12]])),
+            st.HostMesh(triangles=quad, vertices=np.array(
+                [[-1.5, 2.5, -2], [1.5, 2.5, -2], [1.5, 2.5, -5], [-1.5, 2.5, -5]]))]
+        zero = np.zeros(3, np.float32)
+        desc.materials = [
+            st.Material(np.array([0.75] * 3, np.float32), zero,
+                        st.MaterialType.DIFFUSE),
+            st.Material(np.array([0.5, 0.45, 0.4], np.float32), zero,
+                        st.MaterialType.DIFFUSE),
+            st.Material(np.array([0.78] * 3, np.float32),
+                        np.array([12.0] * 3, np.float32),
+                        st.MaterialType.DIFFUSE)]
+        desc.mat_ids = [0, 1, 2]
+        desc.camera = st.Camera(horizontal_fov=float(np.pi / 3))
+        desc.validate()
+        return desc
+
+    box, box_p = build_scene(make_cornell_box_scene(None, box_only=False),
+                             device=dev, image_width=48, image_height=32,
+                             intersector="pallas")
+    k4_vs_plain("Cornell box 48x32", box, None, frame_rays(box_p))
+    mon, mon_p = build_scene(make_cornell_box_scene(mesh, box_only=False),
+                             device=dev, image_width=64, image_height=64,
+                             intersector="pallas")
+    k4_vs_plain("Cornell + monkey 64x64", mon, None, frame_rays(mon_p))
+    smo, smo_p = build_scene(smooth_scene(), device=dev, image_width=64,
+                             image_height=64, intersector="pallas")
+    k4_vs_plain("vertex-normal mesh 64x64", smo, None, frame_rays(smo_p))
+    # Random rays from origins spread over the box (a third aimed at the
+    # spheres and the disc), 3,000 rays: bundles with spread origins and a
+    # padded last bundle.
+    rng = np.random.default_rng(5)
+    b_np = box.baabb.cpu().numpy()
+    lo, hi = b_np[:, 0:3].min(0), b_np[:, 3:6].max(0)
+    ro = rng.uniform(lo + 0.1 * (hi - lo), hi - 0.1 * (hi - lo),
+                     (3000, 3)).astype(np.float32)
+    rd = rng.normal(size=(3000, 3)).astype(np.float32)
+    tg = box.ap.cpu().numpy()[:, 1:4]
+    rd[:1000] = (tg[rng.integers(0, len(tg), 1000)]
+                 + rng.normal(0, 20, (1000, 3)).astype(np.float32) - ro[:1000])
+    rd /= np.linalg.norm(rd, axis=1, keepdims=True)
+    k4_vs_plain("random rays, spread origins", box,
+                torch.from_numpy(ro).to(dev), torch.from_numpy(rd).to(dev))
+    # The shadow golden (the JAX package's render, chunk 512) through the
+    # port's render on the card, every AOV bit for bit:
+    sgold = np.load(os.path.join(ROOT, "tests", "golden",
+                                 "shadow_box48x32.npz"))
+    sh.reset_launches()
+    out = render(box, box_p, chunk_size=512)
+    bad = {k: int((~(getattr(out, k) == sgold[k])).sum()) for k in sgold}
+    log(f"[K4 shadow golden 48x32] render vs golden, elements differing per "
+        f"AOV: {bad}; hits {out.hit_count}; K4 launches {sh.launches}")
+    if any(bad.values()) or sh.launches != 3:
+        raise AssertionError("shadow golden mismatch on the card")
+
     if quick:
         log("quick mode: stopping before the full-size phases")
         return 0
@@ -560,6 +701,163 @@ def main() -> int:
         acc.append(t)
     log(f"[256^2 spp 4] plain {', '.join(f'{t:.3f}' for t in t_p)} s; "
         f"kernel {', '.join(f'{t:.4f}' for t in t_k)} s")
+
+    # ---- 6b. the shadow-trace main path: Cornell + monkey at 1440^2 ----
+    # ``render`` in shadow-trace mode on phase 4's scene (VMEM mode): one
+    # warm-up, three timed frames with every AOV, three with normals only.
+    if params.intersector != "pallas":
+        raise AssertionError("the shadow trace runs K4 in VMEM mode")
+    n_frame = FULL * FULL
+    sh.reset_launches()
+    sout, t_warm = timed(lambda: render(scene, params))
+    s_all, s_nrm = [], []
+    for _ in range(3):
+        sout, t = timed(lambda: render(scene, params))
+        s_all.append(t)
+    for _ in range(3):
+        nout, t = timed(lambda: render(scene, params, aovs=("normal",)))
+        s_nrm.append(t)
+    k4_launches = sh.launches
+    hit = sout.geom_id >= 0
+    finite = all(bool(np.isfinite(getattr(sout, f)[hit]).all())
+                 for f in ("rgb", "t", "normal", "hit_p"))
+    log(f"[shadow main] {FULL}^2 shadow trace, Cornell + monkey: warm-up "
+        f"{t_warm:.3f} s; all AOVs {', '.join(f'{t:.4f}' for t in s_all)} s; "
+        f"normals only {', '.join(f'{t:.4f}' for t in s_nrm)} s; best "
+        f"{n_frame / min(s_all) / 1e6:.2f} / {n_frame / min(s_nrm) / 1e6:.2f} "
+        f"M rays/s; hits {sout.hit_count} of {n_frame}; finite where hit "
+        f"{finite}; K4 launches {k4_launches}")
+    if (sout.rgb.shape != (FULL, FULL, 3) or not finite
+            or not 0 < sout.hit_count < n_frame or k4_launches < 1):
+        raise AssertionError("shadow main path: wrong shape, non-finite "
+                             "AOVs, no hits or no K4 launch")
+    if not (np.array_equal(nout.normal, sout.normal)
+            and np.array_equal(nout.geom_id, sout.geom_id)
+            and not nout.rgb.any()):
+        raise AssertionError("normals-only frame differs from the full one")
+
+    # Where the frame's time goes, piece by piece at its shapes (CUDA
+    # events, 3 runs each): camera rays + cull, K4 alone (the kernels
+    # behind the view of the whole frame), the epilogue, un-tiling on the
+    # device; the device-to-host copy of the six AOVs on the host clock.
+    from ipu_ray_lib_tpu_torch.render.renderer import (DEFAULT_CHUNK,
+                                                       _tile_coords)
+    n_chunks = -(-n_frame // DEFAULT_CHUNK)
+
+    def chunk_dirs(ci):
+        rows, cols = _tile_coords(ci * DEFAULT_CHUNK, DEFAULT_CHUNK, FULL, 0,
+                                  0, n_frame, dev)
+        return generate_camera_rays(rows, cols, FULL, FULL,
+                                    params.fov_radians)[1]
+
+    def all_inputs():
+        return [(d, sh.shadow_inputs(scene, None, d))
+                for d in map(chunk_dirs, range(n_chunks))]
+
+    light = DEFAULT_LIGHT_POS
+    cull_ms, inputs = event_ms(all_inputs)
+    k4_ms, k_outs = event_ms(lambda: [sh.shadow_trace_cuda(scene, *a,
+                                                           light=light)
+                                      for _, a in inputs])
+    epi_ms, epis = event_ms(lambda: [
+        sh.shadow_epilogue(scene, None, d, f, i, light, 0.05)
+        for (d, _), (f, i) in zip(inputs, k_outs)])
+    stream_aovs = [torch.cat([e[k] for e in epis])[:n_frame]
+                   for k in (0, 1, 2, 3, 4, 5)]
+    inv = np.empty(n_frame, np.int64)
+    inv[_pixel_stream(params)[2]] = np.arange(n_frame)
+    inv_t = torch.from_numpy(inv).to(dev)
+    untile_ms, raster = event_ms(lambda: [a.index_select(0, inv_t)
+                                          for a in stream_aovs])
+    d2h = []
+    for _ in range(3):
+        _, t = timed(lambda: [a.cpu() for a in raster])
+        d2h.append(t * 1e3)
+    nbytes = sum(a.numel() * a.element_size() for a in raster)
+    e2e_ms = median(s_all) * 1e3
+    log(f"[shadow main breakdown] per frame ({n_chunks} chunks of "
+        f"{DEFAULT_CHUNK} rays): camera + cull "
+        f"{', '.join(f'{t:.2f}' for t in cull_ms)} ms; K4 alone "
+        f"{', '.join(f'{t:.2f}' for t in k4_ms)} ms; epilogue "
+        f"{', '.join(f'{t:.2f}' for t in epi_ms)} ms; un-tiling "
+        f"{', '.join(f'{t:.2f}' for t in untile_ms)} ms; device-to-host "
+        f"{nbytes / 1e6:.1f} MB {', '.join(f'{t:.2f}' for t in d2h)} ms; end "
+        f"to end (median) {e2e_ms:.2f} ms all AOVs, "
+        f"{median(s_nrm) * 1e3:.2f} ms normals only; host share (end to end "
+        f"minus K4) {e2e_ms - median(k4_ms):.2f} ms = "
+        f"{1 - median(k4_ms) / e2e_ms:.3f}")
+
+    # K4 against its plain version over the whole frame, chunk by chunk,
+    # bit for bit; the plain version counts the (bundle, block) pairs each
+    # walk tests, for K4's bound.
+    k4_walk = {}
+    t0 = time.perf_counter()
+    k4_bad = 0
+    for (_, a), (kf, ki) in zip(inputs, k_outs):
+        pf, pi = sh.shadow_trace_ref(scene, *a, light=light, stats=k4_walk,
+                                     bundles=SHADOW_REF_BUNDLES)
+        k4_bad += int(((kf != pf).any(0) | (ki != pi).any(0)).sum())
+        fin = torch.isfinite(kf) & torch.isfinite(pf)
+        err["k4"] = max(err["k4"], float((kf - pf)[fin].abs().max()))
+    torch.cuda.synchronize()
+    k4_plain_ms = (time.perf_counter() - t0) * 1e3
+    rp_frame = n_chunks * DEFAULT_CHUNK
+    log(f"[shadow main] K4 vs plain over the frame's {rp_frame} rays: "
+        f"{k4_bad} rays differ (max |diff| {err['k4']:.3g}); plain "
+        f"{k4_plain_ms:.0f} ms; walk {k4_walk}")
+    if k4_bad:
+        raise AssertionError("K4 disagrees with its plain version on the "
+                             "main path's frame")
+    # The frame's own pixels replayed by the plain route (camera, cull,
+    # plain K4, epilogue), every AOV: its first SHADOW_REPLAY bundles, and
+    # as many around its median lit pixel (the first tiles lie outside the
+    # box). A chunk is a whole number of bundles, so these are the frame's
+    # own bundles.
+    n_rep = SHADOW_REPLAY * 1024
+    order = _pixel_stream(params)[2]
+    lit = np.flatnonzero(sout.geom_id.reshape(-1)[order] >= 0)
+    last = -(-n_frame // 1024) - SHADOW_REPLAY
+    mid = min(max(int(lit[len(lit) // 2]) // 1024 - SHADOW_REPLAY // 2, 0),
+              last)
+    for b0 in (0, mid):
+        g0 = b0 * 1024
+        pix = order[g0:g0 + n_rep]
+        rows, cols = _tile_coords(g0, len(pix), FULL, 0, 0, n_frame, dev)
+        d_rep = generate_camera_rays(rows, cols, FULL, FULL,
+                                     params.fov_radians)[1]
+        a_rep = sh.shadow_inputs(scene, None, d_rep)
+        rep = [a.cpu().numpy() for a in sh.shadow_epilogue(
+            scene, None, d_rep, *sh.shadow_trace_ref(scene, *a_rep,
+                                                     light=light),
+            light, 0.05)]
+        rep[2] = np.where(rep[2] == INVALID_GEOM_ID, -1, rep[2])
+        rep_bad = {k: int((getattr(sout, k).reshape((n_frame, -1))[pix]
+                           != rep[i].reshape((len(pix), -1))).sum())
+                   for i, k in enumerate(("rgb", "t", "geom_id", "prim_id",
+                                          "normal", "hit_p"))}
+        log(f"[shadow main pixels] the frame's stream pixels {g0}.."
+            f"{g0 + len(pix) - 1} vs the plain route: elements differing per "
+            f"AOV {rep_bad}; hits {int((rep[2] >= 0).sum())}")
+        if any(rep_bad.values()):
+            raise AssertionError("the shadow frame's pixels disagree with the "
+                                 "plain route")
+    k4_pairs = k4_walk["primary_pairs"] + k4_walk["occlusion_pairs"]
+    k4_ops = (k4_pairs * 1024 * 128 * ROW_TEST_FLOPS
+              + rp_frame * scene.num_blocks * SLAB_FLAG_FLOPS
+              + 2 * rp_frame * (scene.n_spheres + scene.n_discs)
+              * SHADOW_AP_FLOPS)
+    k4_bytes = (rp_frame * (8 + 4 + 4) * 4
+                + n_chunks * inputs[0][1][1].numel() * 8
+                + sum(t.numel() * t.element_size() for t in (
+                    scene.p, scene.nrm, scene.baabb, scene.ap)))
+    k4_bound = max((k4_ops / PEAK_F32 * 1e3, "operations"),
+                   (k4_bytes / PEAK_BYTES * 1e3, "bytes"))
+    log(f"[K4 bound] {k4_walk['primary_pairs']} primary + "
+        f"{k4_walk['occlusion_pairs']} occlusion (bundle, block) pairs x 1024 "
+        f"x 128 x {ROW_TEST_FLOPS} FLOP + slab flags + sphere/disc tests = "
+        f"{k4_ops:.4g} FLOP -> {k4_ops / PEAK_F32 * 1e3:.3f} ms; "
+        f"{k4_bytes / 1e6:.1f} MB -> {k4_bytes / PEAK_BYTES * 1e3:.3f} ms; "
+        f"kernel {median(k4_ms):.2f} ms")
 
     # ---- 7. the flagship: spheres + NIF at 512^2 spp 64 ----
     fs, fp = build_scene(make_primitive_scene(), device=dev,
@@ -762,6 +1060,7 @@ def main() -> int:
         "bank": max((rec_bytes / PEAK_BYTES * 1e3, "bytes"),
                     (n_esc * 6 / PEAK_F32 * 1e3, "operations")),
         "k3": (k3_bound, k3_by),
+        "k4": k4_bound,
     }
     log(f"[bounds] K1 {bounds['k1'][0]:.3f} ms ({bounds['k1'][1]}) vs "
         f"{main_ms:.2f} ms; K1 record mode {bounds['k1_rec'][0]:.3f} ms "
@@ -824,6 +1123,16 @@ def main() -> int:
               ladder_bound_ms={str(g): r["bound"] for g, r in ladder.items()},
               ladder_shape=f"{BIG_SIZE}^2 spp {BIG_SPP}, max_path_length "
                            f"{BIG_MPL}"),
+        entry("shadow_trace", "shadow.cu",
+              "ipu_ray_lib_tpu/ops/pallas/shadow_kernel.py:56", "k4",
+              k4_launches, median(k4_ms),
+              f"one Cornell + monkey {FULL}^2 shadow frame: {n_chunks} "
+              f"launches of {DEFAULT_CHUNK} rays", k4_plain_ms,
+              median(k4_ms), "the same frame, chunk by chunk",
+              frame_ms_all_aovs=median(s_all) * 1e3,
+              frame_ms_normals=median(s_nrm) * 1e3,
+              epilogue_ms=median(epi_ms), camera_cull_ms=median(cull_ms),
+              untile_ms=median(untile_ms), d2h_ms=median(d2h)),
     ]}))
     log(identity)
     print(json.dumps({"ok": True, "device": {

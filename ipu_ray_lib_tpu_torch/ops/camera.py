@@ -1,9 +1,16 @@
-"""Camera rays of the megakernel (``camera_ray``, megakernel.py:482-509).
+"""Camera rays.
 
-The kernel's form is authoritative: the pixel position is jittered by a
-gaussian scaled by the anti-alias factor, mapped through constants the
-host computes in double and rounds to f32 once, and the origin is the
-camera origin already offset along -z by ``RAY_EPSILON``.
+* :func:`camera_ray` — the megakernel's form (``camera_ray``,
+  megakernel.py:482-509), authoritative for the path trace: the pixel
+  position is jittered by a gaussian scaled by the anti-alias factor,
+  mapped through constants the host computes in double and rounds to f32
+  once, and the origin is the camera origin already offset along -z by
+  ``RAY_EPSILON``.
+* :func:`generate_camera_rays` — the shadow trace's form (ops/camera.py
+  of the JAX package, :16-63, without jitter: the shadow trace calls it
+  with ``anti_alias_scale = 0`` and no key): origin exactly 0, direction
+  ``(x / w) - 0.5`` then ``2 * xn * aspect * tan(fov / 2)`` in f32, in
+  that order, then divided by its length.
 """
 
 from __future__ import annotations
@@ -14,7 +21,55 @@ import numpy as np
 import torch
 
 from ..utils.constants import RAY_EPSILON
-from .vec3 import normalize3
+from .vec3 import fma, normalize3, sqrt
+
+
+def tan_half_fov(fov_radians: float) -> float:
+    """tan(f32(fov) / 2) correctly rounded to f32."""
+    half = np.float32(fov_radians) / np.float32(2.0)
+    return float(np.float32(np.tan(np.float64(half))))
+
+
+def pixel_to_ray_dir(x: torch.Tensor, y: torch.Tensor, w: int, h: int,
+                     tan_theta: float) -> torch.Tensor:
+    """Unit direction [R, 3] through pixel coordinates (column x, row y):
+    the image plane spans the full width fov.
+
+    The arithmetic is the JAX function's as XLA compiles it for the shadow
+    trace (under ``jit``, image size and fov static): a division by the
+    image size becomes a product with its f32 reciprocal, fused with the
+    ``- 0.5`` into one multiply-add; ``2 * aspect * tan`` folds into one
+    f32 constant; the squared length is a chain of multiply-adds."""
+    f32 = np.float32
+    aspect = f32(w) / f32(h)
+    sx = float(f32(f32(2.0) * aspect) * f32(tan_theta))
+    sy = float(f32(-2.0) * f32(tan_theta))
+    xn = fma(x, float(f32(1.0) / f32(w)), -0.5)
+    yn = fma(y, float(f32(1.0) / f32(h)), -0.5)
+    dx, dy = xn * sx, yn * sy
+    n = sqrt(fma(dy, dy, dx * dx) + 1.0)
+    return torch.stack([dx / n, dy / n, -1.0 / n], dim=-1)
+
+
+def pixel_grid(window_w: int, window_h: int, window_c: int, window_r: int,
+               device) -> tuple[torch.Tensor, torch.Tensor]:
+    """Row/column coordinates [R] (f32) of a crop window, scanline order."""
+    rows = torch.arange(window_r, window_r + window_h, dtype=torch.float32,
+                        device=device)
+    cols = torch.arange(window_c, window_c + window_w, dtype=torch.float32,
+                        device=device)
+    rr, cc = torch.meshgrid(rows, cols, indexing="ij")
+    return rr.reshape(-1), cc.reshape(-1)
+
+
+def generate_camera_rays(rows: torch.Tensor, cols: torch.Tensor,
+                         image_width: int, image_height: int,
+                         fov_radians: float):
+    """(origins [R, 3] zeros, directions [R, 3]) through pixel (rows,
+    cols), unjittered."""
+    dirs = pixel_to_ray_dir(cols, rows, image_width, image_height,
+                            tan_half_fov(fov_radians))
+    return torch.zeros_like(dirs), dirs
 
 
 class CameraConsts(NamedTuple):

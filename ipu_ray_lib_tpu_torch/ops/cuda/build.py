@@ -28,7 +28,7 @@ import time
 import torch
 
 _HERE = os.path.dirname(os.path.abspath(__file__))
-_SOURCES = ("megakernel.cu", "env_mlp.cu")
+_SOURCES = ("megakernel.cu", "env_mlp.cu", "shadow.cu")
 BUILD_DIR = os.path.join(_HERE, "..", "..", "_build")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-fmad=false", "-Xcompiler", "-fPIC",
@@ -46,6 +46,8 @@ _SIGNATURES = {
     "bank_launch": [_P] * 3 + [_I] * 3 + [_P],
     "env_mlp_launch": [_P, _P, _I, _P, _P, _P, _I, _I, _I, _I, _P, _P],
     "env_mlp_smem_bytes": [_I, _I],
+    "shadow_launch": [_P] * 10 + [_I] * 4 + [_F] * 3 + [_P],
+    "shadow_smem_bytes": [_I],
 }
 
 
@@ -236,3 +238,45 @@ def launch_env_mlp(dirs, out, env) -> None:
             int(env.config.log_tone_map), env.econst.data_ptr(),
             _stream(dirs.device))
     _raise_on(err, "env_mlp")
+
+
+def launch_shadow(scene, counts, order, dists, rays, out_f, out_i, *,
+                  light) -> None:
+    """Launch the fused shadow kernel (K4) on the current stream: one
+    block of 1,024 threads per bundle. ``counts`` [nrb] i32, ``order``
+    [nrb, nb] i32 and ``dists`` [nrb, nb] f32 from the bundle cull,
+    ``rays`` [8, nrb*1024] f32; ``out_f`` [4, nrb*1024] f32 and ``out_i``
+    [4, nrb*1024] i32 are written; ``light`` three f32 values."""
+    f32, i32 = torch.float32, torch.int32
+    nb = scene.baabb.shape[0]
+    nrb = counts.shape[0]
+    Rp = nrb * 1024
+    n_ap = scene.ap.shape[0]
+    n_sph, n_dsc = scene.n_spheres, scene.n_discs
+    _check("p", scene.p, f32, (nb * 128, 16))
+    _check("nrm", scene.nrm, f32, (8, nb * 3 * 128))
+    _check("baabb", scene.baabb, f32, (nb, 8))
+    _check("ap", scene.ap, f32, (n_ap, 16))
+    if n_sph + n_dsc > n_ap:
+        raise ValueError(f"{n_sph} spheres + {n_dsc} discs exceed {n_ap} ap rows")
+    _check("counts", counts, i32, (nrb,))
+    _check("order", order, i32, (nrb, nb))
+    _check("dists", dists, f32, (nrb, nb))
+    _check("rays", rays, f32, (8, Rp))
+    _check("out_f", out_f, f32, (4, Rp))
+    _check("out_i", out_i, i32, (4, Rp))
+    _same_device(scene.p, scene.nrm, scene.baabb, scene.ap, counts, order,
+                 dists, rays, out_f, out_i)
+    lib = load()
+    smem = lib.shadow_smem_bytes(nb)
+    if smem > 40 * 1024:  # with the 8 KB row stage, within 48 KB a block
+        raise ValueError(f"{nb} blocks need {smem} bytes of block flags in "
+                         "shared memory; the kernel takes up to 40 KB")
+    with torch.cuda.device(rays.device):
+        err = lib.shadow_launch(
+            scene.p.data_ptr(), scene.nrm.data_ptr(), scene.baabb.data_ptr(),
+            scene.ap.data_ptr(), counts.data_ptr(), order.data_ptr(),
+            dists.data_ptr(), rays.data_ptr(), out_f.data_ptr(),
+            out_i.data_ptr(), nrb, nb, n_sph, n_dsc, *light,
+            _stream(rays.device))
+    _raise_on(err, "shadow")

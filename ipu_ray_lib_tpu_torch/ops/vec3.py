@@ -17,10 +17,28 @@ def cross3(a, b):
             a[0] * b[1] - a[1] * b[0])
 
 
+def sqrt(x):
+    """The correctly rounded f32 square root (as the kernels' ``sqrtf``
+    and XLA's): ``torch.sqrt`` of an f32 CPU tensor of more than 512
+    elements is not, so it is taken in float64, which rounds to the same
+    f32 value as one correct rounding."""
+    return torch.sqrt(x.to(torch.float64)).to(torch.float32)
+
+
 def inv_sqrt(x):
     """1 / sqrt(max(x, 1e-30)) with an IEEE division: ``torch.rsqrt`` is
     approximate on CUDA, and the kernel uses this same form."""
     return torch.reciprocal(torch.sqrt(torch.clamp_min(x, 1e-30)))
+
+
+def fma(a, b, c):
+    """f32 ``a * b + c`` rounded once, as XLA's CPU backend contracts a
+    product and a sum inside a fused computation. Evaluated in float64,
+    where the product of two f32 is exact; the sum rounds there and again
+    to f32, which differs from one rounding only when the float64 sum
+    lands on an f32 tie (about 2**-29 of the cases)."""
+    up = lambda x: x.to(torch.float64) if torch.is_tensor(x) else x
+    return (up(a) * up(b) + up(c)).to(torch.float32)
 
 
 def normalize3(v):

@@ -1,0 +1,150 @@
+"""Render orchestration: the chunked shadow trace and its AOVs.
+
+Port of ``render`` (ipu_ray_lib_tpu/render/renderer.py:152). In
+shadow-trace mode (the default) the window's pixels are streamed in tile
+order (32x32 tiles, ``render/streaming.py:_pixel_stream``), in chunks of
+``chunk_size`` rays padded to a whole chunk: a chunk's camera rays, the
+fused shadow kernel (K4) and its epilogue run on the scene's device and
+write into per-AOV buffers there. For a window whose sides are multiples
+of the tile, each chunk's pixel coordinates are computed on the device
+(``_tile_coords``); otherwise they are uploaded. The chunk size decides
+where the bundles of 1,024 rays fall when it is not a multiple of 1,024,
+so it is kept as in the JAX package. At the end the requested AOVs are
+put back in raster order on the device and copied to the host as
+[H, W, ...] numpy; the others come back filled (zeros, t = inf, prim
+-1). ``geom_id`` is always read back.
+
+In path-trace mode ``render`` runs :func:`render_streaming` once. The
+JAX package's progressive variant (a progress callback in path-trace
+mode) and its f16 readback option (``RAY_READBACK_F16``) are not ported
+(ROADMAP queue 13).
+"""
+
+from __future__ import annotations
+
+from typing import Callable, NamedTuple, Optional
+
+import numpy as np
+import torch
+
+from ..bvh.builder import INVALID_GEOM_ID
+from ..ops.camera import generate_camera_rays
+from .shadow import require_vmem_mode, shadow_trace
+from .streaming import _pixel_stream, render_streaming
+
+DEFAULT_CHUNK = 1 << 16
+TILE = 32  # pixel tile edge of the ray order (render/streaming.py)
+
+# Each AOV's trailing shape, dtype and fill where it is not read back:
+_AOVS = {
+    "rgb": ((3,), torch.float32, 0.0),
+    "t": ((), torch.float32, np.inf),
+    "geom_id": ((), torch.int32, -1),
+    "prim_id": ((), torch.int32, -1),
+    "normal": ((3,), torch.float32, 0.0),
+    "hit_p": ((3,), torch.float32, 0.0),
+}
+_NP = {torch.float32: np.float32, torch.int32: np.int32}
+
+
+def _filled(k: str, n: int) -> np.ndarray:
+    shape, dt, fill = _AOVS[k]
+    return np.full((n,) + shape, fill, _NP[dt])
+
+
+class RenderOutput(NamedTuple):
+    """Per-pixel AOVs, [H, W, ...] numpy arrays (window-sized)."""
+
+    rgb: np.ndarray
+    t: np.ndarray
+    geom_id: np.ndarray
+    prim_id: np.ndarray
+    normal: np.ndarray
+    hit_p: np.ndarray
+
+    @property
+    def hit_count(self) -> int:
+        return int(np.sum(self.geom_id >= 0))
+
+
+def _tile_coords(g0: int, n: int, w: int, window_c: int, window_r: int,
+                 total: int, device):
+    """Rows and columns (f32) of padded-stream positions [g0, g0 + n) of a
+    window whose sides are multiples of TILE, from integer arithmetic on
+    the device: the host stream's values; padding positions get (0, 0)."""
+    g = g0 + torch.arange(n, dtype=torch.int64, device=device)
+    tile_id, within = g // (TILE * TILE), g % (TILE * TILE)
+    tr, tc = tile_id // (w // TILE), tile_id % (w // TILE)
+    valid = g < total
+    rows = torch.where(valid, window_r + tr * TILE + within // TILE, 0)
+    cols = torch.where(valid, window_c + tc * TILE + within % TILE, 0)
+    return rows.to(torch.float32), cols.to(torch.float32)
+
+
+def render(scene, params, mode: str = "shadow-trace",
+           chunk_size: int = DEFAULT_CHUNK,
+           progress_callback: Optional[Callable[[int, np.ndarray], None]] = None,
+           aovs: Optional[tuple] = None, env=None) -> RenderOutput:
+    """Render the scene's crop window on the scene's device. ``mode`` is
+    'shadow-trace' or 'path-trace' (``env``: a NIF environment light for
+    the path trace, as :func:`render_streaming` takes it).
+
+    ``aovs`` limits which shadow-trace AOVs are read back (None: all); the
+    others come back filled. ``progress_callback(chunk_index, rgb_chunk)``
+    fires as each shadow-trace chunk completes, with the chunk's rgb [n, 3]
+    in stream order."""
+    h, w = params.window_h, params.window_w
+    if mode == "path-trace":
+        if progress_callback is not None:
+            raise NotImplementedError(
+                "the progressive path trace is not ported (ROADMAP queue 13)")
+        rgb, _ = render_streaming(scene, params, chunk_slots=chunk_size,
+                                  env=env)
+        return RenderOutput(rgb=rgb, **{
+            k: _filled(k, h * w).reshape((h, w) + _AOVS[k][0])
+            for k in _AOVS if k != "rgb"})
+    if mode != "shadow-trace":
+        raise ValueError(f"Unknown render mode '{mode}'")
+    require_vmem_mode(params.intersector)
+
+    dev = scene.device
+    total = w * h
+    rows_np, cols_np, order = _pixel_stream(params)
+    device_coords = w % TILE == 0 and h % TILE == 0
+    n_chunks = -(-total // chunk_size)
+    padded = n_chunks * chunk_size
+    if not device_coords:
+        rows_np = np.pad(rows_np, (0, padded - total))
+        cols_np = np.pad(cols_np, (0, padded - total))
+    fields = [k for k in _AOVS if k == "geom_id" or aovs is None or k in aovs]
+    bufs = {k: torch.empty((padded,) + _AOVS[k][0], dtype=_AOVS[k][1],
+                           device=dev) for k in fields}
+
+    for ci in range(n_chunks):
+        g0 = ci * chunk_size
+        if device_coords:
+            rows, cols = _tile_coords(g0, chunk_size, w, params.window_c,
+                                      params.window_r, total, dev)
+        else:
+            rows = torch.from_numpy(rows_np[g0:g0 + chunk_size]).to(dev)
+            cols = torch.from_numpy(cols_np[g0:g0 + chunk_size]).to(dev)
+        _, d = generate_camera_rays(rows, cols, params.image_width,
+                                    params.image_height, params.fov_radians)
+        res = shadow_trace(scene, None, d)
+        for k in fields:
+            bufs[k][g0:g0 + chunk_size] = getattr(res, k)
+        if progress_callback is not None:
+            progress_callback(ci, res.rgb.cpu().numpy())
+
+    # Raster order: image[order[g]] = stream[g].
+    inverse = np.empty(total, np.int64)
+    inverse[order] = np.arange(total)
+    inv = torch.from_numpy(inverse).to(dev)
+    out = {}
+    for k, (shape, _, _) in _AOVS.items():
+        a = (bufs[k][:total].index_select(0, inv).cpu().numpy() if k in bufs
+             else _filled(k, total))
+        out[k] = a.reshape((h, w) + shape)
+    g = out["geom_id"]
+    out["geom_id"] = np.where(g == INVALID_GEOM_ID, -1, g).astype(np.int32)
+    return RenderOutput(**out)

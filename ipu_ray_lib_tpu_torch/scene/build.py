@@ -75,6 +75,15 @@ class TorchScene:
     sgaabb: torch.Tensor      # [ceil(nb/64), 8] f32 super-group AABBs
     ap: torch.Tensor          # [P, 16] f32 sphere/disc geometry rows
     apay: torch.Tensor        # [16, P] f32 sphere/disc payload columns
+    # What the shadow-trace epilogue reads (ops/shadow.py): geometry and
+    # primitive ids of each triangle row (padding -1), of each sphere and
+    # disc row, and the materials.
+    tri_geom: torch.Tensor    # [nb*128] i32
+    tri_prim: torch.Tensor    # [nb*128] i32
+    sphere_geom: torch.Tensor  # [S] i32 (S >= 1: a padding row if none)
+    disc_geom: torch.Tensor   # [D] i32 (D >= 1)
+    mat_id: torch.Tensor      # [G] i32 material of each geometry
+    mat_albedo: torch.Tensor  # [M, 3] f32
 
     @property
     def device(self) -> torch.device:
@@ -87,6 +96,15 @@ class TorchScene:
     @property
     def n_ap(self) -> int:
         return self.ap.shape[0]
+
+    @property
+    def n_spheres(self) -> int:
+        """Sphere rows: ``ap`` rows [0, S); the disc rows follow."""
+        return self.sphere_geom.shape[0]
+
+    @property
+    def n_discs(self) -> int:
+        return self.disc_geom.shape[0]
 
     def to(self, device) -> "TorchScene":
         return TorchScene(**{f.name: getattr(self, f.name).to(device)
@@ -149,12 +167,13 @@ def analytic_tables(spheres, discs, sphere_geom, disc_geom, mat_id,
 
 
 # Leaves of the JAX package's SceneArrays (and its BlockedSceneTables)
-# that a TorchScene is made from: the triangle tables go to the device as
-# they are; the sphere, disc and material leaves only feed ap/apay.
-_TABLES = ("p", "nrm", "baabb", "saabb", "sgaabb")
-_CARRIED = _TABLES + ("spheres", "discs", "mat_id", "mat_albedo",
-                      "mat_emission", "mat_ior", "mat_type", "mat_emissive",
-                      "sphere_geom", "disc_geom")
+# that a TorchScene is made from: the tables and id maps go to the device
+# as they are; the sphere, disc and other material leaves only feed
+# ap/apay.
+_TABLES = ("p", "nrm", "baabb", "saabb", "sgaabb", "tri_geom", "tri_prim",
+           "sphere_geom", "disc_geom", "mat_id", "mat_albedo")
+_CARRIED = _TABLES + ("spheres", "discs", "mat_emission", "mat_ior",
+                      "mat_type", "mat_emissive")
 
 
 def _from_leaves(leaves: dict[str, np.ndarray], device) -> TorchScene:
@@ -277,9 +296,8 @@ def compile_scene(
 ) -> tuple[dict[str, np.ndarray], SceneParams]:
     """The host half of :func:`build_scene` (same arguments): the scene's
     numpy leaves, named as the JAX package's (the blocked tables,
-    including the ``baabb32``/``tri_geom``/``tri_prim`` leaves no ported
-    kernel reads yet, and the sphere, disc and material arrays), and its
-    params."""
+    including the ``baabb32`` leaf no ported kernel reads yet, and the
+    sphere, disc and material arrays), and its params."""
     scene.validate()
 
     tri_list, vert_list, norm_list, mesh_first_tri = [], [], [], []
