@@ -16,7 +16,13 @@ version:
   at 256x256 spp 8, and grid 512 at 1440x1440 spp 64;
 * the shadow trace with its six AOVs: ``render(mode="shadow-trace")`` on
   the Cornell box with the monkey at 1440x1440 (the fused shadow kernel
-  K4, ``ops/cuda/shadow.cu``).
+  K4, ``ops/cuda/shadow.cu``);
+* the shadow trace's glue route on a scene of any size (path A): the
+  stress grid 512 in HBM mode at 1440x1440, through the closest-hit
+  kernel K6 (``ops/cuda/intersect.cu``), twice per chunk;
+* the path trace under an environment light that is not a NIF (path B):
+  the XLA-loop integrator on the Cornell box with the monkey at 1440x1440
+  spp 4 (the closest-hit kernel K5 once per iteration).
 
 Run from the repository root:
 
@@ -44,8 +50,21 @@ Phases (any failed check raises, so the exit code is non-zero):
      for bit: the Cornell box 48x32, Cornell + monkey 64x64, a mesh with
      vertex normals 64x64, 3,000 random rays from spread origins; and
      ``render`` on the card against tests/golden/shadow_box48x32.npz
-     (the JAX package's render), every AOV bit for bit; --quick stops
-     here;
+     (the JAX package's render), every AOV bit for bit;
+  3d. the closest-hit kernels K5 and K6 against their plain versions,
+     every output bit for bit (the blocks each bundle tested included):
+     the Cornell box 48x32, Cornell + monkey 64x64 (camera rays and one
+     bounce, both kernels), stress24 in HBM mode with the f32 and with
+     the bf16 payload, 3,000 random rays from spread origins;
+     ``render(fused=False)`` (the glue route, K5) against
+     tests/golden/shadow_box48x32.npz; the glue route against the K4
+     route on Cornell + monkey 64x64 (ids everywhere and every AOV off
+     the spheres bit for bit; XLA rounds the two routes' sphere tests
+     differently, tests/test_torch_glue.py, so sphere hits are held to
+     limits that follow from their t difference, ``routes_agree``);
+     path B, the kernel route against the plain route, bit for bit and
+     ``done`` exact, on the Cornell box 48x32 spp 2 (K5) and stress24 in
+     HBM mode 32x32 spp 2 (K6); --quick stops here;
   4. Cornell + monkey at the main path's slot pool (1440^2 stream,
      R = 131072, J = 16) with spp 1 per slot — spp is the one cut there —
      which also counts the walk's (segment, block) pairs for K1's bound;
@@ -89,7 +108,30 @@ Phases (any failed check raises, so the exit code is non-zero):
      by both routes, rtol = atol = 1e-5;
   9. grid 512 at the Cornell main path's traffic, 1440^2 spp 64: kernel
      vs plain at its pool with spp 1 (the walk counts for K3's bound),
-     one warm-up and three timed renders, done, finite, K3 alone.
+     one warm-up and three timed renders, done, finite, K3 alone;
+  10. path A at full width: ``render(mode="shadow-trace")`` of phase 9's
+     scene (grid 512, HBM mode) at 1440^2, chunk 65,536: one warm-up,
+     three timed frames with all AOVs and three with normals only (hits,
+     finite AOVs where hit, K6 launched twice per chunk, K4 and K5 not);
+     K6 alone over one frame's calls (CUDA events); the frame's (bundle,
+     block) pairs walked and the (lane, block) pairs its hits need (K6's
+     bound); K6 against its plain version on the frame's own launches
+     (the primary and occlusion call of the chunk with the median lit
+     pixel, and the heaviest occlusion call), every output bit for bit;
+     the frame's 16 bundles from its first triangle hit and 16 around its
+     median lit pixel replayed by the plain route, every AOV bit for bit;
+     then the glue route on phase 6b's Cornell + monkey frame (K5)
+     against phase 6b's K4 frame, as in 3d, and its 16 bundles around its
+     median sphere pixel replayed by the plain route, every AOV bit for
+     bit;
+  11. path B at full width: ``render_streaming`` of phase 4's scene at
+     1440^2 spp 4 (spp is the one cut) under a sky-gradient env, slot pool
+     R = 131072, J = 16: one warm-up and three timed frames, done == 1440^2
+     * 4, finite image, K5 launched and K1 not, the iteration count; K5
+     alone over one frame's calls (CUDA events), its pairs walked and
+     needed; K5 against its plain version on the frame's own launches of
+     the first iteration that walks a block and of a mid-frame iteration;
+     then the grid-512 scene at 256^2 spp 8 (K6).
 Before the last two lines: a JSON object with each kernel's launches on
 its main path, its largest deviation from its plain version, its times
 and its bound (the least time the card could take for the same work);
@@ -99,6 +141,8 @@ Exits non-zero, printing no result, when no CUDA device is available.
 
 from __future__ import annotations
 
+import contextlib
+import dataclasses
 import json
 import os
 import sys
@@ -115,7 +159,7 @@ FULL, SPP = 1440, 64
 NIF_SIZE, NIF_SPP = 512, 64
 NIF_DIR = os.path.join(ROOT, "assets", "nif", "synthetic_urban_4k")
 ENV_DIRS = 65536      # seeded directions of the env MLP checks
-SUB_MAIN = 256        # Cornell main-path slots replayed by both versions
+SUB_MAIN = 128        # Cornell main-path slots replayed by both versions
 SUB_NIF = 2048        # flagship slots replayed by both routes
 # The stress ladder at the JAX package's big-scene configuration
 # (experiments/bigscene_bench.py:29-45): 256^2, spp 8, max_path_length 5.
@@ -124,8 +168,8 @@ BIG_SIZE, BIG_SPP, BIG_MPL = 256, 8, 5
 MAIN_GRID = 512       # the rung also rendered at the Cornell main traffic
 # Slots of each rung's frame replayed by both routes: (its first slots, a
 # block around its median lit slot), sized so the plain replay stays
-# within about a minute.
-LADDER_REPLAY = {512: (4096, 4096), 1024: (1024, 1024), 2048: (1024, 512)}
+# within half a minute.
+LADDER_REPLAY = {512: (2048, 2048), 1024: (512, 512), 2048: (512, 512)}
 
 # The spheres + urban_4k golden is the JAX package's jitted render; the
 # port holds it to the split tolerance of tests/test_torch_env.py
@@ -154,6 +198,32 @@ SHADOW_REPLAY = 16
 SHADOW_REF_BUNDLES = 64
 SLAB_FLAG_FLOPS = 18  # one (ray, block) slab flag: per axis 1 div, 2 sub, 3 mul
 SHADOW_AP_FLOPS = 25  # one (ray, sphere or disc) test of K4's twins
+# Where the glue and the K4 route may differ: on sphere hits only, as
+# the t difference carries over (routes_agree). Measured on the Cornell +
+# monkey 1440^2 frame (the CPU plain versions, which the card's kernels
+# equal bit for bit): 1,491 of 34,357 sphere pixels differ, |dt|/t at
+# most 1.18e-5, |d hit_p| <= |dt|, |d normal| <= 0.99 |dt| / r,
+# |d rgb| <= 1.6 |d normal|.
+SPHERE_SHARE = 0.1
+SPHERE_T_REL = 5e-5
+# Path B (the XLA-loop integrator) at full width: Cornell + monkey 1440^2
+# at this spp, and the grid-512 scene at 256^2 spp 8.
+PATH_B_SPP = 4
+PATH_B_HBM = (256, 8)
+# Bytes K5/K6 move per padded ray: the ray in (8 f32), t, row, n, m out
+# (18 x 4 bytes), and per bundle and list entry the order and bound in.
+INTERSECT_RAY_BYTES = (8 + 18) * 4
+
+
+def sky(d: torch.Tensor) -> torch.Tensor:
+    """An environment light that is not a NIF (a sky gradient over the
+    direction's y): it sends ``render_streaming`` to the XLA-loop
+    integrator, as tests/test_torch_glue.py ``sky``."""
+    from ipu_ray_lib_tpu_torch.ops.vec3 import fma
+
+    t = 0.5 * (d[:, 1] + 1.0)
+    return torch.stack([fma(-0.5, t, 1.0), fma(-0.3, t, 1.0),
+                        torch.ones_like(t)], -1) * 0.7
 
 
 def log(*a):
@@ -203,15 +273,20 @@ def main() -> int:
     from ipu_ray_lib_tpu_torch.bvh.builder import INVALID_GEOM_ID
     from ipu_ray_lib_tpu_torch.nif.model import load_nif_env
     from ipu_ray_lib_tpu_torch.ops import env as envk
+    from ipu_ray_lib_tpu_torch.ops import intersect_hbm as ih
+    from ipu_ray_lib_tpu_torch.ops import intersect_kernel as ik
     from ipu_ray_lib_tpu_torch.ops import megakernel as mk
     from ipu_ray_lib_tpu_torch.ops import shadow as sh
     from ipu_ray_lib_tpu_torch.ops.camera import generate_camera_rays
-    from ipu_ray_lib_tpu_torch.render.renderer import render
+    from ipu_ray_lib_tpu_torch.ops.cull import super_cull_lists_bundle
+    from ipu_ray_lib_tpu_torch.render.renderer import (DEFAULT_CHUNK,
+                                                       _tile_coords, render)
     from ipu_ray_lib_tpu_torch.scene import types as st
     from ipu_ray_lib_tpu_torch.ops.cuda import build as cuda_build
-    from ipu_ray_lib_tpu_torch.render.shadow import DEFAULT_LIGHT_POS
+    from ipu_ray_lib_tpu_torch.render.shadow import (DEFAULT_LIGHT_POS,
+                                                     shadow_trace)
     from ipu_ray_lib_tpu_torch.render.streaming import (
-        MAX_K_PER_DISPATCH, SPP_BATCH, _pixel_stream,
+        ACTIVE_CHECK, MAX_K_PER_DISPATCH, SPP_BATCH, _pixel_stream,
         render_streaming, slot_pool)
     from ipu_ray_lib_tpu_torch.runtime.device import cuda_device, gpu_identity
     from ipu_ray_lib_tpu_torch.scene.build import build_scene
@@ -233,7 +308,7 @@ def main() -> int:
 
     mesh = os.path.join(ROOT, "assets", "monkey_bust.glb")
     err = {"k1": 0.0, "k1_rec": 0.0, "env": 0.0, "bank": 0.0, "k3": 0.0,
-           "k4": 0.0}
+           "k4": 0.0, "k5": 0.0, "k6": 0.0}
 
     def stream(params, chunk=1 << 17):
         rows_np, cols_np, _ = _pixel_stream(params)
@@ -614,6 +689,237 @@ def main() -> int:
     if any(bad.values()) or sh.launches != 3:
         raise AssertionError("shadow golden mismatch on the card")
 
+    # ---- 3d. the closest-hit kernels K5 and K6: kernel vs plain ----
+    def walk_inputs(scene, o, d, hbm):
+        """The culled, padded inputs of one K5 (K6 with ``hbm``) launch
+        for rays (o, d), t in (0, inf)."""
+        R = d.shape[0]
+        args = ik.intersect_inputs(
+            o, d, torch.zeros(R, device=dev),
+            torch.full((R,), float("inf"), device=dev))
+        cull = super_cull_lists_bundle if hbm else ik.block_cull_lists_bundle
+        return (*cull(scene, *args[:4], args[4].shape[1] // 1024), args[4])
+
+    def walks_equal(name, key, scene, inp, kout, hbm):
+        """A kernel's raw outputs ``kout`` against its plain version on the
+        same inputs: every output (the blocks each bundle tested too) bit
+        for bit. Returns the plain version's seconds."""
+        plain = ih.super_walk_ref if hbm else ik.dense_walk_ref
+        pout, t_p = timed(lambda: plain(scene, *inp))
+        same = all(torch.equal(a, b) for a, b in zip(kout, pout))
+        e = 0.0
+        for a, b in zip(kout[:4], pout[:4]):
+            fin = torch.isfinite(a) & torch.isfinite(b)
+            if bool(fin.any()):
+                e = max(e, float((a - b)[fin].abs().max()))
+        err[key] = max(err[key], e)
+        n_hit = int((kout[1] >= 0).sum())
+        log(f"[{'K6' if hbm else 'K5'} {name}] {inp[3].shape[1]} padded "
+            f"rays, {inp[0].shape[0]} bundles: plain {t_p:.3f} s; bit for "
+            f"bit {same} (max |diff| {e:.3g}); hits {n_hit}; blocks tested "
+            f"{int(kout[4].sum())}")
+        if not same:
+            raise AssertionError(f"{name}: the closest-hit kernel disagrees "
+                                 "with its plain version")
+        return t_p
+
+    def intersect_vs_plain(name, scene, o, d, hbm):
+        """K5 (K6 with ``hbm``) and its plain version on the same culled
+        rays. Returns (the kernel's outputs, kernel s, plain s)."""
+        inp = walk_inputs(scene, o, d, hbm)
+        kout, t_k = timed(lambda: ik.walk_cuda(scene, *inp, hbm=hbm))
+        t_p = walks_equal(name, "k6" if hbm else "k5", scene, inp, kout, hbm)
+        return kout, t_k, t_p
+
+    def bounce_rays(scene, o, d, hbm, seed):
+        """Rays of one diffuse bounce: from the rays' hit points, pushed
+        off the surface, into seeded directions of the normal's
+        hemisphere."""
+        hit_fn = ih.pallas_intersect_hbm if hbm else ik.pallas_intersect
+        R = d.shape[0]
+        t, tri, n, _ = hit_fn(scene, o, d, torch.zeros(R, device=dev),
+                              torch.full((R,), float("inf"), device=dev))
+        hit = tri >= 0
+        p = o[hit] + d[hit] * t[hit, None]
+        n = n[hit]
+        g = torch.Generator(device=dev).manual_seed(seed)
+        nd = torch.randn(p.shape, generator=g, device=dev)
+        nd = nd / nd.norm(dim=1, keepdim=True)
+        nd = torch.where((nd * n).sum(1, keepdim=True) < 0, -nd, nd)
+        p = p + n * 1e-2 * (1.0 + p.abs().amax(1, keepdim=True))
+        return p.contiguous(), nd.contiguous()
+
+    @contextlib.contextmanager
+    def plain_walks():
+        """The plain route: the wrappers' CUDA calls replaced by the plain
+        versions on the same device (for replays only)."""
+        saved = ik.dense_walk_cuda, ih.super_walk_cuda
+        ik.dense_walk_cuda = ik.dense_walk_ref
+        ih.super_walk_cuda = ih.super_walk_ref
+        try:
+            yield
+        finally:
+            ik.dense_walk_cuda, ih.super_walk_cuda = saved
+
+    @contextlib.contextmanager
+    def recording(mod, name, calls):
+        """Keep every call of ``mod.name`` (a kernel's launch) with its
+        outputs in ``calls``."""
+        fn = getattr(mod, name)
+
+        def rec(scene, *a):
+            out = fn(scene, *a)
+            calls.append((a, out))
+            return out
+
+        setattr(mod, name, rec)
+        try:
+            yield
+        finally:
+            setattr(mod, name, fn)
+
+    def routes_agree(name, a, b, scene):
+        """The fused route's frame ``a`` against the glue route's ``b``:
+        ids everywhere, and every AOV of every pixel that does not show a
+        sphere, bit for bit. On sphere hits XLA rounds the two routes'
+        sphere tests differently (in the JAX package too,
+        tests/test_torch_glue.py), by far more than an ulp where a ray
+        grazes the sphere. Those pixels are held to the limits that follow
+        from the t difference (``SPHERE_*``, measured on this frame on the
+        CPU): at most SPHERE_SHARE of them differ, |dt| <= SPHERE_T_REL t,
+        |d hit_p| <= |dt| + 1 ulp, |d normal| <= 2 |dt| / r (r the least
+        sphere radius), |d rgb| <= 2 |d normal| + 2^-20; and their glue
+        pixels are held against the plain route (``glue_replay``)."""
+        sph = np.isin(a.geom_id, scene.sphere_geom.cpu().numpy()).reshape(-1)
+        n = sph.size
+        off, on = {}, {}
+        for k in ("rgb", "t", "normal", "hit_p"):
+            dif = (getattr(a, k).reshape(n, -1)
+                   != getattr(b, k).reshape(n, -1)).any(axis=1)
+            off[k] = int((dif & ~sph).sum())
+            on[k] = int((dif & sph).sum())
+        g = lambda o, k: getattr(o, k).reshape(n, -1)[sph].astype(np.float64)
+        ta = g(a, "t")[:, 0]
+        dt = np.abs(ta - g(b, "t")[:, 0])
+        hp = g(a, "hit_p")
+        dh = np.abs(hp - g(b, "hit_p")).max(1)
+        dn = np.abs(g(a, "normal") - g(b, "normal")).max(1)
+        dr = np.abs(g(a, "rgb") - g(b, "rgb")).max(1)
+        S = scene.n_spheres
+        r = float(np.sqrt(scene.ap[:S, 7].cpu().numpy().astype(np.float64)
+                          ).min())
+        ulp = np.spacing(np.abs(hp).max(1).astype(np.float32))
+        over = {"t": int((dt > SPHERE_T_REL * np.abs(ta)).sum()),
+                "hit_p": int((dh > dt + ulp).sum()),
+                "normal": int((dn > 2.0 * dt / r).sum()),
+                "rgb": int((dr > 2.0 * dn + 2.0 ** -20).sum())}
+        n_sph = int(sph.sum())
+        n_dif = int(((dt > 0) | (dh > 0) | (dn > 0) | (dr > 0)).sum())
+        ids = (np.array_equal(a.geom_id, b.geom_id)
+               and np.array_equal(a.prim_id, b.prim_id))
+        rel = float((dt / np.abs(ta)).max()) if n_sph else 0.0
+        log(f"[{name}] glue route vs K4 route: ids equal {ids}; pixels "
+            f"differing off the spheres {off}; sphere-hit pixels differing "
+            f"{on} of {n_sph} ({n_dif} in all, limit "
+            f"{SPHERE_SHARE * n_sph:.0f}); largest |dt|/t {rel:.3g} (limit "
+            f"{SPHERE_T_REL:g}), |d hit_p| {dh.max(initial=0):.3g}, "
+            f"|d normal| {dn.max(initial=0):.3g}, |d rgb| "
+            f"{dr.max(initial=0):.3g}; pixels past their limits {over}")
+        if not ids or any(off.values()):
+            raise AssertionError(f"{name}: the glue route disagrees with the "
+                                 "K4 route")
+        if n_dif > SPHERE_SHARE * n_sph or any(over.values()):
+            raise AssertionError(f"{name}: the routes' sphere hits differ "
+                                 "past their limits")
+        return sph
+
+    def glue_replay(name, scene, params, out, g0, n):
+        """The glue route's frame ``out`` on its stream pixels [g0, g0 + n)
+        (whole bundles) against the plain route (camera, cull, plain K5/K6,
+        the glue in torch), every AOV bit for bit."""
+        n_fr = params.window_w * params.window_h
+        order_ = _pixel_stream(params)[2]
+        pix = order_[g0:g0 + n]
+        rows, cols = _tile_coords(g0, len(pix), params.window_w, 0, 0, n_fr,
+                                  dev)
+        d_rep = generate_camera_rays(rows, cols, params.image_width,
+                                     params.image_height,
+                                     params.fov_radians)[1]
+        with plain_walks():
+            rep = shadow_trace(scene, None, d_rep,
+                               intersector=params.intersector, fused=False)
+        rep = [a.cpu().numpy() for a in rep[:6]]
+        rep[2] = np.where(rep[2] == INVALID_GEOM_ID, -1, rep[2])
+        bad = {k: int((getattr(out, k).reshape((n_fr, -1))[pix]
+                       != rep[i].reshape((len(pix), -1))).sum())
+               for i, k in enumerate(("rgb", "t", "geom_id", "prim_id",
+                                      "normal", "hit_p"))}
+        log(f"[{name}] stream pixels {g0}..{g0 + len(pix) - 1} vs the plain "
+            f"route: elements differing per AOV {bad}; hits "
+            f"{int((rep[2] >= 0).sum())}")
+        if any(bad.values()):
+            raise AssertionError(f"{name}: the glue route's pixels disagree "
+                                 "with the plain route")
+
+    def path_b_routes(name, scene, params):
+        """Path B, the kernel route against the plain route (the same
+        integrator with the plain closest-hit walk), bit for bit."""
+        (krgb, kdone), t_k = timed(lambda: render_streaming(scene, params,
+                                                            env=sky))
+        with plain_walks():
+            (prgb, pdone), t_p = timed(lambda: render_streaming(
+                scene, params, env=sky))
+        same = np.array_equal(krgb, prgb)
+        n_pix = params.window_w * params.window_h
+        log(f"[path B {name}] kernel route {t_k:.3f} s, plain route "
+            f"{t_p:.3f} s; bit for bit {same}; done {kdone}/{pdone}; mean "
+            f"{float(krgb.mean()):.6f}")
+        if (not same or kdone != pdone
+                or kdone != n_pix * params.samples_per_pixel):
+            raise AssertionError(f"path B {name}: the kernel route disagrees "
+                                 "with the plain route")
+
+    intersect_vs_plain("Cornell box 48x32", box, torch.zeros_like(
+        frame_rays(box_p)), frame_rays(box_p), False)
+    mon_d = frame_rays(mon_p)
+    mon_h, _ = build_scene(make_cornell_box_scene(mesh, box_only=False),
+                           device=dev, image_width=64, image_height=64,
+                           intersector="pallas-hbm")
+    for hbm, sc in ((False, mon), (True, mon_h)):
+        zo = torch.zeros_like(mon_d)
+        intersect_vs_plain("Cornell + monkey 64x64", sc, zo, mon_d, hbm)
+        bo, bd = bounce_rays(sc, zo, mon_d, hbm, 11)
+        intersect_vs_plain("Cornell + monkey 64x64, one bounce", sc, bo, bd,
+                           hbm)
+    for split in (False, True):
+        s24, s24_p = hbm_scene(make_stress_scene(24), 48, 32, 1,
+                               payload_split=split)
+        d24 = frame_rays(s24_p)
+        intersect_vs_plain(f"stress24 48x32, {'bf16' if split else 'f32'} "
+                           "payload", s24, torch.zeros_like(d24), d24, True)
+    box_h, _ = build_scene(make_cornell_box_scene(None, box_only=False),
+                           device=dev, image_width=48, image_height=32,
+                           intersector="pallas-hbm")
+    ro_t, rd_t = torch.from_numpy(ro).to(dev), torch.from_numpy(rd).to(dev)
+    intersect_vs_plain("random rays, spread origins", box, ro_t, rd_t, False)
+    intersect_vs_plain("random rays, spread origins", box_h, ro_t, rd_t, True)
+    ik.reset_launches()
+    sh.reset_launches()
+    out = render(box, box_p, chunk_size=512, fused=False)
+    bad = {k: int((~(getattr(out, k) == sgold[k])).sum()) for k in sgold}
+    log(f"[glue shadow golden 48x32] render(fused=False) vs golden, elements "
+        f"differing per AOV: {bad}; hits {out.hit_count}; K5 launches "
+        f"{ik.launches}, K4 launches {sh.launches}")
+    if any(bad.values()) or ik.launches != 6 or sh.launches:
+        raise AssertionError("the glue route misses the shadow golden")
+    gout64 = render(mon, mon_p, fused=False)
+    routes_agree("Cornell + monkey 64x64", render(mon, mon_p), gout64, mon)
+    glue_replay("glue Cornell + monkey 64x64", mon, mon_p, gout64, 0, 4096)
+    path_b_routes("Cornell box 48x32 spp 2", box,
+                  dataclasses.replace(box_p, samples_per_pixel=2))
+    pb_h, pb_hp = hbm_scene(make_stress_scene(24), 32, 32, 2)
+    path_b_routes("stress24 HBM 32x32 spp 2", pb_h, pb_hp)
+
     if quick:
         log("quick mode: stopping before the full-size phases")
         return 0
@@ -740,8 +1046,6 @@ def main() -> int:
     # events, 3 runs each): camera rays + cull, K4 alone (the kernels
     # behind the view of the whole frame), the epilogue, un-tiling on the
     # device; the device-to-host copy of the six AOVs on the host clock.
-    from ipu_ray_lib_tpu_torch.render.renderer import (DEFAULT_CHUNK,
-                                                       _tile_coords)
     n_chunks = -(-n_frame // DEFAULT_CHUNK)
 
     def chunk_dirs(ci):
@@ -1045,6 +1349,197 @@ def main() -> int:
         f"{k3_bound:.3f} ms ({k3_by}: {k3_ops:.4g} FLOP = the pool's spp-1 "
         f"counts x{SPP}, {k3_bytes / 1e6:.1f} MB)")
 
+    # ---- 10. path A at full width: the shadow trace of the grid-512
+    # scene (HBM mode) at 1440^2, the glue route through K6 ----
+    if bp.intersector != "pallas-hbm":
+        raise AssertionError("path A must run the HBM-mode glue route")
+    for m in (ik, ih, sh):
+        m.reset_launches()
+    aout, t_warm_a = timed(lambda: render(bs, bp))
+    a_all, a_nrm = [], []
+    for _ in range(3):
+        aout, t = timed(lambda: render(bs, bp))
+        a_all.append(t)
+    for _ in range(3):
+        anrm, t = timed(lambda: render(bs, bp, aovs=("normal",)))
+        a_nrm.append(t)
+    k6_launches = ih.launches
+    a_hit = aout.geom_id >= 0
+    a_finite = all(bool(np.isfinite(getattr(aout, f)[a_hit]).all())
+                   for f in ("rgb", "t", "normal", "hit_p"))
+    log(f"[path A] stress{MAIN_GRID} {FULL}^2 shadow trace, HBM mode: "
+        f"warm-up {t_warm_a:.3f} s; all AOVs "
+        f"{', '.join(f'{t:.4f}' for t in a_all)} s; normals only "
+        f"{', '.join(f'{t:.4f}' for t in a_nrm)} s; best "
+        f"{n_frame / min(a_all) / 1e6:.2f} / {n_frame / min(a_nrm) / 1e6:.2f} "
+        f"M rays/s; hits {aout.hit_count} of {n_frame}; finite where hit "
+        f"{a_finite}; K6 launches {k6_launches}, K5 {ik.launches}, K4 "
+        f"{sh.launches}")
+    if (aout.rgb.shape != (FULL, FULL, 3) or not a_finite
+            or not 0 < aout.hit_count < n_frame
+            or k6_launches != 2 * n_chunks * 7 or ik.launches or sh.launches):
+        raise AssertionError("path A: wrong shape, non-finite AOVs, no hits, "
+                             "or not K6 alone twice per chunk")
+    if not (np.array_equal(anrm.normal, aout.normal)
+            and np.array_equal(anrm.geom_id, aout.geom_id)):
+        raise AssertionError("path A: the normals-only frame differs")
+    # K6 alone over one frame's 2 * n_chunks calls (CUDA events), and the
+    # frame's (bundle, block) pairs from the kernel's own counts:
+    a_calls = []
+    with recording(ih, "super_walk_cuda", a_calls):
+        render(bs, bp, aovs=("normal",))
+    if len(a_calls) != 2 * n_chunks:
+        raise AssertionError("path A: not two K6 calls per chunk")
+    k6_ms, _ = event_ms(lambda: [ik.walk_cuda(bs, *a, hbm=True)
+                                 for a, _ in a_calls])
+    k6_pairs = sum(int(o[4].sum()) for _, o in a_calls)
+    k6_need = sum(ik.needed_pairs(bs, a[1], a[3], o[0], o[4], members=8)
+                  for a, o in a_calls)
+    k6_rays = sum(a[3].shape[1] for a, _ in a_calls)
+    k6_list_bytes = sum(a[1].numel() * 8 + a[0].numel() * 4
+                        for a, _ in a_calls)
+    log(f"[path A] K6 alone over the frame's {len(a_calls)} calls: "
+        f"{', '.join(f'{t:.2f}' for t in k6_ms)} ms (CUDA events); "
+        f"{k6_pairs} (bundle, block) pairs walked, {k6_need} (lane, block) "
+        f"pairs needed ({k6_need / (k6_pairs * 1024):.4f} of the walked "
+        f"lanes); frame median {median(a_all) * 1e3:.2f} ms all AOVs, host "
+        f"share (frame minus K6) "
+        f"{1 - median(k6_ms) / (median(a_all) * 1e3):.3f}")
+    # K6 against its plain version on the frame's own launches: the
+    # primary and the occlusion call of the chunk that holds the median
+    # lit pixel, and the occlusion call that walked the most (64 bundles
+    # each), every output bit for bit.
+    a_order = _pixel_stream(bp)[2]
+    a_lit = np.flatnonzero(aout.geom_id.reshape(-1)[a_order] >= 0)
+    c_mid = int(a_lit[len(a_lit) // 2]) // DEFAULT_CHUNK
+    c_occ = max(range(n_chunks), key=lambda c: int(a_calls[2 * c + 1][1][4]
+                                                   .sum()))
+    k6_rep_k = k6_rep_p = 0.0
+    for ci in sorted({2 * c_mid, 2 * c_mid + 1, 2 * c_occ + 1}):
+        a, o = a_calls[ci]
+        _, t_k = timed(lambda: ik.walk_cuda(bs, *a, hbm=True))
+        k6_rep_k += t_k
+        k6_rep_p += walks_equal(
+            f"path A chunk {ci // 2} {('primary', 'occlusion')[ci % 2]} "
+            "call", "k6", bs, a, o, True)
+    # The frame's pixels replayed by the plain route, every AOV bit for
+    # bit: the 16 bundles from its first triangle hit, and 16 around its
+    # median lit pixel; and K6 against its plain version on their primary
+    # rays.
+    a_tri = torch.cat([o[1][:DEFAULT_CHUNK] for _, o in a_calls[0::2]])
+    a_first = min(int(torch.nonzero(a_tri >= 0)[0, 0]) // 1024, last)
+    a_mid = min(max(int(a_lit[len(a_lit) // 2]) // 1024 - SHADOW_REPLAY // 2,
+                    0), last)
+    for b0 in (a_first, a_mid):
+        g0 = b0 * 1024
+        pix = a_order[g0:g0 + n_rep]
+        rows, cols = _tile_coords(g0, len(pix), FULL, 0, 0, n_frame, dev)
+        d_rep = generate_camera_rays(rows, cols, FULL, FULL,
+                                     bp.fov_radians)[1]
+        intersect_vs_plain(f"path A, stream pixels {g0}..{g0 + len(pix) - 1}",
+                           bs, torch.zeros_like(d_rep), d_rep, True)
+        glue_replay("path A pixels", bs, bp, aout, g0, n_rep)
+    # The glue route on phase 6b's Cornell + monkey frame (K5) against
+    # phase 6b's K4 frame:
+    ik.reset_launches()
+    gout, t_glue = timed(lambda: render(scene, params, fused=False))
+    log(f"[glue Cornell + monkey {FULL}^2] {t_glue:.3f} s, K5 launches "
+        f"{ik.launches}")
+    g_sph = routes_agree(f"Cornell + monkey {FULL}^2", sout, gout, scene)
+    # Its sphere pixels against the plain route: the 16 bundles around
+    # the frame's median sphere pixel in stream order.
+    g_at = np.flatnonzero(g_sph[order])
+    g_b0 = min(max(int(g_at[len(g_at) // 2]) // 1024 - SHADOW_REPLAY // 2,
+                   0), last)
+    glue_replay(f"glue Cornell + monkey {FULL}^2 sphere pixels", scene,
+                params, gout, g_b0 * 1024, n_rep)
+
+    # ---- 11. path B at full width: the XLA-loop integrator under the sky
+    # env, Cornell + monkey at 1440^2 spp PATH_B_SPP (K5) ----
+    pb = dataclasses.replace(params, samples_per_pixel=PATH_B_SPP)
+    b_paths = FULL * FULL * PATH_B_SPP
+    for m in (ik, ih, mk):
+        m.reset_launches()
+    b_stats = {}
+    (brgb, bdone), t_warm_b = timed(lambda: render_streaming(
+        scene, pb, env=sky, stats=b_stats))
+    b_times = []
+    for _ in range(3):
+        (brgb, bdone), t = timed(lambda: render_streaming(scene, pb, env=sky,
+                                                          stats=b_stats))
+        b_times.append(t)
+    k5_launches = ik.launches
+    b_iters = b_stats["iters"] // 4
+    b_finite = bool(np.isfinite(brgb).all())
+    log(f"[path B] Cornell + monkey {FULL}^2 spp {PATH_B_SPP}, sky env, "
+        f"XLA-loop integrator: warm-up {t_warm_b:.3f} s, runs "
+        f"{', '.join(f'{t:.3f}' for t in b_times)} s; best "
+        f"{b_paths / min(b_times) / 1e6:.2f} M paths/s; {b_iters} "
+        f"iterations per frame; mean {float(brgb.mean()):.6f}; done {bdone}; "
+        f"finite {b_finite}; K5 launches {k5_launches}, K6 {ih.launches}, "
+        f"K1 {mk.launches}, K3 {mk.hbm_launches}")
+    # One K5 launch per iteration; the host reads the active slots every
+    # ACTIVE_CHECK iterations, so up to ACTIVE_CHECK - 1 idle ones follow:
+    if (bdone != b_paths or not b_finite or brgb.shape != (FULL, FULL, 3)
+            or not 4 * b_iters <= k5_launches < 4 * (b_iters + ACTIVE_CHECK)
+            or ih.launches or mk.launches or mk.hbm_launches):
+        raise AssertionError("path B: done, finite or the kernels launched "
+                             "are wrong")
+    b_calls = []
+    with recording(ik, "dense_walk_cuda", b_calls):
+        render_streaming(scene, pb, env=sky)
+    k5_ms, _ = event_ms(lambda: [ik.walk_cuda(scene, *a, hbm=False)
+                                 for a, _ in b_calls])
+    k5_pairs = sum(int(o[4].sum()) for _, o in b_calls)
+    k5_need = sum(ik.needed_pairs(scene, a[1], a[3], o[0], o[4], members=1)
+                  for a, o in b_calls)
+    k5_rays = sum(a[3].shape[1] for a, _ in b_calls)
+    k5_list_bytes = sum(a[1].numel() * 8 + a[0].numel() * 4
+                        for a, _ in b_calls)
+    log(f"[path B] K5 alone over the frame's {len(b_calls)} calls: "
+        f"{', '.join(f'{t:.2f}' for t in k5_ms)} ms (CUDA events, summed); "
+        f"{k5_pairs} (bundle, block) pairs walked, {k5_need} (lane, block) "
+        f"pairs needed ({k5_need / (k5_pairs * 1024):.4f} of the walked "
+        f"lanes); frame median {median(b_times) * 1e3:.1f} ms, host share "
+        f"(frame minus K5) {1 - median(k5_ms) / (median(b_times) * 1e3):.3f}")
+    # K5 against its plain version on the frame's first iteration that
+    # walked a block (the first slots' camera rays miss the box) and on a
+    # mid-frame iteration:
+    b_first = next(i for i, (_, o) in enumerate(b_calls)
+                   if int(o[4].sum()) > 0)
+    k5_rep_k = k5_rep_p = 0.0
+    for it in (b_first, len(b_calls) // 2):
+        a, o = b_calls[it]
+        _, t_k = timed(lambda: ik.walk_cuda(scene, *a, hbm=False))
+        k5_rep_k += t_k
+        k5_rep_p += walks_equal(f"path B iteration {it}", "k5", scene, a, o,
+                                False)
+    # Path B on the grid-512 scene at 256^2 spp 8 (K6):
+    w_b, spp_b = PATH_B_HBM
+    pbh = dataclasses.replace(bp, image_width=w_b, image_height=w_b,
+                              window_w=w_b, window_h=w_b,
+                              samples_per_pixel=spp_b)
+    ih.reset_launches()
+    (hrgb, hdone), t_bh = timed(lambda: render_streaming(bs, pbh, env=sky))
+    log(f"[path B] stress{MAIN_GRID} {w_b}^2 spp {spp_b}, sky env: "
+        f"{t_bh:.3f} s = {w_b * w_b * spp_b / t_bh / 1e6:.2f} M paths/s; "
+        f"done {hdone}; mean {float(hrgb.mean()):.6f}; K6 launches "
+        f"{ih.launches}")
+    if (hdone != w_b * w_b * spp_b or not np.isfinite(hrgb).all()
+            or ih.launches < 1):
+        raise AssertionError("path B on the grid-512 scene failed")
+
+    def intersect_bound(sc, need, rays, list_bytes):
+        """K5/K6's bound over one frame's calls: the (lane, block) pairs
+        its closest hits need (``needed_pairs``) x 128 rows x
+        ROW_TEST_FLOPS at the f32 peak, or its bytes (every ray, list and
+        output once, the tables once)."""
+        ops = need * 128 * ROW_TEST_FLOPS
+        nbytes = (rays * INTERSECT_RAY_BYTES + list_bytes
+                  + (sc.p.numel() + sc.nrm.numel()) * 4)
+        return max((ops / PEAK_F32 * 1e3, "operations"),
+                   (nbytes / PEAK_BYTES * 1e3, "bytes"))
+
     # Bounds (the larger of bytes / 3.35 TB/s and operations / peak):
     macs = env.macs
     seg64 = fwalk["segments"] * (NIF_SPP // CUT)
@@ -1061,6 +1556,8 @@ def main() -> int:
                     (n_esc * 6 / PEAK_F32 * 1e3, "operations")),
         "k3": (k3_bound, k3_by),
         "k4": k4_bound,
+        "k5": intersect_bound(scene, k5_need, k5_rays, k5_list_bytes),
+        "k6": intersect_bound(bs, k6_need, k6_rays, k6_list_bytes),
     }
     log(f"[bounds] K1 {bounds['k1'][0]:.3f} ms ({bounds['k1'][1]}) vs "
         f"{main_ms:.2f} ms; K1 record mode {bounds['k1_rec'][0]:.3f} ms "
@@ -1133,6 +1630,27 @@ def main() -> int:
               frame_ms_normals=median(s_nrm) * 1e3,
               epilogue_ms=median(epi_ms), camera_cull_ms=median(cull_ms),
               untile_ms=median(untile_ms), d2h_ms=median(d2h)),
+        entry("dense_intersect", "intersect.cu",
+              "ipu_ray_lib_tpu/ops/pallas/intersect_kernel.py:184", "k5",
+              k5_launches, median(k5_ms),
+              f"one path-B frame, Cornell + monkey {FULL}^2 spp "
+              f"{PATH_B_SPP}: {len(b_calls)} launches of 131072 rays",
+              k5_rep_p * 1e3, k5_rep_k * 1e3,
+              "the frame's first and a mid-frame iteration",
+              pairs=k5_pairs, needed_pairs=k5_need,
+              frame_ms=median(b_times) * 1e3,
+              iterations=b_iters),
+        entry("hbm_intersect", "intersect.cu",
+              "ipu_ray_lib_tpu/ops/pallas/intersect_hbm.py:47", "k6",
+              k6_launches, median(k6_ms),
+              f"one path-A frame, stress grid {MAIN_GRID} at {FULL}^2: "
+              f"{len(a_calls)} launches of {DEFAULT_CHUNK} rays",
+              k6_rep_p * 1e3, k6_rep_k * 1e3,
+              "the frame's primary and occlusion calls of one chunk and "
+              "its heaviest occlusion call", pairs=k6_pairs,
+              needed_pairs=k6_need,
+              frame_ms_all_aovs=median(a_all) * 1e3,
+              frame_ms_normals=median(a_nrm) * 1e3),
     ]}))
     log(identity)
     print(json.dumps({"ok": True, "device": {

@@ -34,6 +34,7 @@ import numpy as np
 import torch
 from torch import nn
 
+from ..runtime.device import cuda_device
 from ..utils.constants import PI, PI_BY_2, TWO_PI
 from .hdf5 import load_keras_h5
 from .metadata import NifMetadata
@@ -256,9 +257,12 @@ def from_jax_params(config, env_params: dict) -> NifEnv:
 
 
 def load_nif_env(assets_dir: str, rotation_degrees: float = 0.0, *,
-                 device) -> NifEnv:
+                 device=None) -> NifEnv:
     """Load a NIF from an assets.extra-style directory (``nif_metadata.txt``
-    and one ``.h5``) onto ``device``."""
+    and one ``.h5``) onto ``device`` (None: the CUDA card, which must be
+    present; pass ``"cpu"`` for the plain versions)."""
+    if device is None:
+        device = cuda_device()
     meta = NifMetadata.load(os.path.join(assets_dir, "nif_metadata.txt"))
     h5 = [c for c in sorted(os.listdir(assets_dir)) if c.endswith(".h5")]
     if not h5:

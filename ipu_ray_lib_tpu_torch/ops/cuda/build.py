@@ -28,7 +28,8 @@ import time
 import torch
 
 _HERE = os.path.dirname(os.path.abspath(__file__))
-_SOURCES = ("megakernel.cu", "env_mlp.cu", "shadow.cu")
+_SOURCES = ("megakernel.cu", "env_mlp.cu", "shadow.cu", "intersect.cu")
+_HEADERS = ("rows.cuh",)  # included by shadow.cu and intersect.cu
 BUILD_DIR = os.path.join(_HERE, "..", "..", "_build")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-fmad=false", "-Xcompiler", "-fPIC",
@@ -48,6 +49,7 @@ _SIGNATURES = {
     "env_mlp_smem_bytes": [_I, _I],
     "shadow_launch": [_P] * 10 + [_I] * 4 + [_F] * 3 + [_P],
     "shadow_smem_bytes": [_I],
+    "intersect_launch": [_P] * 11 + [_I] * 5 + [_P],
 }
 
 
@@ -64,7 +66,7 @@ def _nvcc() -> str:
 def _compile() -> str:
     srcs = [os.path.join(_HERE, s) for s in _SOURCES]
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for s in srcs:
+    for s in srcs + [os.path.join(_HERE, x) for x in _HEADERS]:
         with open(s, "rb") as f:
             h.update(f.read())
     key = h.hexdigest()[:16]
@@ -280,3 +282,44 @@ def launch_shadow(scene, counts, order, dists, rays, out_f, out_i, *,
             out_i.data_ptr(), nrb, nb, n_sph, n_dsc, *light,
             _stream(rays.device))
     _raise_on(err, "shadow")
+
+
+def launch_intersect(scene, counts, order, dists, rays, out_t, out_i, out_n,
+                     out_m, pairs, *, hbm: bool) -> None:
+    """Launch the closest-hit kernel on the current stream: K5 over block
+    lists, or K6 over super lists with ``hbm``; one block of 1,024 threads
+    per bundle. ``counts`` [nrb] i32, ``order`` [nrb, nl] i32 and ``dists``
+    [nrb, nl] f32 from the cull (nl blocks, or supers with ``hbm``),
+    ``rays`` [8, nrb*1024] f32; ``out_t`` [Rp] f32, ``out_i`` [Rp] i32,
+    ``out_n`` and ``out_m`` [8, Rp] f32 and ``pairs`` [nrb] i32 (the
+    blocks each bundle tested) are written."""
+    f32, i32 = torch.float32, torch.int32
+    nb = scene.baabb.shape[0]
+    nrb = counts.shape[0]
+    nl = nb // 8 if hbm else nb
+    Rp = nrb * 1024
+    if hbm and nb % 8:
+        raise ValueError(f"{nb} blocks are not whole supers of 8")
+    _check("p", scene.p, f32, (nb * 128, 16))
+    _check("nrm", scene.nrm, f32, (8, nb * 3 * 128))
+    _check("counts", counts, i32, (nrb,))
+    _check("order", order, i32, (nrb, nl))
+    _check("dists", dists, f32, (nrb, nl))
+    _check("rays", rays, f32, (8, Rp))
+    _check("out_t", out_t, f32, (Rp,))
+    _check("out_i", out_i, i32, (Rp,))
+    _check("out_n", out_n, f32, (8, Rp))
+    _check("out_m", out_m, f32, (8, Rp))
+    _check("pairs", pairs, i32, (nrb,))
+    _same_device(scene.p, scene.nrm, counts, order, dists, rays, out_t, out_i,
+                 out_n, out_m, pairs)
+    lib = load()
+    with torch.cuda.device(rays.device):
+        err = lib.intersect_launch(
+            scene.p.data_ptr(), scene.nrm.data_ptr(), counts.data_ptr(),
+            order.data_ptr(), dists.data_ptr(), rays.data_ptr(),
+            out_t.data_ptr(), out_i.data_ptr(), out_n.data_ptr(),
+            out_m.data_ptr(), pairs.data_ptr(), nrb, nl, nb,
+            int(hbm and scene.payload_split),
+            int(hbm), _stream(rays.device))
+    _raise_on(err, "intersect")

@@ -1,8 +1,9 @@
 """Bundle cull: which triangle blocks each bundle of 1,024 rays may hit,
 nearest first.
 
-Port of ``bundle_cull`` / ``block_cull_lists_bundle`` (ipu_ray_lib_tpu/
-ops/pallas/intersect_kernel.py:46-150). In the JAX package this is XLA,
+Port of ``bundle_cull`` / ``block_cull_lists_bundle`` /
+``super_cull_lists_bundle`` (ipu_ray_lib_tpu/ops/pallas/intersect_kernel.py:
+46-150). In the JAX package this is XLA,
 not Pallas, so here it is plain torch on the rays' device. A bundle's
 interval box (the range of its live lanes' origins and directions) is
 slab-tested against every block AABB with interval arithmetic; mixed-sign
@@ -97,4 +98,12 @@ def block_cull_lists_bundle(scene, origins, dirs, t_min, t_max,
                             n_ray_blocks: int, br: int = BR):
     """Bundle cull against the scene's triangle-block AABBs."""
     return bundle_cull(scene.baabb, origins, dirs, t_min, t_max,
+                       n_ray_blocks, br)
+
+
+def super_cull_lists_bundle(scene, origins, dirs, t_min, t_max,
+                            n_ray_blocks: int, br: int = BR):
+    """Bundle cull against the scene's super AABBs (8 blocks each), the
+    lists of the HBM-mode kernel (ops/intersect_hbm.py)."""
+    return bundle_cull(scene.saabb, origins, dirs, t_min, t_max,
                        n_ray_blocks, br)

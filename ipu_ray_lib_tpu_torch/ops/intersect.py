@@ -44,10 +44,11 @@ def slab_inv(d):
 
 def slab_test(o, inv, active, box):
     """(admit, tin) of every lane against the AABB ``box`` ([8]: lo.xyz,
-    hi.xyz, pad; or [n, 8], giving [n, R] results): ``tin`` starts at 0,
+    hi.xyz, pad; or [..., 8], giving [..., R] results): ``tin`` starts at 0,
     ``tout`` at ``BIG`` (-1 for inactive lanes) and takes the exit widened
     by ``SLAB_SCALE``. Inverted padding boxes (lo = +inf) never admit."""
-    col = (lambda c: box[c]) if box.dim() == 1 else (lambda c: box[:, c, None])
+    col = ((lambda c: box[c]) if box.dim() == 1
+           else (lambda c: box[..., c, None]))
     tin = torch.zeros_like(o[0])
     tout = torch.where(active, BIG, -1.0)
     for a in range(3):

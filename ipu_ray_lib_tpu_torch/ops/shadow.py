@@ -35,9 +35,10 @@ or -1, disc index or -1, occluded 0/1). The shading floats come from
 XLA after its kernel.
 
 The kernel's arithmetic is the JAX kernel's, operation for operation: the
-dense row test is K1's (``ops/intersect.py:dense_rows``) with f32
-barycentrics for the shading normal, the sphere and disc tests are the
-``ops/dense.py`` twins (not K1's ``analytic_hit``), and the occlusion slab
+primary walk and its row test are K5's (ops/intersect_kernel.py, CUDA
+``rows.cuh``) with f32 barycentrics for the shading normal, the sphere and
+disc tests are the ``ops/dense.py`` passes with the dots contracted
+elementwise (not K1's ``analytic_hit``), and the occlusion slab
 is K4's own (``SLAB_SCALE = 1 + 2 gamma_3``, zero-direction axes decided
 by whether the origin lies inside the slab). The camera rays before it
 and the epilogue after it follow the JAX package as XLA compiles them
@@ -51,23 +52,17 @@ import numpy as np
 import torch
 
 from ..bvh.builder import INVALID_GEOM_ID
-from ..utils.constants import MACHINE_EPSILON, RAY_EPSILON
+from ..utils.constants import RAY_EPSILON
 from .cull import BR, SLAB_SCALE, block_cull_lists_bundle
+from .dense import disc_pass, sphere_pass
 from .intersect import INF
-from .tables import TB
-from .vec3 import fma, sqrt
+from .intersect_kernel import (CHECK_EVERY, REF_BUNDLES, _dot, count, lanes,
+                               o_mag, test_block, walk, winner_payload)
+from .traversal import from_hit, resolve_hit
+from .vec3 import TINY, fma, rowdot, sqrt, unit
 
-CHECK_EVERY = 4
 BIG = 1e30  # K4's padding-box bound (float32(1e30) is this value's f32)
-INVALID_PRIM_ID = -1
-_TINY = float(np.float32(1e-30))
-_MACH_EPS = float(MACHINE_EPSILON)
 _RAY_EPS = float(RAY_EPSILON)
-_EPS_CLAMP = float(np.float32(1e-3))
-
-# Bundles the plain version advances together: its temporaries are
-# [bundles, 128, 1024] per tested block.
-REF_BUNDLES = 16
 
 # CUDA kernel launches since the last reset.
 launches = 0
@@ -78,118 +73,18 @@ def reset_launches() -> None:
     launches = 0
 
 
-def _count(stats, key, n) -> None:
-    if stats is not None:
-        stats[key] = stats.get(key, 0) + int(n)
-
-
-def _dot(a, b):
-    """a0*b0 + a1*b1 + a2*b2 as XLA contracts it."""
-    return fma(a[2], b[2], fma(a[0], b[0], a[1] * b[1]))
-
-
-def _row_chain(col, o, d):
-    """K4's plane + barycentric chain of rows against lanes (``col(c)``:
-    table column c broadcast against the lanes): (t, b1, b2, on, r)."""
-    tri = lambda c0: (col(c0), col(c0 + 1), col(c0 + 2))
-    on, dn = _dot(tri(3), o), _dot(tri(3), d)
-    r = torch.reciprocal(dn.to(torch.bfloat16).to(torch.float32))
-    r = r * fma(-dn, r, 2.0)
-    t = (col(0) - on) * r
-    b1 = fma(t, _dot(tri(6), d), _dot(tri(6), o)) - col(1)
-    b2 = fma(t, _dot(tri(9), d), _dot(tri(9), o)) - col(2)
-    return t, b1, b2, on, r
-
-
-def _test_block(p, blk, o, d, o_mag, t_min, best_t, best_row):
-    """One triangle block per bundle (``blk`` [n] block indices) against
-    that bundle's lanes (vec3 tuples of [n, 1, BR]; t_min, best_t and
-    best_row [n, BR]). Returns the new best t and row."""
-    pb = p.view(-1, TB, 16)[blk]                                 # [n, TB, 16]
-    t, b1, b2, on, r = _row_chain(lambda c: pb[..., c:c + 1], o, d)
-    et = (pb[..., 14:15] + torch.abs(on)) * torch.abs(r)
-    eps = torch.clamp_max(fma(pb[..., 13:14], o_mag + et, pb[..., 12:13]),
-                          _EPS_CLAMP)
-    ok = ((torch.minimum(b1, b2) >= -eps) & (b1 + b2 <= 1.0 + eps)
-          & (t > t_min[:, None]))
-    tm = torch.where(ok, t, INF)
-    bt = torch.amin(tm, dim=1)
-    rows = torch.arange(TB, device=p.device)[None, :, None]
-    bi = torch.amin(torch.where(tm <= bt[:, None], rows, TB), dim=1)
-    better = (bt < best_t) & (bt < INF)
-    return (torch.where(better, bt, best_t),
-            torch.where(better, bi + blk[:, None].long() * TB, best_row))
-
-
 def _sphere_pass(ap, n_sph, o, d, t_min, bound):
-    """Twin of ``dense_spheres`` (ops/dense.py:174-211): (better, t, index,
-    centre) of the nearest sphere hit per lane; better = t < bound."""
-    dx, dy, dz = d
-    rd2 = 1.0 / _dot(d, d)
-    cur_t = torch.full_like(dx, INF)
-    cur_i = torch.zeros(dx.shape, dtype=torch.int32, device=dx.device)
-    cur_c = [torch.zeros_like(dx) for _ in range(3)]
-    for s in range(n_sph):
-        c = (ap[s, 1], ap[s, 2], ap[s, 3])
-        r2 = ap[s, 7]
-        oc = tuple(c[a] - o[a] for a in range(3))
-        tca = _dot(oc, d) * rd2
-        lv = tuple(fma(-d[a], tca, oc[a]) for a in range(3))
-        l2 = _dot(lv, lv)
-        td = sqrt(torch.clamp_min(r2 - l2, 0.0)) * rd2
-        t0, t1 = tca - td, tca + td
-        t = torch.where(t0 < t_min, t1, t0)
-        miss = (tca < 0.0) | (l2 > r2) | (t < t_min) | (r2 <= 0.0)
-        t = torch.where(miss | (t <= t_min), INF, t)
-        upd = t < cur_t
-        cur_t = torch.where(upd, t, cur_t)
-        cur_i = torch.where(upd, s, cur_i)
-        cur_c = [torch.where(upd, ca, cc) for ca, cc in zip(c, cur_c)]
-    return cur_t < bound, cur_t, cur_i, cur_c
+    """K4's twin of ``dense_spheres``: (better, t, index, centre);
+    better = t < bound."""
+    t, i, c = sphere_pass(ap, n_sph, o, d, t_min, dot=_dot)
+    return t < bound, t, i, c
 
 
 def _disc_pass(ap, n_sph, n_dsc, o, d, t_min, bound):
-    """Twin of ``dense_discs`` (ops/dense.py:213-249): (better, t, index,
-    normal) of the nearest disc hit per lane; better = t < bound."""
-    dx = d[0]
-    cur_t = torch.full_like(dx, INF)
-    cur_i = torch.zeros(dx.shape, dtype=torch.int32, device=dx.device)
-    cur_n = [torch.zeros_like(dx) for _ in range(3)]
-    for s in range(n_dsc):
-        a = ap[n_sph + s]
-        c, nv = (a[1], a[2], a[3]), (a[4], a[5], a[6])
-        r2, d_off = a[7], a[8]
-        angle = _dot(d, nv)
-        t = -(_dot(o, nv) + d_off) / angle
-        h = tuple(fma(d[k], t, o[k]) - c[k] for k in range(3))
-        d2 = _dot(h, h)
-        ok = ((angle != 0.0) & (t > _MACH_EPS) & (d2 < r2) & (r2 > 0.0)
-              & (t > t_min))
-        t = torch.where(ok, t, INF)
-        upd = t < cur_t
-        cur_t = torch.where(upd, t, cur_t)
-        cur_i = torch.where(upd, s, cur_i)
-        cur_n = [torch.where(upd, na, cn) for na, cn in zip(nv, cur_n)]
-    return cur_t < bound, cur_t, cur_i, cur_n
-
-
-def _o_mag(o):
-    return torch.maximum(torch.maximum(torch.abs(o[0]), torch.abs(o[1])),
-                         torch.abs(o[2]))
-
-
-def _shading_normal(scene, row, o, d):
-    """Raw shading normal N0 + (dN1*b1 + dN2*b2) of each lane's winning
-    row (zeros where row < 0), with the winner's f32 barycentrics."""
-    has = row >= 0
-    r = torch.clamp_min(row, 0)
-    pc = scene.p[r]                                         # [..., 16]
-    _, b1, b2, _, _ = _row_chain(lambda c: pc[..., c], o, d)
-    c0 = (r // TB) * (3 * TB) + r % TB
-    nrm = scene.nrm
-    return tuple(torch.where(has, nrm[c, c0] + (nrm[c, c0 + TB] * b1
-                                                 + nrm[c, c0 + 2 * TB] * b2),
-                             0.0) for c in range(3))
+    """K4's twin of ``dense_discs``: (better, t, index, normal)."""
+    t, i, n = disc_pass(ap, n_sph, n_dsc, o, d, t_min, dot=_dot,
+                        stored_offset=True)
+    return t < bound, t, i, n
 
 
 def _bundles_ref(scene, counts, order, dists, rays, light, stats):
@@ -198,40 +93,18 @@ def _bundles_ref(scene, counts, order, dists, rays, light, stats):
     dev = rays.device
     n = counts.shape[0]
     nb = scene.num_blocks
-    lanes = lambda row: rays[row].reshape(n, 1, BR)
-    o = tuple(lanes(a) for a in range(3))
-    d = tuple(lanes(a) for a in range(3, 6))
-    t_min, t_max = rays[6].reshape(n, BR), rays[7].reshape(n, BR)
+    o, d, t_min, t_max = lanes(rays, n)
 
-    # ---- primary walk: each bundle's list, nearest first, with the
-    # bundle-wide early stop ----
-    best_t = t_max.clone()
-    best_row = torch.full((n, BR), -1, dtype=torch.int64, device=dev)
-    o_mag = _o_mag(o)
-    counts_l = counts.long()
-    live = counts_l > 0
-    j = 0
-    while bool(live.any()):
-        idx = torch.nonzero(live).squeeze(1)
-        _count(stats, "primary_pairs", idx.numel())
-        sel = lambda v: tuple(c[idx] for c in v)
-        bt, br = _test_block(scene.p, order[idx, j].long(), sel(o), sel(d),
-                             o_mag[idx], t_min[idx], best_t[idx],
-                             best_row[idx])
-        best_t = best_t.index_put((idx,), bt)
-        best_row = best_row.index_put((idx,), br)
-        j += 1
-        live = live & (j < counts_l)
-        if j % CHECK_EVERY == 0 and j < nb:
-            worst = torch.amax(best_t, dim=1)
-            live = live & ~(worst < dists[:, j])
-
+    # ---- primary walk: K5's (each bundle's list, nearest first, with the
+    # bundle-wide early stop) ----
+    best_t, tri, _ = walk(scene.p, counts, order, dists, o, d, t_min, t_max,
+                          members=1, check_every=CHECK_EVERY, stats=stats,
+                          key="primary_pairs")
     o = tuple(c[:, 0] for c in o)
     d = tuple(c[:, 0] for c in d)
-    tri = best_row
     found_tri = tri >= 0
     best = torch.where(found_tri, best_t, t_max)
-    n_raw = _shading_normal(scene, tri, o, d)
+    n_raw = tuple(winner_payload(scene, tri, o, d)[0][:3])
 
     # ---- spheres, then discs, override when strictly nearer ----
     ap, n_sph, n_dsc = scene.ap, scene.n_spheres, scene.n_discs
@@ -243,12 +116,12 @@ def _bundles_ref(scene, counts, order, dists, rays, light, stats):
     hit_t = torch.where(found, best, t_max)
 
     # ---- the kernel's own normal, hit point and shadow ray ----
-    kinv = torch.clamp_min(sqrt(_dot(n_raw, n_raw)), _TINY)
+    kinv = torch.clamp_min(sqrt(_dot(n_raw, n_raw)), TINY)
     kn = [c / kinv for c in n_raw]
     hp_t = torch.where(found, hit_t, 0.0)
     hit_p = [fma(d[c], hp_t, o[c]) for c in range(3)]
     spn = [hit_p[c] - s_c[c] for c in range(3)]
-    sinv = torch.clamp_min(sqrt(_dot(spn, spn)), _TINY)
+    sinv = torch.clamp_min(sqrt(_dot(spn, spn)), TINY)
     spn = [c / sinv for c in spn]
     default_n = (0.0, 0.0, 1.0)
     normal = [torch.where(found, torch.where(db, d_n[c],
@@ -256,9 +129,9 @@ def _bundles_ref(scene, counts, order, dists, rays, light, stats):
                           default_n[c]) for c in range(3)]
     loff = [float(np.float32(light[c])) - hit_p[c] for c in range(3)]
     dist = sqrt(_dot(loff, loff))
-    dinv = torch.clamp_min(dist, _TINY)
+    dinv = torch.clamp_min(dist, TINY)
     sdir = [c / dinv for c in loff]
-    mag = 1.0 + _o_mag(hit_p)
+    mag = 1.0 + o_mag(hit_p)
     sgn = torch.sign(_dot(normal, sdir))
     sgn = torch.where(sgn == 0.0, 1.0, sgn)
     m_off = mag * _RAY_EPS * sgn
@@ -287,16 +160,16 @@ def _bundles_ref(scene, counts, order, dists, rays, light, stats):
     # ---- occlusion walk over the flagged blocks, in block order ----
     so = tuple(c[:, None] for c in sorig)
     sd = tuple(c[:, None] for c in sdir)
-    so_mag = _o_mag(so)
+    so_mag = o_mag(so)
     s_t = dist.clone()
     s_row = torch.full((n, BR), -1, dtype=torch.int64, device=dev)
     for blk in range(nb):
         idx = torch.nonzero(flags[blk]).squeeze(1)
         if not idx.numel():
             continue
-        _count(stats, "occlusion_pairs", idx.numel())
+        count(stats, "occlusion_pairs", idx.numel())
         sel = lambda v: tuple(c[idx] for c in v)
-        bt, br = _test_block(scene.p, torch.full_like(idx, blk), sel(so),
+        bt, br = test_block(scene.p, torch.full_like(idx, blk), sel(so),
                              sel(sd), so_mag[idx], t_min[idx], s_t[idx],
                              s_row[idx])
         s_t = s_t.index_put((idx,), bt)
@@ -387,14 +260,33 @@ def fused_shadow_trace_arrays(scene, origins, dirs: torch.Tensor, *, light):
     return out_f[:, :R], out_i[:, :R]
 
 
-def _sum3(a, b):
-    """Row sums of a*b ([R, 3] -> [R]) as XLA reduces them: in order, each
-    product fused into the running sum."""
-    return fma(a[:, 2], b[:, 2], fma(a[:, 1], b[:, 1], a[:, 0] * b[:, 0]))
+def light_ray(origins, dirs, found, hit_t, light_pos):
+    """The hit point [R, 3] (the origin where nothing is hit), the unit
+    direction to the point light and its distance, as the JAX package's
+    ``shadow_trace`` computes them (render/shadow.py:76-81)."""
+    hp_t = torch.where(found, hit_t, 0.0)
+    hit_p = (dirs * hp_t[:, None] if origins is None
+             else fma(dirs, hp_t[:, None], origins))
+    light = torch.tensor([float(np.float32(v)) for v in light_pos],
+                         dtype=torch.float32, device=dirs.device)
+    light_offset = from_hit(origins, dirs, hp_t, light[None, :], 1.0)
+    dist = sqrt(rowdot(light_offset, light_offset))
+    return hit_p, light_offset / torch.clamp_min(dist, TINY)[:, None], dist
 
 
-def _unit(v):
-    return v / torch.clamp_min(sqrt(_sum3(v, v)), _TINY)[:, None]
+def shade(scene, geom, prim, found, normal, hit_t, hit_p, sdir, occ,
+          ambient):
+    """Albedo, lambert and rgb (render/shadow.py:86-100): the AOV tuple
+    (rgb [R, 3], t [R], geom_id [R] i32, prim_id [R] i32, normal [R, 3],
+    hit_p [R, 3], escaped [R] bool)."""
+    g_safe = torch.clamp(geom, 0, scene.mat_id.shape[0] - 1).long()
+    albedo = scene.mat_albedo[scene.mat_id[g_safe].long()]
+    lambert = torch.where(occ, 0.0, rowdot(sdir, normal))
+    rgb = fma(albedo, float(np.float32(ambient)), lambert[:, None] * albedo)
+    rgb = torch.where(found[:, None], rgb, 0.0)
+    return (rgb, torch.where(found, hit_t, INF),
+            torch.where(found, geom, INVALID_GEOM_ID).to(torch.int32), prim,
+            normal, torch.where(found[:, None], hit_p, 0.0), ~found)
 
 
 def shadow_epilogue(scene, origins, dirs, out_f, out_i, light_pos, ambient):
@@ -402,57 +294,14 @@ def shadow_epilogue(scene, origins, dirs, out_f, out_i, light_pos, ambient):
     resolution, normals, hit point, light direction, albedo, lambert and
     rgb, as XLA compiles them. ``origins`` None means camera rays from the
     origin (0, 0, 0): XLA then drops the zero origin, and a hit point
-    feeding a difference fuses into it. Returns (rgb [R, 3], t [R],
-    geom_id [R] i32, prim_id [R] i32, normal [R, 3], hit_p [R, 3],
-    escaped [R] bool)."""
-    dev = dirs.device
+    feeding a difference fuses into it. Returns :func:`shade`'s tuple."""
     hit_t = out_f[3]
-    tri, si_b, di_b = out_i[0], out_i[1], out_i[2]
-    occ = out_i[3] != 0
-    sb, db = si_b >= 0, di_b >= 0
-
-    knormal = _unit(out_f[0:3].t())
-    n_sph, n_dsc = scene.n_spheres, scene.n_discs
-    tri_safe = torch.clamp(tri, 0, scene.tri_geom.shape[0] - 1).long()
-    geom = torch.where(tri >= 0, scene.tri_geom[tri_safe], INVALID_GEOM_ID)
-    prim = torch.where(tri >= 0, scene.tri_prim[tri_safe], INVALID_PRIM_ID)
-    si_c = torch.clamp(torch.where(sb, si_b, 0), 0, n_sph - 1).long()
-    geom = torch.where(sb, scene.sphere_geom[si_c], geom)
-    prim = torch.where(sb, 0, prim)
-    di_c = torch.clamp(torch.where(db, di_b, 0), 0, n_dsc - 1).long()
-    geom = torch.where(db, scene.disc_geom[di_c], geom).to(torch.int32)
-    prim = torch.where(db, 0, prim).to(torch.int32)
-    found = geom != INVALID_GEOM_ID
-
-    def from_hit(t, c, sign):
-        """sign * (c - hit point at t), hit point = origin + dirs * t."""
-        t = t[:, None]
-        if origins is None:
-            return fma(-sign * dirs, t, sign * c)
-        return sign * (c - fma(dirs, t, origins))
-
-    sphere_n = _unit(from_hit(hit_t, scene.ap[si_c, 1:4], -1.0))
-    disc_n = scene.ap[n_sph + di_c, 4:7]
-    normal = torch.where(sb[:, None], sphere_n, knormal)
-    normal = torch.where(db[:, None], disc_n, normal)
-    default = torch.tensor([0.0, 0.0, 1.0], dtype=torch.float32, device=dev)
-    normal = torch.where(found[:, None], normal, default)
-
-    hp_t = torch.where(found, hit_t, 0.0)
-    hit_p = (dirs * hp_t[:, None] if origins is None
-             else fma(dirs, hp_t[:, None], origins))
-    light = torch.tensor([float(np.float32(v)) for v in light_pos],
-                         dtype=torch.float32, device=dev)
-    light_offset = from_hit(hp_t, light[None, :], 1.0)
-    sdir = _unit(light_offset)
-    g_safe = torch.clamp(geom, 0, scene.mat_id.shape[0] - 1).long()
-    albedo = scene.mat_albedo[scene.mat_id[g_safe].long()]
-    lambert = torch.where(occ, 0.0, _sum3(sdir, normal))
-    rgb = fma(albedo, float(np.float32(ambient)), lambert[:, None] * albedo)
-    rgb = torch.where(found[:, None], rgb, 0.0)
-    return (rgb, torch.where(found, hit_t, INF),
-            torch.where(found, geom, INVALID_GEOM_ID).to(torch.int32), prim,
-            normal, torch.where(found[:, None], hit_p, 0.0), ~found)
+    geom, prim, found, normal = resolve_hit(
+        scene, origins, dirs, hit_t, out_i[0], out_i[1], out_i[2],
+        unit(out_f[0:3].t()))
+    hit_p, sdir, _ = light_ray(origins, dirs, found, hit_t, light_pos)
+    return shade(scene, geom, prim, found, normal, hit_t, hit_p, sdir,
+                 out_i[3] != 0, ambient)
 
 
 def fused_shadow_trace(scene, origins, dirs, light_pos, ambient):

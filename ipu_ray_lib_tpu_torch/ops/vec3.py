@@ -4,7 +4,10 @@ the reference's operation order, so results round the same way."""
 
 from __future__ import annotations
 
+import numpy as np
 import torch
+
+TINY = float(np.float32(1e-30))
 
 
 def dot3(a, b):
@@ -39,6 +42,24 @@ def fma(a, b, c):
     lands on an f32 tie (about 2**-29 of the cases)."""
     up = lambda x: x.to(torch.float64) if torch.is_tensor(x) else x
     return (up(a) * up(b) + up(c)).to(torch.float32)
+
+
+def sum3(a, b):
+    """a0*b0 + a1*b1 + a2*b2 as XLA reduces a dot or a sum over the last
+    axis: in order, each product fused into the running sum."""
+    return fma(a[2], b[2], fma(a[1], b[1], a[0] * b[0]))
+
+
+def rowdot(a, b):
+    """``sum(a * b, axis=-1)`` of [R, 3] rows, as XLA reduces it."""
+    return sum3(tuple(a[:, c] for c in range(3)),
+                tuple(b[:, c] for c in range(3)))
+
+
+def unit(v):
+    """Rows of v [R, 3] over max(|v|, 1e-30), as XLA compiles
+    ``v / maximum(linalg.norm(v, axis=-1, keepdims=True), 1e-30)``."""
+    return v / torch.clamp_min(sqrt(rowdot(v, v)), TINY)[:, None]
 
 
 def normalize3(v):

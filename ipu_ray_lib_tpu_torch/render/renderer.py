@@ -5,7 +5,8 @@ shadow-trace mode (the default) the window's pixels are streamed in tile
 order (32x32 tiles, ``render/streaming.py:_pixel_stream``), in chunks of
 ``chunk_size`` rays padded to a whole chunk: a chunk's camera rays, the
 fused shadow kernel (K4) and its epilogue run on the scene's device and
-write into per-AOV buffers there. For a window whose sides are multiples
+write into per-AOV buffers there (or, on the glue route, the closest-hit
+kernels K5/K6 twice with the shading between; render/shadow.py). For a window whose sides are multiples
 of the tile, each chunk's pixel coordinates are computed on the device
 (``_tile_coords``); otherwise they are uploaded. The chunk size decides
 where the bundles of 1,024 rays fall when it is not a multiple of 1,024,
@@ -29,7 +30,7 @@ import torch
 
 from ..bvh.builder import INVALID_GEOM_ID
 from ..ops.camera import generate_camera_rays
-from .shadow import require_vmem_mode, shadow_trace
+from .shadow import shadow_trace
 from .streaming import _pixel_stream, render_streaming
 
 DEFAULT_CHUNK = 1 << 16
@@ -84,10 +85,15 @@ def _tile_coords(g0: int, n: int, w: int, window_c: int, window_r: int,
 def render(scene, params, mode: str = "shadow-trace",
            chunk_size: int = DEFAULT_CHUNK,
            progress_callback: Optional[Callable[[int, np.ndarray], None]] = None,
-           aovs: Optional[tuple] = None, env=None) -> RenderOutput:
+           aovs: Optional[tuple] = None, env=None,
+           fused: bool = True) -> RenderOutput:
     """Render the scene's crop window on the scene's device. ``mode`` is
-    'shadow-trace' or 'path-trace' (``env``: a NIF environment light for
-    the path trace, as :func:`render_streaming` takes it).
+    'shadow-trace' or 'path-trace' (``env``: an environment light for the
+    path trace, as :func:`render_streaming` takes it).
+
+    ``fused`` (shadow trace): the fused shadow kernel on a VMEM-mode scene;
+    False, or a ``pallas-hbm`` scene, takes the glue route through the
+    closest-hit kernels (render/shadow.py).
 
     ``aovs`` limits which shadow-trace AOVs are read back (None: all); the
     others come back filled. ``progress_callback(chunk_index, rgb_chunk)``
@@ -105,7 +111,6 @@ def render(scene, params, mode: str = "shadow-trace",
             for k in _AOVS if k != "rgb"})
     if mode != "shadow-trace":
         raise ValueError(f"Unknown render mode '{mode}'")
-    require_vmem_mode(params.intersector)
 
     dev = scene.device
     total = w * h
@@ -130,7 +135,8 @@ def render(scene, params, mode: str = "shadow-trace",
             cols = torch.from_numpy(cols_np[g0:g0 + chunk_size]).to(dev)
         _, d = generate_camera_rays(rows, cols, params.image_width,
                                     params.image_height, params.fov_radians)
-        res = shadow_trace(scene, None, d)
+        res = shadow_trace(scene, None, d, intersector=params.intersector,
+                           fused=fused)
         for k in fields:
             bufs[k][g0:g0 + chunk_size] = getattr(res, k)
         if progress_callback is not None:

@@ -18,13 +18,14 @@ GeomID order matches the reference: meshes, then spheres, then discs.
 
 from __future__ import annotations
 
-from dataclasses import dataclass, fields
+from dataclasses import dataclass, fields, replace
 
 import numpy as np
 import torch
 
 from ..bvh.builder import INVALID_GEOM_ID, build_bvh
-from ..ops.tables import SB, TB, build_blocked_tables
+from ..ops.tables import HBM_SPLIT_MIN_TRIS, SB, TB, build_blocked_tables
+from ..runtime.device import cuda_device
 from .types import CropWindow, SceneDescription
 
 # The JAX package's VMEM ceiling: "auto" picks the HBM walk for scenes
@@ -84,6 +85,16 @@ class TorchScene:
     disc_geom: torch.Tensor   # [D] i32 (D >= 1)
     mat_id: torch.Tensor      # [G] i32 material of each geometry
     mat_albedo: torch.Tensor  # [M, 3] f32
+    # The rest of the materials, which the glue route's sphere and disc
+    # overrides read (ops/traversal.py pallas_path_intersect):
+    mat_type: torch.Tensor    # [M] i32
+    mat_ior: torch.Tensor     # [M] f32
+    mat_emission: torch.Tensor  # [M, 3] f32
+    mat_emissive: torch.Tensor  # [M] i32
+    # Whether ``nrm`` holds bf16 values (HBM mode above HBM_SPLIT_MIN_TRIS
+    # padded rows, or ``payload_split=True``): the HBM-mode closest-hit
+    # kernel then rounds the winner's barycentrics to bf16 too.
+    payload_split: bool = False
 
     @property
     def device(self) -> torch.device:
@@ -107,8 +118,10 @@ class TorchScene:
         return self.disc_geom.shape[0]
 
     def to(self, device) -> "TorchScene":
-        return TorchScene(**{f.name: getattr(self, f.name).to(device)
-                             for f in fields(self)})
+        return replace(self, **{f.name: getattr(self, f.name).to(device)
+                                for f in fields(self)
+                                if isinstance(getattr(self, f.name),
+                                              torch.Tensor)})
 
 
 def analytic_tables(spheres, discs, sphere_geom, disc_geom, mat_id,
@@ -171,14 +184,18 @@ def analytic_tables(spheres, discs, sphere_geom, disc_geom, mat_id,
 # as they are; the sphere, disc and other material leaves only feed
 # ap/apay.
 _TABLES = ("p", "nrm", "baabb", "saabb", "sgaabb", "tri_geom", "tri_prim",
-           "sphere_geom", "disc_geom", "mat_id", "mat_albedo")
-_CARRIED = _TABLES + ("spheres", "discs", "mat_emission", "mat_ior",
-                      "mat_type", "mat_emissive")
+           "sphere_geom", "disc_geom", "mat_id", "mat_albedo", "mat_type",
+           "mat_ior", "mat_emission", "mat_emissive")
+_CARRIED = _TABLES + ("spheres", "discs")
 
 
-def _from_leaves(leaves: dict[str, np.ndarray], device) -> TorchScene:
+def _from_leaves(leaves: dict, device,
+                 payload_split: bool | None = None) -> TorchScene:
     """Build a TorchScene from numpy leaves named as in ``_CARRIED``; the
-    sphere/disc tables are derived here."""
+    sphere/disc tables are derived here. ``payload_split`` None: the
+    leaves' own ``payload_split`` flag (set by :func:`compile_scene`)."""
+    if payload_split is None:
+        payload_split = bool(leaves.get("payload_split", False))
     ap, apay = analytic_tables(
         leaves["spheres"], leaves["discs"], leaves["sphere_geom"],
         leaves["disc_geom"], leaves["mat_id"], leaves["mat_albedo"],
@@ -187,7 +204,8 @@ def _from_leaves(leaves: dict[str, np.ndarray], device) -> TorchScene:
     t = {k: torch.from_numpy(np.array(leaves[k])).to(device)
          for k in _TABLES}
     return TorchScene(ap=torch.from_numpy(ap).to(device),
-                      apay=torch.from_numpy(apay).to(device), **t)
+                      apay=torch.from_numpy(apay).to(device),
+                      payload_split=bool(payload_split), **t)
 
 
 def from_jax_arrays(leaves: dict[str, np.ndarray], device) -> TorchScene:
@@ -207,7 +225,8 @@ def from_jax_arrays(leaves: dict[str, np.ndarray], device) -> TorchScene:
     missing = [k for k in _CARRIED if leaves.get(k) is None]
     if missing:
         raise KeyError(f"from_jax_arrays: missing leaves {missing}")
-    return _from_leaves({k: np.asarray(leaves[k]) for k in _CARRIED}, device)
+    return _from_leaves({k: np.asarray(leaves[k]) for k in _CARRIED}, device,
+                        leaves.get("pay8") is not None)
 
 
 def unpack_super_slabs(pn8: np.ndarray, pay8=None):
@@ -243,7 +262,7 @@ def _pad_rows(a: np.ndarray, min_rows: int = 1) -> np.ndarray:
 def build_scene(
     scene: SceneDescription,
     *,
-    device: torch.device | str,
+    device: torch.device | str | None = None,
     image_width: int = 768,
     image_height: int = 432,
     window: CropWindow | None = None,
@@ -253,7 +272,8 @@ def build_scene(
     payload_split: bool | None = None,
 ) -> tuple[TorchScene, SceneParams]:
     """Compile a SceneDescription of any size into device tensors + static
-    params.
+    params. ``device`` None means the CUDA card, which must be present;
+    pass ``"cpu"`` for the plain versions.
 
     ``intersector``: ``"pallas"`` (the VMEM-mode walk), ``"pallas-hbm"``
     (the HBM-mode walk) or ``"auto"`` (``"pallas"`` up to
@@ -261,6 +281,8 @@ def build_scene(
     ``"pallas-hbm"``). ``payload_split`` (HBM mode only): round the
     payload to bf16 as the JAX package's ``pay8`` does; None turns it on
     above ``HBM_SPLIT_MIN_TRIS`` padded triangle rows."""
+    if device is None:
+        device = cuda_device()
     leaves, params = compile_scene(
         scene, image_width=image_width, image_height=image_height,
         window=window, samples_per_pixel=samples_per_pixel,
@@ -297,7 +319,8 @@ def compile_scene(
     """The host half of :func:`build_scene` (same arguments): the scene's
     numpy leaves, named as the JAX package's (the blocked tables,
     including the ``baabb32`` leaf no ported kernel reads yet, and the
-    sphere, disc and material arrays), and its params."""
+    sphere, disc and material arrays), with the ``payload_split`` flag as
+    resolved, and its params."""
     scene.validate()
 
     tri_list, vert_list, norm_list, mesh_first_tri = [], [], [], []
@@ -390,6 +413,9 @@ def compile_scene(
         tri_order=tri_order, payload_split=payload_split)
 
     leaves = dict(blocked._asdict())
+    leaves["payload_split"] = bool(
+        payload_split if payload_split is not None
+        else blocked.p.shape[0] > HBM_SPLIT_MIN_TRIS)
     leaves.update(
         spheres=_pad_rows(scene.spheres), discs=_pad_rows(scene.discs),
         mat_id=_pad_rows(mat_id), mat_albedo=_pad_rows(mat_albedo),

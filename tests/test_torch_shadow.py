@@ -383,14 +383,29 @@ def test_from_jax_arrays_carries_shadow_leaves(box):
 
 # ---- 8. HBM-mode scenes ----
 
+def _hbm_box():
+    return TB.build_scene(make_cornell_box_scene(None, box_only=False),
+                          device="cpu", image_width=W, image_height=H,
+                          intersector="pallas-hbm")
+
+
+def test_shadow_trace_in_hbm_mode_holds_golden():
+    """An HBM-mode scene takes the glue route through the closest-hit
+    kernel K6 and renders the golden."""
+    ts, params = _hbm_box()
+    out = render(ts, params, chunk_size=512)
+    golden = np.load(GOLDEN)
+    for f in FIELDS:
+        assert _equal(getattr(out, f), golden[f]) == 0, f
+
+
 def test_shadow_trace_raises_in_hbm_mode():
-    ts, params = TB.build_scene(make_cornell_box_scene(None, box_only=False),
-                                device="cpu", image_width=16, image_height=16,
-                                intersector="pallas-hbm")
-    with pytest.raises(NotImplementedError, match="queue 1 item 10"):
-        render(ts, params)
-    with pytest.raises(NotImplementedError, match="K5/K6"):
-        shadow_trace(ts, None, torch.ones(4, 3), intersector="pallas-hbm")
+    """On an HBM-mode scene the intersectors that are not ported raise and
+    name the ROADMAP item that holds them."""
+    ts, _ = _hbm_box()
+    for name in ("bvh", "dense"):
+        with pytest.raises(NotImplementedError, match="queue 1 item 15"):
+            shadow_trace(ts, None, torch.ones(4, 3), intersector=name)
 
 
 # ---- 9. the kernel on the card ----

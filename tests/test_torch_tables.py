@@ -88,6 +88,9 @@ def test_from_jax_arrays_round_trip(both):
     carried = from_jax_arrays(leaves, torch.device("cpu"))
     for f in dataclasses.fields(ts):
         got, want = getattr(carried, f.name), getattr(ts, f.name)
+        if not isinstance(want, torch.Tensor):
+            assert got == want, f.name
+            continue
         assert got.dtype == want.dtype, f.name
         assert torch.equal(got, want), f.name
 
