@@ -25,6 +25,7 @@ import subprocess
 import threading
 import time
 
+import numpy as np
 import torch
 
 _HERE = os.path.dirname(os.path.abspath(__file__))
@@ -35,6 +36,11 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-fmad=false", "-Xcompiler", "-fPIC",
               "-Xptxas", "-v"]
 
+# The counters of a counting launch of K3, in megakernel.cu's order:
+COUNTERS = ("cyc_group", "cyc_slab", "cyc_rows", "cyc_other", "segments",
+            "group_tests", "super_tests", "member_tests", "lane_blocks",
+            "warp_walks", "warp_lanes", "union_blocks", "spread_blocks")
+
 _lock = threading.Lock()
 _lib = None
 # What the last build reported: seconds, ptxas resource usage, cache hit.
@@ -42,10 +48,11 @@ build_info: dict = {}
 
 _P, _I, _U, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint, ctypes.c_float
 _SIGNATURES = {
-    "megakernel_launch": [_P] * 12 + [_I] * 11 + [_U] + [_I] * 4 + [_F] * 5
-                         + [_P],
+    "megakernel_launch": [_P] * 12 + [_I] * 11 + [_U] + [_I] * 4 + [_P]
+                         + [_F] * 5 + [_P],
     "bank_launch": [_P] * 3 + [_I] * 3 + [_P],
-    "env_mlp_launch": [_P, _P, _I, _P, _P, _P, _I, _I, _I, _I, _P, _P],
+    "env_mlp_launch": [_P, _P, _I, _P, _I, _P, _P, _P, _P] + [_I] * 5
+                      + [_P, _P],
     "env_mlp_smem_bytes": [_I, _I],
     "shadow_launch": [_P] * 10 + [_I] * 4 + [_F] * 3 + [_P],
     "shadow_smem_bytes": [_I],
@@ -155,11 +162,13 @@ def launch_megakernel(scene, rows, cols, out, done, *, seed: int,
                       spp: int,
                       K_tot: int, max_iters: int, cam, max_path_length: int,
                       roulette_start_depth: int, record: bool = False,
-                      hbm: bool = False) -> None:
+                      hbm: bool = False, counters=None) -> None:
     """Launch the megakernel on the current stream (asynchronous): K1's
-    VMEM-mode walk, or K3's HBM-mode walk with ``hbm``. ``out`` is the
-    accumulator [J, 3, R] f32, zeroed, or with ``record`` the path records
-    [10, J*spp, R] f32 (record mode); ``done`` [R] i32 is written."""
+    VMEM-mode walk, or K3's HBM-mode warp walk with ``hbm``. ``out`` is
+    the accumulator [J, 3, R] f32, zeroed, or with ``record`` the path
+    records [10, J*spp, R] f32 (record mode); ``done`` [R] i32 is written.
+    ``counters`` (HBM mode only: [COUNTERS] int64, zeroed) makes it a
+    counting launch, which adds the walk's counters to it."""
     f32 = torch.float32
     nb = scene.baabb.shape[0]
     ns, ng = -(-nb // 8), -(-nb // 64)
@@ -182,6 +191,11 @@ def launch_megakernel(scene, rows, cols, out, done, *, seed: int,
     _check("done", done, torch.int32, (R,))
     _same_device(scene.p, scene.nrm, scene.baabb, scene.saabb, scene.sgaabb,
                  scene.ap, scene.apay, rows, cols, out, done)
+    if counters is not None:
+        if not hbm:
+            raise ValueError("counting launches are HBM mode's (K3)")
+        _check("counters", counters, torch.int64, (len(COUNTERS),))
+        _same_device(rows, counters)
     lib = load()
     with torch.cuda.device(rows.device):
         err = lib.megakernel_launch(
@@ -192,7 +206,9 @@ def launch_megakernel(scene, rows, cols, out, done, *, seed: int,
             out.data_ptr() if record else None, done.data_ptr(),
             R, J, spp, K_tot, nb, ns, ng, n_ap, max_path_length,
             roulette_start_depth, max_iters, seed & 0xFFFFFFFF, n_valid, j0,
-            slot0, int(hbm), cam.sx, cam.sy, cam.inv_w, cam.inv_h, cam.aa,
+            slot0, int(hbm),
+            None if counters is None else counters.data_ptr(),
+            cam.sx, cam.sy, cam.inv_w, cam.inv_h, cam.aa,
             _stream(rows.device))
     _raise_on(err, "megakernel")
 
@@ -215,30 +231,37 @@ def launch_bank(rec, done, accum, *, spp: int) -> None:
     _raise_on(err, "bank")
 
 
-def launch_env_mlp(dirs, out, env) -> None:
-    """Env MLP of ``dirs`` [N, 3] f32 into ``out`` [N, 3] f32 (RGB), with
-    the packed weights of a :class:`~ipu_ray_lib_tpu_torch.nif.model.NifEnv`."""
+def launch_env_mlp(dirs, out, env, packed) -> None:
+    """Env MLP of ``dirs`` [N, 3] f32 into ``out`` [N, 3] f32 (RGB): the
+    f32 biases and constants of a
+    :class:`~ipu_ray_lib_tpu_torch.nif.model.NifEnv`, its weights as
+    ``packed`` by :func:`~ipu_ray_lib_tpu_torch.ops.env.pack_mma`."""
     n = dirs.shape[0]
     L = env.num_layers
+    wq, stages, layers = packed["wq"], packed["stages"], packed["layers"]
+    host = np.ascontiguousarray(packed["stages_host"], np.int32)
     _check("dirs", dirs, torch.float32, (n, 3))
     _check("out", out, torch.float32, (n, 3))
-    _check("w", env.w, torch.bfloat16)
+    _check("wq", wq, torch.int32)
     _check("b", env.b, torch.float32)
-    _check("table", env.table, torch.int32, (L, 6))
+    _check("layers", layers, torch.int32, (L, 8))
+    _check("stages", stages, torch.int32, host.shape)
     _check("econst", env.econst, torch.float32, (5,))
-    _same_device(dirs, out, env.w, env.b, env.table, env.econst)
+    _same_device(dirs, out, wq, env.b, layers, stages, env.econst)
     lib = load()
-    E, width = env.config.embedding_dimension, env.width
-    smem = lib.env_mlp_smem_bytes(width, E)
+    E, ldx = env.config.embedding_dimension, packed["ldx"]
+    smem = lib.env_mlp_smem_bytes(ldx, E)
     if smem > 232448:
-        raise ValueError(f"env MLP of width {width} needs {smem} bytes of "
-                         "shared memory per block (227 KB available)")
+        raise ValueError(f"env MLP with activation rows of {ldx} needs "
+                         f"{smem} bytes of shared memory per block (227 KB "
+                         "available)")
     with torch.cuda.device(dirs.device):
         err = lib.env_mlp_launch(
-            dirs.data_ptr(), out.data_ptr(), n, env.w.data_ptr(),
-            env.b.data_ptr(), env.table.data_ptr(), L, E, width,
-            int(env.config.log_tone_map), env.econst.data_ptr(),
-            _stream(dirs.device))
+            dirs.data_ptr(), out.data_ptr(), n, wq.data_ptr(), wq.numel() // 4,
+            env.b.data_ptr(), layers.data_ptr(), stages.data_ptr(),
+            host.ctypes.data, host.shape[0], L, E, ldx,
+            int(env.config.log_tone_map),
+            env.econst.data_ptr(), _stream(dirs.device))
     _raise_on(err, "env_mlp")
 
 

@@ -1,5 +1,6 @@
 // NIF environment-light MLP for Hopper (sm_90a): escape direction ->
-// RGB radiance, for a batch of escaped paths.
+// RGB radiance, for a batch of escaped paths, with the dense layers on
+// the tensor cores.
 //
 // Replaces the env branch of the TPU megakernel,
 // ipu_ray_lib_tpu/ops/pallas/megakernel.py `_mega_kernel` `_env`
@@ -7,33 +8,52 @@
 // polynomial atan2/acos, Fourier features, L dense layers (bf16 inputs and
 // weights, f32 accumulation, f32 bias, ReLU, skip-concat of the features),
 // decode x*max + mean, exp when log tone-mapped, BGR -> RGB. The TPU
-// kernel parks escaped lanes and flushes them through the MXU in batches;
-// here the path-trace kernel records escapes (megakernel.cu, record mode)
-// and this kernel runs once over all of them.
-//
-// Arithmetic contract (shared bit for bit with the plain torch version,
-// ops/env.py env_mlp_ref):
-//   * each dense output is ONE f32 accumulator over the inputs in
-//     ascending index, then + bias. A product of two bf16 values has at
-//     most 16 significant bits, so it is exact in f32 (short of underflow
-//     below 2^-126, which NIF activations and weights do not reach), and
-//     fmaf(w, x, acc) rounds exactly as acc + w*x does;
-//   * sin, cos and exp are the correctly rounded f32 values, from the
-//     float64 functions; everything else is one IEEE rounding per
-//     operation (built with -fmad=false; products that must not fuse use
-//     the _rn intrinsics).
+// kernel parks escaped lanes and flushes them through the MXU in batches
+// (`dot_general(w, x.astype(bf16), preferred_element_type=f32)`); here
+// the path-trace kernel records escapes (megakernel.cu, record mode) and
+// this kernel runs once over all of them.
 //
 // What bounds it on this card: 2 * sum(cin*cout) FLOP per direction
-// (441,280 MACs for the urban_4k NIF), i.e. compute. The tensor cores
-// would do it at 989 TFLOP/s but sum in their own order; this first
-// kernel keeps the contract on the CUDA cores (67 TFLOP/s f32 peak, one
-// FFMA per MAC). Design: a block takes 64 directions; their bf16
-// activations live in shared memory (two [64, width] buffers and the
-// features); each warp owns 8 directions and each lane two adjacent
-// outputs, so a lane does 16 FMAs per input for one 4-byte weight load
-// (coalesced across the warp, L1/L2 resident: the weights are 883 KB)
-// and eight broadcast shared-memory loads. Tensor-core (wgmma) tiles, with
-// their different sum order, are later perf work.
+// (441,280 MACs for the urban_4k NIF), i.e. compute on the tensor cores:
+// 1.47e13 FLOP for the spheres + NIF flagship's 16.7 M escapes, 14.9 ms at
+// 989 TFLOP/s bf16. Directions in and RGB out are ~0.4 GB (0.1 ms).
+//
+// Design: a block of 512 threads (16 warps) takes a tile of 128
+// directions. Their bf16 activations never leave shared memory across
+// the layers: the features [128, 4E] in a region of their own, the layer
+// outputs in two [128, width] buffers used in turn (83 KB each at width
+// 320). Each layer is a bf16 tile product with f32 accumulation by
+// `mma.sync.m16n8k16` (A fragments by `ldmatrix` from the activations, B
+// fragments from shared memory): warp (wm, wn) owns rows 32*wm..+32 and,
+// of a pass of up to 160 output columns, the n-tiles 5*wn..+5, in 40 f32
+// accumulators. The weights of a layer do not fit beside the
+// activations, so they stream through two shared-memory stages of 4
+// k-tiles x 160 columns (20 KB each), each filled by `cp.async` while the
+// warps read the other; a barrier per stage, so fewer and deeper stages
+// and more warps to hide the operand loads served this card better than
+// more stages of fewer k-tiles. The host packs the weights once per NIF
+// (ops/env.py `pack_mma`) in the order the kernel reads them and in the
+// fragment layout of the instruction, so a stage is one contiguous copy
+// and each lane reads its B fragment as one 8-byte load. Weight traffic:
+// each tile reads the 0.9 MB of weights once from L2, 115 GB for the
+// flagship's escapes; the 128-direction tile is what keeps that below
+// the tensor cores' time. Every input width must be a multiple of 16 (the
+// instruction's depth); the last layer's 3 outputs are padded to 16 with
+// zero weights, and the padding is never written out.
+//
+// Why the sums differ from the plain version's (ops/env.py env_mlp_ref,
+// one f32 accumulator per output over the inputs in ascending order):
+// the tensor cores sum each 16-deep slice of products in their own order
+// and precision before adding it to the f32 accumulator (they are fused
+// multiply-adds by nature, whatever -fmad says), as the TPU's MXU sums in
+// its own. The products of two bf16 values are exact either way, so the
+// difference is that of summation order. chip_smoke.py measures it
+// against the plain version beside a torch.matmul chain's, which sums on
+// the same tensor cores. Everything around the sums is kept as it was:
+// the bias added after the sum, then ReLU, then bf16 rounding of each
+// layer's input; sin, cos and exp correctly rounded (from the float64
+// functions); every other operation one IEEE rounding (-fmad=false, the
+// _rn intrinsics).
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -41,14 +61,25 @@
 
 namespace {
 
-constexpr int TILE = 64;                     // directions per block
-constexpr int THREADS = 256;                 // 8 warps
-constexpr int ROWS = TILE / (THREADS / 32);  // directions per warp
+constexpr int TILE = 128;                 // directions per block
+constexpr int THREADS = 512;              // 16 warps
+constexpr int WARPS_M = 4;                // warps over the rows
+constexpr int WARPS_N = 4;                // warps over a pass's columns
+constexpr int MT = TILE / 16 / WARPS_M;   // m-tiles (16 rows) per warp
+constexpr int NCH = 20;                   // n-tiles (8 columns) per pass
+constexpr int WNT = NCH / WARPS_N;        // n-tiles per warp and pass
+constexpr int KG = 4;                     // k-tiles (16 deep) per stage
+constexpr int STAGES = 2;                 // weight ring depth
+constexpr int STAGE_BYTES = KG * NCH * 256;  // one k-tile x n-tile: 256 B
 constexpr int MAX_LAYERS = 16;
+constexpr int LT = 8;                     // ints per layer-table row
+constexpr int ST = 8;                     // ints per stage-table row
 
-struct Layer {
-  int cin, cout, relu, concat, woff, boff;
-};
+// Layer table row: cin, cout, relu, at (inputs below `at` come from the
+// previous output, the rest from the features), boff, last.
+// Stage table row: off16 (16-byte units into the packed weights), n16,
+// layer, n-tile of the pass start, kt0, nkt, nch, flags (1: the pass
+// ends here, 2: the layer ends here).
 
 __device__ __forceinline__ float jmax(float a, float b) {
   return (a != a || b != b) ? a + b : fmaxf(a, b);
@@ -76,28 +107,72 @@ __device__ float atan2_poly(float y, float x) {
   return y < 0.0f ? -a : a;
 }
 
-__device__ __forceinline__ __nv_bfloat16 to_bf16(float v) {
-  return __float2bfloat16_rn(v);
+__device__ __forceinline__ unsigned smem_addr(const void* p) {
+  return static_cast<unsigned>(__cvta_generic_to_shared(p));
 }
 
-__global__ void __launch_bounds__(THREADS)
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(smem_addr(dst)),
+               "l"(src));
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
+__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const void* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_addr(p)));
+}
+
+// D = A * B + D: A 16x16 bf16 (row), B 16x8 bf16 (col), D 16x8 f32.
+__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
+                                         uint2 b) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b.x), "r"(b.y));
+}
+
+// Stage s of the packed weights into ring slot s % STAGES (all threads).
+__device__ __forceinline__ void load_stage(unsigned char* ring,
+                                           const uint4* __restrict__ wq,
+                                           const int* __restrict__ stages,
+                                           int s, int tid) {
+  const int off16 = __ldg(stages + s * ST), n16 = __ldg(stages + s * ST + 1);
+  uint4* dst = reinterpret_cast<uint4*>(ring + (s % STAGES) * STAGE_BYTES);
+  const uint4* src = wq + off16;
+  for (int i = tid; i < n16; i += THREADS) cp_async16(dst + i, src + i);
+}
+
+__global__ void __launch_bounds__(THREADS, 1)
 env_mlp_kernel(const float* __restrict__ dirs, float* __restrict__ out, int n,
-               const __nv_bfloat16* __restrict__ w, const float* __restrict__ b,
-               const int* __restrict__ table, int L, int E, int width,
-               int log_tm, const float* __restrict__ econst) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  __nv_bfloat16* xa = reinterpret_cast<__nv_bfloat16*>(smem);
-  __nv_bfloat16* xb = xa + TILE * width;
-  __nv_bfloat16* feats = xb + TILE * width;             // [TILE, 4E]
-  float* uvn = reinterpret_cast<float*>(feats + TILE * 4 * E);  // [TILE, 2]
-  __shared__ Layer lay[MAX_LAYERS];
+               const uint4* __restrict__ wq, const float* __restrict__ b,
+               const int* __restrict__ ltab, const int* __restrict__ stages,
+               int n_stages, int L, int E, int ldx, int log_tm,
+               const float* __restrict__ econst) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  unsigned char* ring = smem;
+  __nv_bfloat16* xa = reinterpret_cast<__nv_bfloat16*>(smem + STAGES * STAGE_BYTES);
+  __nv_bfloat16* xb = xa + TILE * ldx;
+  const int F = 4 * E, ldf = F + 8;
+  __nv_bfloat16* feats = xb + TILE * ldx;                       // [TILE, ldf]
+  float* uvn = reinterpret_cast<float*>(feats + TILE * ldf);    // [TILE, 2]
+  __shared__ int lay[MAX_LAYERS * LT];
 
   const int tid = threadIdx.x;
   const int base = blockIdx.x * TILE;
-  const int F = 4 * E;
-  if (tid < L) {
-    const int* r = table + tid * 6;
-    lay[tid] = {r[0], r[1], r[2], r[3], r[4], r[5]};
+  if (tid < L * LT) lay[tid] = ltab[tid];
+
+  // The first stages of the weights start loading under the features.
+  for (int s = 0; s < STAGES - 1; ++s) {
+    if (s < n_stages) load_stage(ring, wq, stages, s, tid);
+    cp_async_commit();
   }
 
   // ---- equirect UV (megakernel.py:2314-2321) ----
@@ -121,112 +196,149 @@ env_mlp_kernel(const float* __restrict__ dirs, float* __restrict__ out, int n,
   }
   __syncthreads();
 
-  // ---- Fourier features (:2324-2331), layer 0's input ----
+  // ---- Fourier features (:2324-2331), rounded to bf16 ----
   for (int q = tid; q < TILE * E; q += THREADS) {
     const int t = q / E, e = q % E;
     const float c = (float)(1 << e);
     const double pu = (double)__fmul_rn(uvn[2 * t], c);
     const double pv = (double)__fmul_rn(uvn[2 * t + 1], c);
-    __nv_bfloat16* f = feats + t * F;
-    f[e] = to_bf16((float)sin(pu));
-    f[E + e] = to_bf16((float)sin(pv));
-    f[2 * E + e] = to_bf16((float)cos(pu));
-    f[3 * E + e] = to_bf16((float)cos(pv));
+    __nv_bfloat16* f = feats + t * ldf;
+    f[e] = __float2bfloat16_rn((float)sin(pu));
+    f[E + e] = __float2bfloat16_rn((float)sin(pv));
+    f[2 * E + e] = __float2bfloat16_rn((float)cos(pu));
+    f[3 * E + e] = __float2bfloat16_rn((float)cos(pv));
   }
-  __syncthreads();
-  for (int q = tid; q < TILE * F; q += THREADS) {
-    const int t = q / F, f = q % F;
-    xa[t * width + f] = feats[t * F + f];
-  }
-  __syncthreads();
 
-  // ---- the dense stack ----
+  // ---- the dense stack: one pass of the loop per weight stage ----
   const int warp = tid >> 5, lane = tid & 31;
-  const int t0 = warp * ROWS;
-  __nv_bfloat16* xin = xa;
-  __nv_bfloat16* xout = xb;
-  for (int l = 0; l < L; ++l) {
-    const Layer ly = lay[l];
-    if (ly.concat) {  // x = [previous output, features]
-      const int at = ly.cin - F;
-      for (int q = tid; q < TILE * F; q += THREADS) {
-        const int t = q / F, f = q % F;
-        xin[t * width + at + f] = feats[t * F + f];
+  const int wm = warp % WARPS_M, wn = warp / WARPS_M;
+  const int arow = lane & 15, acol = (lane >> 4) * 8;  // ldmatrix addresses
+  float acc[MT][WNT][4];
+#pragma unroll
+  for (int mi = 0; mi < MT; ++mi)
+#pragma unroll
+    for (int j = 0; j < WNT; ++j)
+#pragma unroll
+      for (int c = 0; c < 4; ++c) acc[mi][j][c] = 0.0f;
+  __nv_bfloat16* cur = xb;  // the previous layer's output
+  __nv_bfloat16* nxt = xa;
+
+  for (int s = 0; s < n_stages; ++s) {
+    cp_async_wait<STAGES - 2>();
+    __syncthreads();  // stage s landed; stage s-1's slot and reads are done
+    if (s + STAGES - 1 < n_stages)
+      load_stage(ring, wq, stages, s + STAGES - 1, tid);
+    cp_async_commit();
+
+    const int* st = stages + s * ST;
+    const int layer = __ldg(st + 2), nt0 = __ldg(st + 3), kt0 = __ldg(st + 4);
+    const int nkt = __ldg(st + 5), nch = __ldg(st + 6), flags = __ldg(st + 7);
+    const int* ly = lay + layer * LT;
+    const int at = ly[3];
+    const uint2* slot = reinterpret_cast<const uint2*>(ring + (s % STAGES) * STAGE_BYTES);
+
+#pragma unroll
+    for (int kk = 0; kk < KG; ++kk) {
+      if (kk >= nkt) break;
+      const int c = (kt0 + kk) * 16;
+      const __nv_bfloat16* src = c < at ? cur + c : feats + (c - at);
+      const int ld = c < at ? ldx : ldf;
+      uint32_t a[MT][4];
+#pragma unroll
+      for (int mi = 0; mi < MT; ++mi)
+        ldmatrix_x4(a[mi], src + ((wm * MT + mi) * 16 + arow) * ld + acol);
+      const uint2* bw = slot + (kk * nch + wn * WNT) * 32 + lane;
+#pragma unroll
+      for (int j = 0; j < WNT; ++j) {
+        if (wn * WNT + j < nch) {
+          const uint2 bf = bw[j * 32];
+#pragma unroll
+          for (int mi = 0; mi < MT; ++mi) mma_bf16(acc[mi][j], a[mi], bf);
+        }
       }
-      __syncthreads();
     }
-    const __nv_bfloat16* wl = w + ly.woff;
-    const float* bl = b + ly.boff;
-    const bool last = l == L - 1;
-    const bool pairs = (ly.cout & 1) == 0;
-    for (int o0 = 2 * lane; o0 < ly.cout; o0 += 64) {
-      const bool has1 = o0 + 1 < ly.cout;
-      float acc0[ROWS], acc1[ROWS];
+
+    if (flags & 1) {  // the pass ends: bias, ReLU, bf16 (or the decode)
+      const int cout = ly[1], relu = ly[2], last = ly[5];
+      const float* bl = b + ly[4];
 #pragma unroll
-      for (int r = 0; r < ROWS; ++r) acc0[r] = acc1[r] = 0.0f;
-      for (int i = 0; i < ly.cin; ++i) {
-        float w0, w1;
-        if (pairs) {
-          const float2 wv = __bfloat1622float2(
-              *reinterpret_cast<const __nv_bfloat162*>(wl + i * ly.cout + o0));
-          w0 = wv.x;
-          w1 = wv.y;
-        } else {
-          w0 = __bfloat162float(wl[i * ly.cout + o0]);
-          w1 = has1 ? __bfloat162float(wl[i * ly.cout + o0 + 1]) : 0.0f;
-        }
+      for (int j = 0; j < WNT; ++j) {
+        if (wn * WNT + j >= nch) continue;
+        const int o = (nt0 + wn * WNT + j) * 8 + 2 * (lane & 3);
+        const float b0 = o < cout ? __ldg(bl + o) : 0.0f;
+        const float b1 = o + 1 < cout ? __ldg(bl + o + 1) : 0.0f;
 #pragma unroll
-        for (int r = 0; r < ROWS; ++r) {
-          const float xv = __bfloat162float(xin[(t0 + r) * width + i]);
-          acc0[r] = fmaf(w0, xv, acc0[r]);
-          acc1[r] = fmaf(w1, xv, acc1[r]);
-        }
-      }
+        for (int mi = 0; mi < MT; ++mi) {
 #pragma unroll
-      for (int r = 0; r < ROWS; ++r) {
-        const int t = t0 + r;
+          for (int h = 0; h < 2; ++h) {
+            const int t = (wm * MT + mi) * 16 + (lane >> 2) + 8 * h;
+            float y0 = __fadd_rn(acc[mi][j][2 * h], b0);
+            float y1 = __fadd_rn(acc[mi][j][2 * h + 1], b1);
+            if (relu) {
+              y0 = jmax(y0, 0.0f);
+              y1 = jmax(y1, 0.0f);
+            }
+            if (!last) {
+              *reinterpret_cast<__nv_bfloat162*>(nxt + t * ldx + o) =
+                  __floats2bfloat162_rn(y0, y1);
+            } else if (base + t < n) {
+              // decode: x*max + mean, exp; channel o is BGR, out is RGB
 #pragma unroll
-        for (int c = 0; c < 2; ++c) {
-          const int o = o0 + c;
-          if (o >= ly.cout) continue;
-          float y = __fadd_rn(c == 0 ? acc0[r] : acc1[r], bl[o]);
-          if (ly.relu) y = jmax(y, 0.0f);
-          if (!last) {
-            xout[t * width + o] = to_bf16(y);
-          } else if (base + t < n && o < 3) {
-            // decode: x*max + mean, exp; channel o is BGR, out is RGB
-            float v = __fadd_rn(__fmul_rn(y, econst[1]), econst[2 + o]);
-            if (log_tm) v = (float)exp((double)v);
-            out[3 * (base + t) + (2 - o)] = v;
+              for (int k = 0; k < 2; ++k) {
+                const int oc = o + k;
+                if (oc >= cout) continue;
+                float v = __fadd_rn(__fmul_rn(k ? y1 : y0, econst[1]), econst[2 + oc]);
+                if (log_tm) v = (float)exp((double)v);
+                out[3 * (base + t) + (2 - oc)] = v;
+              }
+            }
           }
+          acc[mi][j][0] = acc[mi][j][1] = acc[mi][j][2] = acc[mi][j][3] = 0.0f;
         }
       }
     }
-    __syncthreads();
-    __nv_bfloat16* tmp = xin;
-    xin = xout;
-    xout = tmp;
+    if (flags & 2) {  // the layer ends: its output is the next input
+      __nv_bfloat16* tmp = cur;
+      cur = nxt;
+      nxt = tmp;
+    }
   }
+  cp_async_wait<0>();
 }
 
 }  // namespace
 
-extern "C" int env_mlp_smem_bytes(int width, int E) {
-  return 2 * TILE * width * 2 + TILE * 4 * E * 2 + TILE * 2 * 4;
+extern "C" int env_mlp_smem_bytes(int ldx, int E) {
+  return STAGES * STAGE_BYTES + 2 * TILE * ldx * 2 + TILE * (4 * E + 8) * 2 +
+         TILE * 2 * 4;
 }
 
+// `stages_host` is the host's copy of the stage table `stages`: each stage
+// must fit the kernel's ring (at most KG k-tiles of at most NCH n-tiles,
+// 256 B each) and the n16 16-byte units of `wq`, or the launch is refused.
 extern "C" int env_mlp_launch(const float* dirs, float* out, int n,
-                              const void* w, const float* b, const int* table,
-                              int L, int E, int width, int log_tm,
+                              const void* wq, int wq16, const float* b,
+                              const int* ltab, const int* stages,
+                              const int* stages_host, int n_stages, int L,
+                              int E, int ldx, int log_tm,
                               const float* econst, void* stream) {
-  if (L > MAX_LAYERS || (width & 1) || n <= 0) return (int)cudaErrorInvalidValue;
-  const int smem = env_mlp_smem_bytes(width, E);
+  if (L > MAX_LAYERS || n <= 0 || n_stages <= 0 || (ldx % 16) != 8 ||
+      (E % 4) != 0)
+    return (int)cudaErrorInvalidValue;
+  for (int s = 0; s < n_stages; ++s) {
+    const int* st = stages_host + s * ST;
+    const int off16 = st[0], n16 = st[1], layer = st[2], nkt = st[5], nch = st[6];
+    if (nkt <= 0 || nkt > KG || nch <= 0 || nch > NCH || n16 != nkt * nch * 16 ||
+        off16 < 0 || off16 > wq16 - n16 || layer < 0 || layer >= L)
+      return (int)cudaErrorInvalidValue;
+  }
+  const int smem = env_mlp_smem_bytes(ldx, E);
   cudaError_t err = cudaFuncSetAttribute(
       env_mlp_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return (int)err;
   const int blocks = (n + TILE - 1) / TILE;
   env_mlp_kernel<<<blocks, THREADS, smem, static_cast<cudaStream_t>(stream)>>>(
-      dirs, out, n, static_cast<const __nv_bfloat16*>(w), b, table, L, E,
-      width, log_tm, econst);
+      dirs, out, n, static_cast<const uint4*>(wq), b, ltab, stages, n_stages,
+      L, E, ldx, log_tm, econst);
   return (int)cudaGetLastError();
 }

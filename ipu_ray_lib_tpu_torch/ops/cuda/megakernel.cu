@@ -26,19 +26,38 @@
 //   SLAB_LO < best_t, :1150-1162) and tests the rows of the blocks that
 //   pass, in ascending order; the payload takes the winner's f32
 //   barycentrics (:1362-1365, 1403-1405). The TPU streams each flagged
-//   super through VMEM by DMA; here the tables stay in device memory and
-//   are read through the caches. The TPU culls per bundle, this kernel
-//   per lane: both are conservative.
+//   super through VMEM by DMA and culls per bundle; here each lane culls
+//   for itself, and the warp walks together (`warp_walk`): every lane of
+//   the warp takes the groups and the supers in ascending order in step,
+//   each lane with a live segment testing only the boxes its own walk
+//   would test, with its own best t, and the others taking part with
+//   nothing to test. Of each super the warp stages the union of the
+//   member blocks its lanes need into shared memory, 64 rows at a time
+//   with coalesced 16-byte loads, so a block several lanes need is read
+//   once. A block that few lanes need is tested with its rows spread over
+//   the warp, one needing lane at a time: every lane tests that lane's ray
+//   against rows lane, lane + 32, ... in order, and the warp reduces to
+//   the least t and, among equal t, the least row; a block that many
+//   lanes need is tested by each of them over its rows in order. Either
+//   way a lane's best t and row come out as its own walk over the same
+//   blocks, rows in ascending order with strict `<`, gives them, bit for
+//   bit. The walk's shuffles and barriers take the whole warp, so in HBM
+//   mode no lane leaves the kernel early: the bounce loop runs while any
+//   lane of the warp is live, and a lane whose paths are done only joins
+//   the walks.
 //
 // What bounds it on this card: the dense row test, ~50 f32 operations per
 // (ray, triangle) pair with no FMA, over the rows of every block the
 // lane's walk admits; in HBM mode also ~15 per slab test at each level.
 // The tables (p: 64 B per triangle row) stay in L1/L2 for small scenes;
-// at millions of triangles a lane's blocks come from HBM. A warp whose
-// lanes admit the same block reads each row once as a broadcast. What
-// the design does about it now: nothing beyond the per-lane cull — it is
-// the simple, exact first version. Faster walks (shared-memory row
-// staging, warp-cooperative blocks, wavefront sorting) are later work.
+// at millions of triangles a lane's blocks come from L2 or HBM (33 MB of
+// rows at the grid-512 stress scene). K1 reads them through the caches,
+// a warp whose lanes admit the same block reading each row once as a
+// broadcast; K3 stages them as above. Counting launches (kCount, only
+// chip_smoke.py makes them) add clock64() cycles split between the
+// group scan, the super and member slab tests, the row tests (staging
+// included) and the rest of the bounce (payload, shading, banking), and
+// the blocks each warp walks against the sum over its lanes.
 //
 // Accumulation: accum[(j*3 + c)*R + slot]; a slot's column is written by
 // its own thread only, so no atomics and the per-pixel summation order is
@@ -93,6 +112,7 @@ struct Params {
   float* accum;        // [J*3*R] radiance sums (zeroed), or nullptr
   float* rec;          // [10, K, R] path records, or nullptr: bank directly
   int* done;           // [R] finished paths per slot
+  unsigned long long* cnt;  // [N_COUNT] walk counters (counting launches)
   int R, J, spp, K_tot, nb, ns, ng, n_ap;
   int max_path_length, roulette_start_depth, max_iters;
   uint32_t seed;
@@ -271,34 +291,181 @@ __device__ __forceinline__ bool slab(const float* box, V3 o, float ix,
   return tin <= tout && __ldg(box + 0) < kBig();
 }
 
-// The 128 rows of block b: strictly smaller t replaces, so the lowest row
-// wins a tie.
-__device__ __forceinline__ void walk_block(const float* p, int b, V3 o, V3 d,
-                                           float omag, float& best_t,
-                                           int& best_row) {
-  const float4* rows4 = reinterpret_cast<const float4*>(p) + (size_t)b * TB * 4;
-  for (int r = 0; r < TB; ++r) {
-    float c[16];
-    *reinterpret_cast<float4*>(c + 0) = __ldg(rows4 + r * 4 + 0);
-    *reinterpret_cast<float4*>(c + 4) = __ldg(rows4 + r * 4 + 1);
-    *reinterpret_cast<float4*>(c + 8) = __ldg(rows4 + r * 4 + 2);
-    *reinterpret_cast<float4*>(c + 12) = __ldg(rows4 + r * 4 + 3);
-    const RowTest rt = row_chain(c, o, d);
-    const float et = (c[14] + fabsf(rt.on)) * fabsf(rt.r);
-    const float eps = jmin(c[12] + c[13] * (omag + et), kEpsClamp());
-    const bool ok = (jmin(rt.b1, rt.b2) >= -eps) && (rt.b1 + rt.b2 <= 1.0f + eps) &&
-                    (rt.t > 0.0f);
-    if (ok && rt.t < best_t) {
-      best_t = rt.t;
-      best_row = b * TB + r;
+// Walk counters of a counting launch (cnt[], summed over lanes):
+enum {
+  C_CYC_GROUP,    // cycles in the group scan
+  C_CYC_SLAB,     // cycles in the super and member slab tests
+  C_CYC_ROWS,     // cycles in the row tests (block staging included)
+  C_CYC_OTHER,    // cycles outside the walk (payload, shading, banking)
+  C_SEGMENTS,     // walks, one per lane and segment
+  C_GROUP_TESTS,  // slab tests at each level, per lane
+  C_SUPER_TESTS,
+  C_MEMBER_TESTS,
+  C_LANE_BLOCKS,  // blocks walked, summed over lanes
+  C_WARP_WALKS,   // walks of a warp with a live lane (counted by lane 0)
+  C_WARP_LANES,   // live lanes walking together, summed over warp walks
+  C_UNION_BLOCKS, // blocks a warp walk stages: the union over its lanes
+  C_SPREAD_BLOCKS,  // of those, the blocks tested with rows spread over lanes
+  N_COUNT
+};
+
+struct Counts {
+  unsigned long long v[N_COUNT];
+};
+
+// Adds the cycles since t to counter k, on a live lane only (a lane whose
+// paths are done spends its cycles waiting for the warp).
+template <bool kCount>
+__device__ __forceinline__ void tick(Counts& C, int k, long long& t,
+                                     bool live = true) {
+  if (kCount) {
+    const long long now = clock64();
+    if (live) C.v[k] += (unsigned long long)(now - t);
+    t = now;
+  }
+}
+
+constexpr int STAGE_ROWS = 64;  // rows a warp stages at a time (4 KB)
+// Instruction slots of one row test, and the overhead of spreading one lane's
+// rows over the warp (its ray's 7 shuffles, 2 reductions, the loop and
+// what they wait on): a block is tested spread when its needing lanes'
+// spread tests cost less than one pass of its rows by every needing lane
+// at once. The overhead was chosen on the card, among 20 to 300, by the
+// time of the grid-512 1440^2 spp 64 frame (the ladder's did not move).
+constexpr int kRowCost = 55;
+constexpr int kSpreadCost = 130;
+
+// The acceptance of the staged row c4 (4 float4) for ray (o, d): the
+// arithmetic of K1's row test, its t in t_out.
+__device__ __forceinline__ bool row_hit(const float4* c4, V3 o, V3 d,
+                                        float omag, float& t_out) {
+  float c[16];
+  *reinterpret_cast<float4*>(c + 0) = c4[0];
+  *reinterpret_cast<float4*>(c + 4) = c4[1];
+  *reinterpret_cast<float4*>(c + 8) = c4[2];
+  *reinterpret_cast<float4*>(c + 12) = c4[3];
+  const RowTest rt = row_chain(c, o, d);
+  const float et = (c[14] + fabsf(rt.on)) * fabsf(rt.r);
+  const float eps = jmin(c[12] + c[13] * (omag + et), kEpsClamp());
+  t_out = rt.t;
+  return (jmin(rt.b1, rt.b2) >= -eps) && (rt.b1 + rt.b2 <= 1.0f + eps) &&
+         (rt.t > 0.0f);
+}
+
+// The HBM walk, called by all 32 lanes of a warp together (see the
+// header note): groups and supers in ascending order in step, each `live`
+// lane testing what its own walk tests; the union of the member blocks
+// its lanes need staged into `stage` (this warp's STAGE_ROWS rows of
+// shared memory) and tested there for the lanes that need them, with the
+// rows spread over the warp or each needing lane over all of them. A lane
+// that is not live tests no box and takes no hit, but stages and spreads
+// rows with the others.
+template <bool kCount>
+__device__ __forceinline__ void warp_walk(const Params& P, float4* stage,
+                                          bool live, V3 o, V3 d, float ix,
+                                          float iy, float iz, float omag,
+                                          float& best_t, int& best_row,
+                                          Counts& C, long long& t) {
+  constexpr unsigned wm = 0xffffffffu;
+  constexpr int nl = 32;
+  const int lane = threadIdx.x & 31;
+  const unsigned lm = __ballot_sync(wm, live);
+  if (kCount && lane == 0) {
+    C.v[C_WARP_WALKS] += 1;
+    C.v[C_WARP_LANES] += __popc(lm);
+  }
+  for (int g = 0; g < P.ng; ++g) {
+    float tin;
+    const bool ga = live && slab(P.sgaabb + (size_t)g * 8, o, ix, iy, iz, tin);
+    const unsigned gm = __ballot_sync(wm, ga);
+    if (kCount) C.v[C_GROUP_TESTS] += live;
+    tick<kCount>(C, C_CYC_GROUP, t, live);
+    if (gm == 0u) continue;
+    const int s_end = min((g + 1) * SB, P.ns);
+    for (int sp = g * SB; sp < s_end; ++sp) {
+      const bool sa = ga && slab(P.saabb + (size_t)sp * 8, o, ix, iy, iz, tin);
+      unsigned need = 0u;
+      if (sa) {
+        for (int m = 0; m < SB; ++m) {
+          if (slab(P.baabb + ((size_t)sp * SB + m) * 8, o, ix, iy, iz, tin) &&
+              tin * kSlabLo() < best_t)
+            need |= 1u << m;
+        }
+      }
+      const unsigned un = __reduce_or_sync(wm, need);
+      if (kCount) {
+        C.v[C_SUPER_TESTS] += ga;
+        C.v[C_MEMBER_TESTS] += sa ? SB : 0;
+        C.v[C_LANE_BLOCKS] += __popc(need);
+        if (lane == 0) C.v[C_UNION_BLOCKS] += __popc(un);
+      }
+      tick<kCount>(C, C_CYC_SLAB, t, live);
+      for (unsigned u = un; u != 0u; u &= u - 1u) {
+        const int m = __ffs(u) - 1;
+        const int b = sp * SB + m;
+        const bool mine = (need >> m) & 1u;
+        const unsigned needers = __ballot_sync(wm, mine);
+        const int per_lane = (STAGE_ROWS + nl - 1) / nl;
+        const bool spread = __popc(needers) * (per_lane * kRowCost + kSpreadCost) <
+                            STAGE_ROWS * kRowCost;
+        if (kCount && lane == 0 && spread) C.v[C_SPREAD_BLOCKS] += 1;
+        const float4* src = reinterpret_cast<const float4*>(P.p) + (size_t)b * TB * 4;
+        for (int h = 0; h < TB; h += STAGE_ROWS) {
+          for (int i = lane; i < STAGE_ROWS * 4; i += nl)
+            stage[i] = __ldg(src + h * 4 + i);
+          __syncwarp(wm);
+          if (spread) {
+            // One needing lane at a time, its rows spread over the warp:
+            // each lane tests rows lane, lane + nl, ... in order, then the
+            // warp takes the least t and, among equal t, the least row
+            // (t > 0, so its bits order as the floats do).
+            for (unsigned q = needers; q != 0u; q &= q - 1u) {
+              const int ql = __ffs(q) - 1;
+              const V3 qo = {__shfl_sync(wm, o.x, ql), __shfl_sync(wm, o.y, ql),
+                             __shfl_sync(wm, o.z, ql)};
+              const V3 qd = {__shfl_sync(wm, d.x, ql), __shfl_sync(wm, d.y, ql),
+                             __shfl_sync(wm, d.z, ql)};
+              const float qm = __shfl_sync(wm, omag, ql);
+              unsigned tb = __float_as_uint(kInf()), rb = 0xffffffffu;
+              for (int r = lane; r < STAGE_ROWS; r += nl) {
+                float rt_t;
+                if (row_hit(stage + r * 4, qo, qd, qm, rt_t) &&
+                    __float_as_uint(rt_t) < tb) {
+                  tb = __float_as_uint(rt_t);
+                  rb = (unsigned)r;
+                }
+              }
+              const unsigned tmin = __reduce_min_sync(wm, tb);
+              const unsigned rmin = __reduce_min_sync(wm, tb == tmin ? rb : 0xffffffffu);
+              if (lane == ql && __uint_as_float(tmin) < best_t) {
+                best_t = __uint_as_float(tmin);
+                best_row = b * TB + h + (int)rmin;
+              }
+            }
+          } else if (mine) {
+            for (int r = 0; r < STAGE_ROWS; ++r) {
+              float rt_t;
+              if (row_hit(stage + r * 4, o, d, omag, rt_t) && rt_t < best_t) {
+                best_t = rt_t;
+                best_row = b * TB + h + r;
+              }
+            }
+          }
+          __syncwarp(wm);
+        }
+      }
+      tick<kCount>(C, C_CYC_ROWS, t, live);
     }
   }
 }
 
-template <bool kHbm>
+template <bool kHbm, bool kCount>
 __global__ void __launch_bounds__(128) megakernel(const Params P) {
   const int s = blockIdx.x * blockDim.x + threadIdx.x;
-  if (s >= P.R) return;
+  // K3's warp walk takes every lane of the warp: there a lane past the
+  // pool stays, with no path to trace.
+  const bool in_pool = s < P.R;
+  if (!kHbm && !in_pool) return;
   const int K = P.J * P.spp;
   const float INF = kInf(), BIG = kBig();
 
@@ -313,14 +480,27 @@ __global__ void __launch_bounds__(128) megakernel(const Params P) {
   // 2048); K1 keeps its 32-bit ones (its code, and its speed, unchanged).
   using Off = typename std::conditional<kHbm, size_t, int>::type;
   const Off ncol = (Off)P.nb * 3 * TB;
+  extern __shared__ float4 stage_all[];  // kHbm: STAGE_ROWS rows per warp
+  float4* stage = stage_all + (threadIdx.x >> 5) * STAGE_ROWS * 4;
+  Counts C;
+  long long t_clk = 0;
+  if (kCount) {
+    for (int i = 0; i < N_COUNT; ++i) C.v[i] = 0;
+    t_clk = clock64();
+  }
 
   int k = 0, bounce = 0, done = 0;
-  bool active = k_cap > 0;
-  V3 o, d;
-  camera_ray(P, s, pid_base, 0, o, d);
+  bool active = k_cap > 0 && in_pool;
+  V3 o = {0.0f, 0.0f, 0.0f}, d = {0.0f, 0.0f, 1.0f};
+  if (in_pool) camera_ray(P, s, pid_base, 0, o, d);
   V3 tp = {1.0f, 1.0f, 1.0f}, color = {0.0f, 0.0f, 0.0f};
 
-  for (int it = 0; it < P.max_iters && active; ++it) {
+  // K3: while any lane of the warp is live, every lane goes round (the
+  // walk's shuffles and barriers take the whole warp); K1: while this
+  // lane is.
+  for (int it = 0;
+       it < P.max_iters && (kHbm ? __any_sync(0xffffffffu, active) : active);
+       ++it) {
     const float omag = jmax(jmax(fabsf(o.x), fabsf(o.y)), fabsf(o.z));
     const uint32_t pid = pid_base + (uint32_t)k;
 
@@ -331,26 +511,14 @@ __global__ void __launch_bounds__(128) megakernel(const Params P) {
     const float iy = 1.0f / (d.y == 0.0f ? kTiny() : d.y);
     const float iz = 1.0f / (d.z == 0.0f ? kTiny() : d.z);
     if (kHbm) {
-      // super-groups -> supers -> member blocks refined against best t
-      for (int g = 0; g < P.ng; ++g) {
-        float tin;
-        if (!slab(P.sgaabb + (size_t)g * 8, o, ix, iy, iz, tin)) continue;
-        const int s_end = min((g + 1) * SB, P.ns);
-        for (int sp = g * SB; sp < s_end; ++sp) {
-          if (!slab(P.saabb + (size_t)sp * 8, o, ix, iy, iz, tin)) continue;
-          unsigned need = 0u;
-          for (int m = 0; m < SB; ++m) {
-            if (slab(P.baabb + ((size_t)sp * SB + m) * 8, o, ix, iy, iz, tin) &&
-                tin * kSlabLo() < best_t)
-              need |= 1u << m;
-          }
-          for (int m = 0; m < SB; ++m)
-            if ((need >> m) & 1u) walk_block(P.p, sp * SB + m, o, d, omag, best_t, best_row);
-        }
-      }
+      tick<kCount>(C, C_CYC_OTHER, t_clk, active);
+      if (kCount) C.v[C_SEGMENTS] += active;
+      warp_walk<kCount>(P, stage, active, o, d, ix, iy, iz, omag, best_t,
+                        best_row, C, t_clk);
+      if (!active) continue;
     } else {
-      // K1's block walk, written out here: routed through slab() and
-      // walk_block() it compiled otherwise and ran 2-3% slower on an
+      // K1's block walk, written out here: routed through slab() and a
+      // shared row test it compiled otherwise and ran 2-3% slower on an
       // H100 (the Cornell 1440^2 spp 64 launch).
       for (int b = 0; b < P.nb; ++b) {
         const float* box = P.baabb + b * 8;
@@ -537,12 +705,18 @@ __global__ void __launch_bounds__(128) megakernel(const Params P) {
     bounce = 0;
     color = {0.0f, 0.0f, 0.0f};
     active = k < k_cap;
+    if (!active) tick<kCount>(C, C_CYC_OTHER, t_clk);  // its last bounce
     if (active) {
       camera_ray(P, s, pid_base + (uint32_t)k, k, o, d);
       tp = {1.0f, 1.0f, 1.0f};
     }
   }
+  if (!in_pool) return;
   P.done[s] = done;
+  if (kCount) {
+    tick<kCount>(C, C_CYC_OTHER, t_clk, active);
+    for (int i = 0; i < N_COUNT; ++i) atomicAdd(P.cnt + i, C.v[i]);
+  }
 }
 
 // One thread per slot: add the slot's done[s] records in k order.
@@ -577,8 +751,8 @@ extern "C" int megakernel_launch(
     const float* cols, float* accum, float* rec, int* done, int R, int J,
     int spp, int K_tot, int nb, int ns, int ng, int n_ap, int max_path_length,
     int roulette_start_depth, int max_iters, unsigned int seed, int n_valid,
-    int j0, int s0, int hbm, float sx, float sy, float inv_w, float inv_h, float aa,
-    void* stream) {
+    int j0, int s0, int hbm, unsigned long long* counters,
+    float sx, float sy, float inv_w, float inv_h, float aa, void* stream) {
   Params P;
   P.p = p;
   P.nrm = nrm;
@@ -592,6 +766,7 @@ extern "C" int megakernel_launch(
   P.accum = accum;
   P.rec = rec;
   P.done = done;
+  P.cnt = counters;
   P.R = R;
   P.J = J;
   P.spp = spp;
@@ -614,10 +789,17 @@ extern "C" int megakernel_launch(
   P.aa = aa;
   const int threads = 128;
   const int blocks = (R + threads - 1) / threads;
-  if (hbm)
-    megakernel<true><<<blocks, threads, 0, static_cast<cudaStream_t>(stream)>>>(P);
-  else
-    megakernel<false><<<blocks, threads, 0, static_cast<cudaStream_t>(stream)>>>(P);
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const int smem = (threads / 32) * STAGE_ROWS * 4 * (int)sizeof(float4);
+  const bool count = counters != nullptr;
+  if (!hbm) {
+    if (count) return (int)cudaErrorInvalidValue;
+    megakernel<false, false><<<blocks, threads, 0, st>>>(P);
+  } else if (count) {
+    megakernel<true, true><<<blocks, threads, smem, st>>>(P);
+  } else {
+    megakernel<true, false><<<blocks, threads, smem, st>>>(P);
+  }
   return static_cast<int>(cudaGetLastError());
 }
 

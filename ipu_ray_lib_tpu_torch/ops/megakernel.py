@@ -334,10 +334,12 @@ def _accumulate_cuda(scene, rows, cols, seed: int, n_valid: int, j0: int, *,
                      slot0: int,
                      cam: CameraConsts, max_path_length: int,
                      roulette_start_depth: int, record: bool = False,
-                     hbm: bool = False):
+                     hbm: bool = False, counters=None):
     """Launch the CUDA kernel (K1, or K3 with ``hbm``); returns (accum
     [J, 3, R] f32, or with ``record`` the records [10, J*spp, R] f32;
-    done [R] i32)."""
+    done [R] i32). ``counters`` (a counting launch of K3,
+    ``cuda.build.COUNTERS``) is for the measurements of chip_smoke.py,
+    which calls this function itself."""
     global launches, hbm_launches
     from .cuda.build import launch_megakernel
 
@@ -350,7 +352,8 @@ def _accumulate_cuda(scene, rows, cols, seed: int, n_valid: int, j0: int, *,
         scene, rows, cols, out, done, seed=seed, n_valid=n_valid, j0=j0,
         slot0=slot0, R=R, J=J, spp=spp, K_tot=K_tot, max_iters=max_iters,
         cam=cam, max_path_length=max_path_length,
-        roulette_start_depth=roulette_start_depth, record=record, hbm=hbm)
+        roulette_start_depth=roulette_start_depth, record=record, hbm=hbm,
+        counters=counters)
     if hbm:
         hbm_launches += 1
     else:
@@ -391,11 +394,25 @@ def bank(rec: torch.Tensor, done: torch.Tensor, spp: int) -> torch.Tensor:
     return accum
 
 
+def real_records(rec: torch.Tensor, done: torch.Tensor) -> torch.Tensor:
+    """[K, R] mask of the records that are real (k < done)."""
+    k = torch.arange(rec.shape[1], device=rec.device)[:, None]
+    return k < done.to(rec.device)[None, :]
+
+
 def escaped_records(rec: torch.Tensor, done: torch.Tensor) -> torch.Tensor:
     """[K, R] mask of the records that are real (k < done) and escaped."""
-    K = rec.shape[1]
-    k = torch.arange(K, device=rec.device)[:, None]
-    return (rec[6] != 0.0) & (k < done[None, :])
+    return (rec[6] != 0.0) & real_records(rec, done)
+
+
+def escaped_pixels(rec: torch.Tensor, done: torch.Tensor,
+                   spp: int) -> torch.Tensor:
+    """[R*J] mask, in the order of the path trace's ``flat`` rows
+    (j*R + s), of the pixels one of whose paths escaped: the only pixels
+    the env term reaches."""
+    K, R = rec.shape[1:]
+    esc = escaped_records(rec, done).reshape(K // spp, spp, R)
+    return esc.any(dim=1).reshape(-1)
 
 
 def shade_records(rec: torch.Tensor, done: torch.Tensor, env, mlp) -> int:
@@ -459,15 +476,23 @@ def _path_trace(accumulate, mlp, bank_fn, scene, rows, cols, seed, n_valid,
                        params=params, slots=R, j_per_slot=J, spp=spp,
                        max_iters=max_iters, j0=j0, k_total=k_total,
                        slot0=slot0, record=env is not None, **extra)
+    return image(out, done, spp, env, mlp, bank_fn), done.sum(dtype=torch.int64)
+
+
+def image(out, done, spp, env=None, mlp=env_mlp, bank_fn=bank):
+    """One dispatch's image: ``out`` the accumulator [J, 3, R], or with
+    ``env`` the records [10, J*spp, R], whose escaped directions are
+    shaded by ``mlp`` (in place) and banked by ``bank_fn``. Returns
+    per-pixel [R*J, 3] (padded-stream pixel s + j*R at row j*R + s),
+    averaged over spp."""
     if env is None:
         accum = out
     else:
         shade_records(out, done, env, mlp)
         accum = bank_fn(out, done, int(spp))
-    # [J, 3, R] -> per-pixel [R*J, 3] (padded-stream pixel s + j*R at row
-    # j*R + s), averaged over spp:
-    flat = accum.permute(0, 2, 1).reshape(R * J, 3) * float(np.float32(1.0 / spp))
-    return flat, done.sum(dtype=torch.int64)
+    J, _, R = accum.shape
+    return (accum.permute(0, 2, 1).reshape(R * J, 3)
+            * float(np.float32(1.0 / spp)))
 
 
 def megakernel_path_trace_ref(scene, rows, cols, seed, n_valid, *, params,

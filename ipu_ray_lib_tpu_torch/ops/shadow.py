@@ -55,7 +55,7 @@ from ..bvh.builder import INVALID_GEOM_ID
 from ..utils.constants import RAY_EPSILON
 from .cull import BR, SLAB_SCALE, block_cull_lists_bundle
 from .dense import disc_pass, sphere_pass
-from .intersect import INF
+from .intersect import INF, SLAB_LO
 from .intersect_kernel import (CHECK_EVERY, REF_BUNDLES, _dot, count, lanes,
                                o_mag, test_block, walk, winner_payload)
 from .traversal import from_hit, resolve_hit
@@ -174,6 +174,12 @@ def _bundles_ref(scene, counts, order, dists, rays, light, stats):
                              s_row[idx])
         s_t = s_t.index_put((idx,), bt)
         s_row = s_row.index_put((idx,), br)
+    # The (lane, block) pairs the occlusion walk needs: a live lane with a
+    # primary hit needs the blocks its own shadow ray's slab admits with
+    # an entry below its nearest triangle hit (or the light).
+    count(stats, "occlusion_needed",
+          (bhit & (tin * SLAB_LO < s_t[None])
+           & (found & (t_max > 0.0))[None]).sum())
     s_tri = s_row >= 0
     s_best = torch.where(s_tri, s_t, dist)
     ssb, sst, _, _ = _sphere_pass(ap, n_sph, sorig, sdir, t_min, s_best)
@@ -196,7 +202,10 @@ def shadow_trace_ref(scene, counts, order, dists, rays, *, light,
     [8, nrb*BR] f32 (origin, direction, t_min, t_max rows), ``light`` the
     point light (3 floats) -> (out_f [4, nrb*BR] f32, out_i [4, nrb*BR]
     i32). ``stats`` (a dict) gains ``primary_pairs`` and
-    ``occlusion_pairs``: the (bundle, block) pairs each walk tested.
+    ``occlusion_pairs``: the (bundle, block) pairs each walk tested; and
+    ``occlusion_needed``: the (lane, block) pairs the occlusion walk's
+    hits need (the primary walk's are ``intersect_kernel.needed_pairs``
+    of the kernel's hit t).
     ``bundles``: how many bundles advance together (memory, not result)."""
     nrb = counts.shape[0]
     outs = [_bundles_ref(scene, counts[b:b + bundles], order[b:b + bundles],

@@ -3,7 +3,7 @@
 * ``make_primitive_scene`` gives the JAX package's tables bit for bit.
 * Record -> bank with the env term left out equals K1's direct banking
   bit for bit on the golden box scene: the bank adds a slot's paths in
-  the reference's order.
+  the reference's order (tests/test_torch_env_bank.py).
 * ``render_streaming(env=...)`` against the JAX package: ``done`` exact;
   the image within a split tolerance, whose reason follows.
 
@@ -28,6 +28,7 @@ the wiring (escape flag, throughput, env term, BGR order, rotation,
 skip-concat) is the reference's.
 """
 
+import torch_threads  # noqa: F401  (first: one torch thread)
 import dataclasses
 import os
 
@@ -119,27 +120,6 @@ def _stream(params):
               + 16)
     return (torch.from_numpy(np.pad(rows, (0, pad))),
             torch.from_numpy(np.pad(cols, (0, pad))), n_pix, kw)
-
-
-@pytest.mark.parametrize("mesh", [None, "assets/monkey_bust.glb"])
-def test_record_then_bank_equals_direct_banking(mesh):
-    """Records banked with every env contribution left out give K1's
-    direct accumulator bit for bit (golden box scene, and with the
-    monkey plinth)."""
-    ts, params = build_scene(make_cornell_box_scene(mesh, box_only=False),
-                             device="cpu", image_width=24, image_height=16,
-                             samples_per_pixel=2)
-    rows, cols, n_pix, kw = _stream(params)
-    direct, d0 = mk._trace(mk._accumulate_plain, ts, rows, cols, 1442, n_pix,
-                           **kw)
-    rec, d1 = mk.trace_records(ts, rows, cols, 1442, n_pix, **kw)
-    assert torch.equal(d0, d1) and int(d1.sum()) == n_pix * 2
-    esc = mk.escaped_records(rec, d1)
-    assert 0 < int(esc.sum()) < int(d1.sum())
-    rec[6] = 0.0  # leave every escaped path's env term out
-    banked = mk.bank(rec, d1, 2)
-    assert float(direct.sum()) > 0.0
-    assert torch.equal(banked, direct)
 
 
 def test_render_holds_spheres_nif_golden(urban):
@@ -403,6 +383,11 @@ def cuda_device():
 
 @pytest.mark.cuda
 def test_cuda_env_route_matches_plain(urban, cuda_device):
+    """The kernel route against the plain route: launches, ``done`` and
+    every path record (trajectories, colours, throughputs, escape flags,
+    directions) exactly; the image within the high-frequency tolerance,
+    since the tensor-core env MLP sums in its own order; and every pixel
+    none of whose paths escaped (where the scene has one) bit for bit."""
     ts, params = build_scene(make_primitive_scene(), device=cuda_device,
                              image_width=32, image_height=32,
                              samples_per_pixel=2)
@@ -418,4 +403,12 @@ def test_cuda_env_route_matches_plain(urban, cuda_device):
     ref, dref = mk.megakernel_path_trace_ref(ts, rows, cols, 1442, n_pix,
                                              env=env, **kw)
     assert int(done) == int(dref) == n_pix * 2
-    assert torch.equal(flat, ref)
+    rec, d1 = mk.trace_records(ts, rows, cols, 1442, n_pix, **kw)
+    rec_p, d0 = mk._trace(mk._accumulate_plain, ts, rows, cols, 1442, n_pix,
+                          record=True, **kw)
+    real = mk.real_records(rec_p, d0)
+    assert torch.equal(d1.long(), d0.long())
+    assert torch.equal(rec[:, real], rec_p[:, real])
+    hold_high_frequency(split(flat.cpu(), ref.cpu()))
+    dry = ~mk.escaped_pixels(rec_p, d0, 2)
+    assert torch.equal(flat[dry], ref[dry])

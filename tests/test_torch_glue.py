@@ -13,7 +13,8 @@ Path A is held bit for bit (``==`` on every AOV element):
   the glue's ``dense_spheres`` reduces its dots in order, the fused
   kernel's twin contracts them elementwise (ops/dense.py).
 
-Path B, ``render_streaming`` with a sky gradient written in jnp and in
+Path B (its tests are in tests/test_torch_glue_xla_loop.py, with the sky
+below), ``render_streaming`` with a sky gradient written in jnp and in
 torch, on a ``pallas`` and on a ``pallas-hbm`` scene, holds the port's
 path-trace tolerance (rtol = atol = 1e-5, as tests/test_torch_render.py),
 with ``done`` and the iteration count exact. Why not bit for bit:
@@ -29,6 +30,7 @@ which ops/bxdf_loop.py writes as one fused form. The paths stay the same
 move.
 """
 
+import torch_threads  # noqa: F401  (first: one torch thread)
 import os
 
 import numpy as np
@@ -37,7 +39,6 @@ import torch
 
 import jax.numpy as jnp
 
-import ipu_ray_lib_tpu.render.streaming as JS
 from ipu_ray_lib_tpu.render.renderer import render as jax_render
 from ipu_ray_lib_tpu.scene.build import build_scene as jax_build_scene
 from ipu_ray_lib_tpu.scene.builtin import make_cornell_box_scene as jax_cornell
@@ -45,7 +46,6 @@ from ipu_ray_lib_tpu.scene.builtin import make_stress_scene as jax_stress
 import ipu_ray_lib_tpu_torch.render.streaming as TS
 import ipu_ray_lib_tpu_torch.scene.build as TB
 from ipu_ray_lib_tpu_torch.nif import model as nif_model
-from ipu_ray_lib_tpu_torch.ops import intersect_hbm as ih
 from ipu_ray_lib_tpu_torch.ops import intersect_kernel as ik
 from ipu_ray_lib_tpu_torch.ops import shadow as sh
 from ipu_ray_lib_tpu_torch.ops.vec3 import fma
@@ -162,60 +162,6 @@ def sky(d):
     t = 0.5 * (d[:, 1] + 1.0)
     return torch.stack([fma(-0.5, t, 1.0), fma(-0.3, t, 1.0),
                         torch.ones_like(t)], -1) * 0.7
-
-
-def _split(got, want):
-    return int((got != want).sum()), float(np.abs(got - want).max())
-
-
-@pytest.mark.parametrize("intersector,size", [("pallas", 16),
-                                              ("pallas-hbm", 16)])
-def test_xla_loop_render_matches_jax(intersector, size):
-    arrays, jparams = jax_build_scene(
-        jax_cornell(None, box_only=True), image_width=size,
-        image_height=size, samples_per_pixel=2, intersector=intersector)[:2]
-    ts, params = TB.build_scene(make_cornell_box_scene(None, box_only=True),
-                                device="cpu", image_width=size,
-                                image_height=size, samples_per_pixel=2,
-                                intersector=intersector)
-    want, jdone = JS.render_streaming(arrays, jparams, env_fn=jax_sky,
-                                      env_params=jnp.float32(0.7))
-    ik.reset_launches()
-    ih.reset_launches()
-    stats = {}
-    got, done = TS.render_streaming(ts, params, env=sky, stats=stats)
-    assert ik.launches == ih.launches == 0
-    assert done == jdone == size * size * 2
-    assert 2 < stats["iters"] <= 2 * params.max_path_length + 16
-    np.testing.assert_allclose(got, want, **TOL)
-    n_diff, _ = _split(got, want)
-    assert n_diff < 0.1 * got.size
-    assert got.mean() > 0.1  # the sky lights the box through its open side
-
-
-def test_xla_loop_integrator_matches_jax_iterations():
-    """One batch through ``streaming_path_trace`` in both packages: the
-    accumulator within the tolerance, ``done`` and the iteration count
-    exact (a slot pool of 96 slots, 3 pixels each: a padded stream)."""
-    arrays, jparams, ts, params = _cornell((16, 16), "pallas",
-                                           samples_per_pixel=2)
-    rows, cols, _ = TS._pixel_stream(params)
-    R, J = 96, 3
-    rows = np.pad(rows, (0, R * J - 256))
-    cols = np.pad(cols, (0, R * J - 256))
-    kw = dict(slots=R, j_per_slot=J, spp=2,
-              max_iters=J * 2 * params.max_path_length + 16)
-    jacc, jdone, jit_ = JS.streaming_path_trace(
-        arrays, jnp.asarray(rows), jnp.asarray(cols), jnp.uint32(1442),
-        jnp.float32(0.7), jnp.int32(256), params=jparams, has_env=True,
-        env_fn=jax_sky, **kw)
-    acc, done, iters = TS.streaming_path_trace(
-        ts, torch.from_numpy(rows), torch.from_numpy(cols), 1442, 256,
-        params=params, env=sky, **kw)
-    assert int(done) == int(jdone) == 512
-    assert iters == int(jit_)
-    np.testing.assert_allclose(acc.numpy(), np.asarray(jacc), **TOL)
-    assert not acc[2, :, 256 - 2 * R:].any()  # padding pixels get no path
 
 
 def test_render_routes_env_kinds(monkeypatch):

@@ -20,6 +20,7 @@ version) against the JAX package on the CPU.
   (the module note there says why not 1e-5).
 """
 
+import torch_threads  # noqa: F401  (first: one torch thread)
 import dataclasses
 import os
 
@@ -437,3 +438,46 @@ def test_cuda_hbm_route_matches_plain(cuda_device):
     ref, dref = mk.megakernel_path_trace_ref(ts, rows, cols, 1442, 1024, **kw)
     assert int(done) == int(dref) == 2048
     assert torch.equal(flat, ref)
+
+
+@pytest.mark.cuda
+def test_cuda_hbm_walks_agree_and_count(cuda_device):
+    """K3's warp walk and the plain walk give the same accumulator bit for
+    bit, with and without counting and on a pool that is not whole warps,
+    and a counting launch counts the plain version's walk exactly:
+    segments, slab tests at each level, blocks walked."""
+    from ipu_ray_lib_tpu_torch.ops.cuda.build import COUNTERS
+
+    ts, params = TB.build_scene(make_stress_scene(64), device=cuda_device,
+                                image_width=32, image_height=32,
+                                samples_per_pixel=2, intersector="pallas-hbm")
+    rows, cols, _ = TS._pixel_stream(params)
+    R, J = TS.slot_pool(32 * 32, 1 << 17)
+    rows = torch.from_numpy(rows).to(cuda_device)
+    cols = torch.from_numpy(cols).to(cuda_device)
+    kw = dict(params=params, slots=R, j_per_slot=J, spp=2,
+              max_iters=J * 2 * params.max_path_length + 16)
+    walk = {}
+    ref, dref = mk._trace(mk._accumulate_plain, ts, rows, cols, 1442, 1024,
+                          stats=walk, **kw)
+    counters = torch.zeros(len(COUNTERS), dtype=torch.int64,
+                           device=cuda_device)
+    for c in (None, counters):
+        acc, done = mk._trace(mk._accumulate_cuda, ts, rows, cols, 1442,
+                              1024, counters=c, **kw)
+        assert torch.equal(acc, ref)
+        assert torch.equal(done.long(), dref.long())
+    got = dict(zip(COUNTERS, counters.tolist()))
+    for k in ("segments", "group_tests", "super_tests", "member_tests"):
+        assert got[k] == walk[k], k
+    assert got["lane_blocks"] == walk["block_tests"]
+    assert 0 < got["union_blocks"] <= got["lane_blocks"]
+    assert got["warp_lanes"] == got["segments"]
+    # A pool that is not whole warps: the lanes past it join the walk.
+    kw1000 = dict(kw, slots=1000)
+    acc, done = mk._trace(mk._accumulate_cuda, ts, rows[:1000], cols[:1000],
+                          1442, 1000, **kw1000)
+    ref, dref = mk._trace(mk._accumulate_plain, ts, rows[:1000],
+                          cols[:1000], 1442, 1000, **kw1000)
+    assert torch.equal(acc, ref)
+    assert torch.equal(done.long(), dref.long())

@@ -34,6 +34,7 @@ element; inf == inf):
 On the card (tests marked ``cuda``) each kernel equals its plain version.
 """
 
+import torch_threads  # noqa: F401  (first: one torch thread)
 import os
 
 import numpy as np

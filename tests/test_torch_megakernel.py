@@ -2,14 +2,16 @@
 
 CPU: the port's ``megakernel_path_trace`` (its plain torch version on CPU
 tensors) against the JAX ``megakernel_path_trace(..., interpret=True)``
-on the same pixel stream and seed, for the golden scene and the bench
-scene (Cornell + monkey) at 32x32 spp 2. ``flat`` is held at
-rtol = atol = 1e-5 (the golden tolerance) and ``done`` exactly.
+on the same pixel stream and seed, for the golden scene here and the
+bench scene (Cornell + monkey) in tests/test_torch_megakernel_monkey.py,
+which runs these tests on its own ``case``, at 32x32 spp 2. ``flat`` is
+held at rtol = atol = 1e-5 (the golden tolerance) and ``done`` exactly.
 
 CUDA (marker ``cuda``, skipped without a card): the hand-written kernel
 against the plain version on the same card.
 """
 
+import torch_threads  # noqa: F401  (first: one torch thread)
 import numpy as np
 import pytest
 import torch
@@ -39,10 +41,9 @@ def _stream(params):
     return np.pad(rows, (0, pad)), np.pad(cols, (0, pad)), R, J, n_pix
 
 
-@pytest.fixture(scope="module", params=sorted(MESHES))
-def case(request):
+def make_case(name):
     """(port scene, params, stream, JAX flat, JAX done) for one scene."""
-    mesh = MESHES[request.param]
+    mesh = MESHES[name]
     arrays, jparams, _ = jax_build_scene(
         jax_cornell(mesh, box_only=False), image_width=W, image_height=H,
         samples_per_pixel=SPP, intersector="pallas")
@@ -59,6 +60,11 @@ def case(request):
               max_iters=max_iters)
     return (ts, kw, torch.from_numpy(rows), torch.from_numpy(cols), n_pix,
             np.asarray(jflat), int(jdone))
+
+
+@pytest.fixture(scope="module", params=["golden"])
+def case(request):
+    return make_case(request.param)
 
 
 def test_plain_matches_jax_interpret(case):

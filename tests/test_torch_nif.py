@@ -15,6 +15,7 @@
   instead of equality (at least 99% within rtol 1e-5, all within 5e-2).
 """
 
+import torch_threads  # noqa: F401  (first: one torch thread)
 import os
 
 import numpy as np
@@ -34,7 +35,7 @@ from ipu_ray_lib_tpu.nif.model import load_nif_env as jax_load_nif_env
 from ipu_ray_lib_tpu.ops.pallas import megakernel as JM
 from ipu_ray_lib_tpu_torch.nif import hdf5
 from ipu_ray_lib_tpu_torch.nif.metadata import NifMetadata
-from ipu_ray_lib_tpu_torch.nif.model import (NifConfig, NifEnv,
+from ipu_ray_lib_tpu_torch.nif.model import (NifConfig, NifEnv, decode_rgb,
                                              equirect_uvn, fourier_features,
                                              from_jax_params, load_nif_env)
 from ipu_ray_lib_tpu_torch.ops import env as envk
@@ -357,12 +358,37 @@ def cuda_device():
     return torch.device("cuda", 0)
 
 
+def _matmul_chain(d, env):
+    """The env MLP as a chain of bf16 torch.matmul calls (the yardstick
+    chip_smoke.py times; the port never calls it)."""
+    un, vn = equirect_uvn(d, env.rotation)
+    feats = fourier_features(un, vn, env.config.embedding_dimension)
+    x = feats
+    for l, (_, _, relu, concat) in enumerate(env.layers):
+        w, b = env.layer(l)
+        if concat:
+            x = torch.cat([x, feats], dim=1)
+        x = torch.matmul(x.to(torch.bfloat16), w).to(torch.float32) + b
+        if relu:
+            x = torch.clamp_min(x, 0.0)
+    return decode_rgb(x, env.max, env.mean, env.config.log_tone_map)
+
+
 @pytest.mark.cuda
 def test_cuda_env_mlp_matches_plain(urban, cuda_device):
+    """The tensor-core kernel sums in its own order, so it is held to the
+    gate chip_smoke.py applies (ops/env.py ``within_yardstick``): no
+    further from the plain version than the torch.matmul chain on the same
+    card, plus the stated slack, and within the high-frequency tolerance;
+    its launch count exactly."""
     env = urban[0].to(cuda_device)
     d = torch.from_numpy(_directions(4096, 6)).to(cuda_device)
     envk.reset_launches()
     got = envk.env_mlp(d, env)
     torch.cuda.synchronize()
     assert envk.launches == 1
-    assert torch.equal(got, envk.env_mlp_ref(d, env))
+    want = envk.env_mlp_ref(d, env).cpu()
+    assert bool(torch.isfinite(got).all())
+    kernel = envk.deviation(got.cpu(), want)
+    chain = envk.deviation(_matmul_chain(d, env).cpu(), want)
+    assert envk.within_yardstick(kernel, chain) == [], (kernel, chain)

@@ -10,6 +10,7 @@
   blocked.
 """
 
+import torch_threads  # noqa: F401  (first: one torch thread)
 import os
 import pathlib
 import pkgutil

@@ -7,6 +7,7 @@ goes through log/sqrt/cos/sin, whose last ulp differs between XLA's and
 torch's CPU libraries, so it is held at rtol = atol = 1e-6.
 """
 
+import torch_threads  # noqa: F401  (first: one torch thread)
 import numpy as np
 import pytest
 import torch

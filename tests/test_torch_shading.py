@@ -12,6 +12,7 @@ has its own rsqrt/log/cos/sin, so results may differ in the last ulp;
 boolean outcomes must agree exactly.
 """
 
+import torch_threads  # noqa: F401  (first: one torch thread)
 import numpy as np
 import pytest
 import torch

@@ -34,6 +34,7 @@ forms differ. The golden was made with::
     np.savez_compressed('tests/golden/shadow_box48x32.npz', **out._asdict())
 """
 
+import torch_threads  # noqa: F401  (first: one torch thread)
 import dataclasses
 import os
 

@@ -9,6 +9,7 @@ sub-block AABBs and triangle id maps, which stay on the host.
 ``from_jax_arrays`` carries a JAX scene across unchanged.
 """
 
+import torch_threads  # noqa: F401  (first: one torch thread)
 import dataclasses
 
 import numpy as np

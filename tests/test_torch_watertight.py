@@ -11,6 +11,7 @@ port's megakernel, in either mode, must leave no dark pixel inside the
 grid.
 """
 
+import torch_threads  # noqa: F401  (first: one torch thread)
 import dataclasses
 
 import numpy as np
