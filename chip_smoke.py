@@ -34,7 +34,9 @@ Phases (any failed check raises, so the exit code is non-zero):
      kernel source (one nvcc per source, in parallel);
   2. Cornell, kernel vs plain version on the card, rtol = atol = 1e-5:
      golden scene 48x32 spp 2 (also vs tests/golden/box48x32_spp2.npy,
-     done == 3072); Cornell + monkey 64x64 spp 4;
+     done == 3072); Cornell + monkey 64x64 spp 4, and a counting launch
+     of K1 (the warp walk) there, its segments and blocks equal to the
+     plain walk's and its image bit for bit K1's;
   3. spheres + NIF, kernel route vs plain route: ``done``, every path
      record and every pixel none of whose paths escaped bit for bit, the
      image at the env tolerance (the tensor-core env MLP sums in its own
@@ -61,8 +63,9 @@ Phases (any failed check raises, so the exit code is non-zero):
      vertex normals 64x64, 3,000 random rays from spread origins; and
      ``render`` on the card against tests/golden/shadow_box48x32.npz
      (the JAX package's render), every AOV bit for bit;
-  3d. the closest-hit kernels K5 and K6 against their plain versions,
-     every output bit for bit (the blocks each bundle tested included):
+  3d. the closest-hit kernels K5 and K6 (split over the card in waves)
+     against their plain versions, every output bit for bit (the blocks
+     each bundle's walk tested included):
      the Cornell box 48x32, Cornell + monkey 64x64 (camera rays and one
      bounce, both kernels), stress24 in HBM mode with the f32 and with
      the bf16 payload, 3,000 random rays from spread origins;
@@ -77,11 +80,15 @@ Phases (any failed check raises, so the exit code is non-zero):
      HBM mode 32x32 spp 2 (K6); --quick stops here;
   4. Cornell + monkey at the main path's slot pool (1440^2 stream,
      R = 131072, J = 16) with spp 1 per slot — spp is the one cut there —
-     which also counts the walk's (segment, block) pairs for K1's bound;
+     which also counts the walk's (segment, block) pairs for K1's bound,
+     and K1's counting launch there, its counts equal to those;
   5. Cornell main path at full size: one warm-up and three timed renders
      (torch.cuda.synchronize), done == 1440^2 * 64, finite image, image
      mean within 15% of the plain version's 64x64 mean; then the kernel
-     alone at the same shapes, three times, with CUDA events; then the
+     alone at the same shapes, three times, with CUDA events, and a
+     counting launch of K1 at those shapes, its image bit for bit (the
+     cycle split, the blocks each warp walks against its lanes' sum,
+     the blocks tested spread); then the
      main path's image on the pixels of its first 128 slots' first 4
      stream rows (512 pixels, all 64 samples each) against the kernel
      and the plain version replaying those paths, rtol = atol = 1e-5;
@@ -131,9 +138,13 @@ Phases (any failed check raises, so the exit code is non-zero):
      scene (grid 512, HBM mode) at 1440^2, chunk 65,536: one warm-up,
      three timed frames with all AOVs and three with normals only (hits,
      finite AOVs where hit, K6 launched twice per chunk, K4 and K5 not);
-     K6 alone over one frame's calls (CUDA events); the frame's (bundle,
-     block) pairs walked and the (lane, block) pairs its hits need (K6's
-     bound); K6 against its plain version on the frame's own launches
+     K6 alone over one frame's calls (CUDA events); each launch alone
+     (CUDA events) beside the blocks its bundles' walks tested (max and
+     mean over its 64 bundles, each launch logged)
+     and the blocks tested past the bundles' stops (speculative); the
+     frame's (bundle, block) pairs walked and the (lane, block) pairs its
+     hits need (K6's bound); K6 against its plain version on the frame's
+     own launches
      (the primary and occlusion call of the chunk with the median lit
      pixel, and the heaviest occlusion call), every output bit for bit;
      the frame's 16 bundles from its first triangle hit and 16 around its
@@ -152,8 +163,10 @@ Phases (any failed check raises, so the exit code is non-zero):
      then the grid-512 scene at 256^2 spp 8 (K6).
 Before the last two lines: a JSON object with each kernel's launches on
 its main path, its largest deviation from its plain version, its times
-and its bound (the least time the card could take for the same work);
-then the card's nvidia-smi line. The last line is the JSON status object.
+and its bound (the least time the card could take for the same work:
+f32 instructions at the instruction rate, half the 67 TFLOP/s that count an FMA
+as two; the previous basis beside it as ``bound_ms_flop_basis``); then
+the card's nvidia-smi line. The last line is the JSON status object.
 Exits non-zero, printing no result, when no CUDA device is available.
 """
 
@@ -200,16 +213,26 @@ GOLDEN_NIF_MAX_REL = 5e-2
 GOLDEN_NIF_MEAN_REL = 5e-4
 
 # Card peaks for the bounds (NVIDIA's H100 SXM data sheet, dense, at 700 W):
-PEAK_F32 = 67e12          # FLOP/s on the CUDA cores
+PEAK_F32 = 67e12          # FLOP/s on the CUDA cores, an FMA counted as two
 PEAK_BF16 = 989e12        # FLOP/s on the tensor cores
 PEAK_BYTES = 3.35e12      # HBM bytes/s
+# The row tests' arithmetic can use only half of PEAK_F32: it is built
+# with -fmad=false, and only the closest-hit and shadow kernels' chain
+# holds FMAs (where XLA contracts, rows.cuh), each one instruction. So the
+# bounds count f32 instructions at the instruction rate, 132 SMs x 128 lanes
+# x 1.98 GHz (the previous basis, FLOP at PEAK_F32, is kept beside them):
+PEAK_F32_INSTR = PEAK_F32 / 2
 # f32 add/sub/mul/div of one test, counted from ops/cuda/megakernel.cu
-# (compares, min/max and selects not counted, so the bound stays low):
+# (compares, min/max and selects not counted, so the bound stays low);
+# none is an FMA there, so each is one instruction:
 SLAB_TEST_FLOPS = 15  # one AABB: per axis 2 sub, 2 mul, 1 scale
 ROW_TEST_FLOPS = 49   # row_chain 42 (6 dots of 5, recip 4, t 2, b1/b2 6)
 #                       + acceptance 7 (et 2, eps 3, b1+b2 and 1+eps 2)
 AP_TEST_FLOPS = 45    # one sphere/disc row: oc 3, tca 5, l2 7, td 2, t 2,
 #                       dn 5, on 5, t_dsc 2, h 9, d2 5
+# The same row test as rows.cuh contracts it (K4, K5, K6): 6 dots of 3
+# (a product, 2 FMAs), the reciprocal 3, t 2, b1/b2 4, acceptance 6:
+ROW_TEST_INSTR_FMA = 33
 REC_BYTES = 40        # one path record, f32 x 10
 # The shadow trace (K4): its frame's first bundles replayed by the plain
 # route, and the bundles the plain version advances together on the card.
@@ -484,6 +507,28 @@ def main() -> int:
                                      f"{what} route ({bad})")
         return t_k, t_p
 
+    def k1_counts(name, scene, params, rows, cols, R, J, n_valid, spp, walk,
+                  want, seed=1442):
+        """A counting launch of K1 against the plain walk's counts ``walk``
+        (segments, and the admitted (segment, block) pairs as the lanes'
+        blocks), exactly, its image bit for bit K1's ``want`` (the
+        kernel's image of ``compare`` on the same stream and seed)."""
+        kw = dict(params=params, slots=R, j_per_slot=J, spp=spp,
+                  max_iters=J * spp * params.max_path_length + 16)
+        c = torch.zeros(len(cuda_build.COUNTERS), dtype=torch.int64,
+                        device=dev)
+        acc, done = mk._trace(mk._accumulate_cuda, scene, rows, cols, seed,
+                              n_valid, counters=c, **kw)
+        got = dict(zip(cuda_build.COUNTERS, c.tolist()))
+        same = np.array_equal(mk.image(acc, done, spp).cpu().numpy(), want)
+        log(f"[{name} K1 counting launch] image bit for bit {same}; "
+            f"segments {got['segments']}, lanes' blocks {got['lane_blocks']};"
+            f" the plain walk's {walk['segments']}, {walk['block_tests']}")
+        if (not same or got["segments"] != walk["segments"]
+                or got["lane_blocks"] != walk["block_tests"]):
+            raise AssertionError(f"{name}: K1's counting launch disagrees "
+                                 "with the plain walk")
+
     phase("2")
     # ---- 2. Cornell: kernel vs plain, and vs the golden ----
     gs, gp = build_scene(make_cornell_box_scene(None, box_only=False),
@@ -501,8 +546,10 @@ def main() -> int:
     ms, mp = build_scene(make_cornell_box_scene(mesh, box_only=False),
                          device=dev, image_width=64, image_height=64,
                          samples_per_pixel=4)
-    _, f64, _, _, _ = kernel_vs_plain("monkey 64x64", ms, mp, 4)
+    walk2 = {}
+    k64, f64, _, _, _ = kernel_vs_plain("monkey 64x64", ms, mp, 4, stats=walk2)
     small_mean = float(f64[:64 * 64].mean())
+    k1_counts("monkey 64x64", ms, mp, *stream(mp), 4, walk2, k64)
 
     phase("3")
     # ---- 3. spheres + NIF: kernel route vs plain route, golden, env MLP ----
@@ -737,8 +784,9 @@ def main() -> int:
         nbytes = (sum(t.numel() * t.element_size() for t in (
             scene.p, scene.nrm, scene.baabb, scene.saabb, scene.sgaabb,
             scene.ap, scene.apay)) + R * J * (2 + 3) * 4 + R * 4)
-        return max((ops / PEAK_F32 * 1e3, "operations"),
-                   (nbytes / PEAK_BYTES * 1e3, "bytes")), ops, nbytes
+        return (max((ops / PEAK_F32_INSTR * 1e3, "operations"),
+                    (nbytes / PEAK_BYTES * 1e3, "bytes")), ops, nbytes,
+                max(ops / PEAK_F32, nbytes / PEAK_BYTES) * 1e3)
 
     def walk_summary(c):
         """Derived measures of a counting launch's counters: the cycle
@@ -766,9 +814,10 @@ def main() -> int:
         return out
 
     def walk_counters(name, scene, rows, cols, n_valid, kw, want):
-        """One counting launch of K3 at a frame's shapes (the counters of
-        cuda_build.COUNTERS, compiled in only there), its image held bit
-        for bit against ``want``, K3's image at those shapes."""
+        """One counting launch of K3 (K1 on a VMEM-mode scene) at a
+        frame's shapes (the counters of cuda_build.COUNTERS, compiled in
+        only there), its image held bit for bit against ``want``, the
+        kernel's image at those shapes."""
         c = torch.zeros(len(cuda_build.COUNTERS), dtype=torch.int64,
                         device=dev)
         acc, done = mk._trace(mk._accumulate_cuda, scene, rows, cols,
@@ -777,10 +826,10 @@ def main() -> int:
         same = torch.equal(mk.image(acc, done, kw["spp"]), want)
         cnt = dict(zip(cuda_build.COUNTERS, c.tolist()))
         summ = walk_summary(cnt)
-        log(f"[{name} K3 counters] image bit for bit {same}; "
+        log(f"[{name} counters] image bit for bit {same}; "
             f"{json.dumps(cnt)}; {json.dumps(summ)}")
         if not same:
-            raise AssertionError(f"{name}: K3's counting launch disagrees "
+            raise AssertionError(f"{name}: the counting launch disagrees "
                                  "with its launch")
         return dict(counters=cnt, summary=summ)
 
@@ -838,10 +887,10 @@ def main() -> int:
                   max_iters=J * spp * mpl + 16, k_total=J * spp)
         k_ms, (k_img, _) = event_ms(lambda: mk.megakernel_path_trace(
             rs, rows, cols, rp.rng_seed, n_pix, **kw))
-        (bound, by), ops, nbytes = hbm_bound(rs, walk, spp, R, J)
+        (bound, by), ops, nbytes, _ = hbm_bound(rs, walk, spp, R, J)
         log(f"[stress{grid} K3 alone] {', '.join(f'{t:.2f}' for t in k_ms)} "
-            f"ms (CUDA events); bound {bound:.3f} ms ({by}: {ops:.4g} FLOP, "
-            f"{nbytes / 1e6:.1f} MB)")
+            f"ms (CUDA events); bound {bound:.3f} ms ({by}: {ops:.4g} f32 "
+            f"instructions, {nbytes / 1e6:.1f} MB)")
         counted = walk_counters(f"stress{grid}", rs, rows, cols, n_pix, kw,
                                 k_img)
         # The slots whose pixels the frame lit (slot s owns stream
@@ -1216,8 +1265,10 @@ def main() -> int:
     log(f"bench scene: {scene.p.shape[0]} triangle rows in "
         f"{scene.num_blocks} blocks, {scene.n_ap} sphere/disc rows")
     walk = {}
-    _, _, k_main, p_main, _ = kernel_vs_plain("monkey 1440^2 pool", scene,
-                                              params, 1, stats=walk)
+    k_pool, _, k_main, p_main, _ = kernel_vs_plain(
+        "monkey 1440^2 pool", scene, params, 1, stats=walk)
+    k1_counts("monkey 1440^2 pool", scene, params, *stream(params), 1, walk,
+              k_pool)
 
     phase("5")
     # ---- 5. Cornell main path at full size ----
@@ -1251,9 +1302,11 @@ def main() -> int:
     rows, cols, R, J, n_pix = stream(params)
     kw = dict(params=params, slots=R, j_per_slot=J, spp=SPP,
               max_iters=J * SPP * params.max_path_length + 16, k_total=J * SPP)
-    k_ms, _ = event_ms(lambda: mk.megakernel_path_trace(
+    k_ms, (k1_img, _) = event_ms(lambda: mk.megakernel_path_trace(
         scene, rows, cols, params.rng_seed, n_pix, **kw))
     main_ms = median(k_ms)
+    counted5 = walk_counters(f"monkey {FULL}^2", scene, rows, cols, n_pix,
+                             kw, k1_img)
     log(f"[main] kernel alone (CUDA events): "
         f"{', '.join(f'{t:.2f}' for t in k_ms)} ms; median end to end "
         f"{median(times) * 1e3:.2f} ms")
@@ -1261,11 +1314,12 @@ def main() -> int:
     # counted at the pool with spp 1, scaled to spp 64:
     k1_ops = SPP * (walk["block_tests"] * 128 * ROW_TEST_FLOPS
                     + walk["segments"] * scene.n_ap * AP_TEST_FLOPS)
-    k1_bound_ms = k1_ops / PEAK_F32 * 1e3
+    k1_bound_ms = k1_ops / PEAK_F32_INSTR * 1e3
     log(f"[K1 bound] spp 1 pool: {walk['segments']} segments, "
         f"{walk['block_tests']} admitted (segment, block) pairs; x{SPP}: "
-        f"{k1_ops:.4g} f32 FLOP -> {k1_bound_ms:.2f} ms at 67 TFLOP/s "
-        f"(kernel {main_ms:.2f} ms)")
+        f"{k1_ops:.4g} f32 instructions -> {k1_bound_ms:.2f} ms at "
+        f"{PEAK_F32_INSTR / 1e12:.1f} T/s (as FLOP at 67 TFLOP/s "
+        f"{k1_ops / PEAK_F32 * 1e3:.2f} ms; kernel {main_ms:.2f} ms)")
 
     # The main path's own pixels at spp 64, held against both versions.
     # A path's pid (slot*K_tot + k) and its pixels do not depend on the
@@ -1444,23 +1498,27 @@ def main() -> int:
     k4_side = (rp_frame * scene.num_blocks * SLAB_FLAG_FLOPS
                + 2 * rp_frame * (scene.n_spheres + scene.n_discs)
                * SHADOW_AP_FLOPS)
-    k4_ops = (k4_need_p + k4_need_o) * 128 * ROW_TEST_FLOPS + k4_side
-    k4_ops_bundles = k4_pairs * 1024 * 128 * ROW_TEST_FLOPS + k4_side
+    k4_ops = (k4_need_p + k4_need_o) * 128 * ROW_TEST_INSTR_FMA + k4_side
+    k4_flop = (k4_need_p + k4_need_o) * 128 * ROW_TEST_FLOPS + k4_side
+    k4_ops_bundles = k4_pairs * 1024 * 128 * ROW_TEST_INSTR_FMA + k4_side
     k4_bytes = (rp_frame * (8 + 4 + 4) * 4
                 + n_chunks * inputs[0][1][1].numel() * 8
                 + sum(t.numel() * t.element_size() for t in (
                     scene.p, scene.nrm, scene.baabb, scene.ap)))
-    k4_bound = max((k4_ops / PEAK_F32 * 1e3, "operations"),
+    k4_bound = max((k4_ops / PEAK_F32_INSTR * 1e3, "operations"),
                    (k4_bytes / PEAK_BYTES * 1e3, "bytes"))
+    k4_bound_flop = max(k4_flop / PEAK_F32, k4_bytes / PEAK_BYTES) * 1e3
     log(f"[K4 bound] {k4_need_p} primary + {k4_need_o} occlusion (lane, "
-        f"block) pairs the hits need x 128 x {ROW_TEST_FLOPS} FLOP + slab "
-        f"flags + sphere/disc tests = {k4_ops:.4g} FLOP -> "
-        f"{k4_ops / PEAK_F32 * 1e3:.3f} ms; {k4_bytes / 1e6:.1f} MB -> "
+        f"block) pairs the hits need x 128 x {ROW_TEST_INSTR_FMA} "
+        f"instructions + slab flags + sphere/disc tests = {k4_ops:.4g} f32 "
+        f"instructions -> {k4_ops / PEAK_F32_INSTR * 1e3:.3f} ms (as FLOP "
+        f"at 67 TFLOP/s {k4_flop / PEAK_F32 * 1e3:.3f} ms); "
+        f"{k4_bytes / 1e6:.1f} MB -> "
         f"{k4_bytes / PEAK_BYTES * 1e3:.3f} ms; kernel {median(k4_ms):.2f} ms"
         f" (the walks test {k4_walk['primary_pairs']} primary + "
         f"{k4_walk['occlusion_pairs']} occlusion (bundle, block) pairs, "
         f"{(k4_pairs) * 1024} lanes' worth: counted so, the bound was "
-        f"{k4_ops_bundles / PEAK_F32 * 1e3:.3f} ms)")
+        f"{k4_ops_bundles / PEAK_F32_INSTR * 1e3:.3f} ms)")
 
     phase("7")
     # ---- 7. the flagship: spheres + NIF at 512^2 spp 64 ----
@@ -1629,11 +1687,13 @@ def main() -> int:
                k_total=J9 * SPP)
     k3_ms, (k3_img, _) = event_ms(lambda: mk.megakernel_path_trace(
         bs, rows9, cols9, bp.rng_seed, n9_pix, **kw9))
-    (k3_bound, k3_by), k3_ops, k3_bytes = hbm_bound(bs, walk9, SPP, R9, J9)
+    (k3_bound, k3_by), k3_ops, k3_bytes, k3_bound_flop = hbm_bound(
+        bs, walk9, SPP, R9, J9)
     log(f"[stress{MAIN_GRID} main traffic] K3 alone "
         f"{', '.join(f'{t:.2f}' for t in k3_ms)} ms (CUDA events); bound "
-        f"{k3_bound:.3f} ms ({k3_by}: {k3_ops:.4g} FLOP = the pool's spp-1 "
-        f"counts x{SPP}, {k3_bytes / 1e6:.1f} MB)")
+        f"{k3_bound:.3f} ms ({k3_by}: {k3_ops:.4g} f32 instructions = the "
+        f"pool's spp-1 counts x{SPP}, {k3_bytes / 1e6:.1f} MB; counted as "
+        f"FLOP at 67 TFLOP/s {k3_bound_flop:.3f} ms)")
     counted9 = walk_counters(f"stress{MAIN_GRID} {FULL}^2", bs, rows9, cols9,
                              n9_pix, kw9, k3_img)
 
@@ -1682,6 +1742,28 @@ def main() -> int:
     k6_ms, _ = event_ms(lambda: [ik.walk_cuda(bs, *a, hbm=True)
                                  for a, _ in a_calls])
     k6_pairs = sum(int(o[4].sum()) for _, o in a_calls)
+    k6_spec = sum(int(o[5].sum()) for _, o in a_calls)
+    # Per launch: its time alone (CUDA events, best of 2), and the blocks
+    # its 64 bundles' walks tested (max, mean): a launch once took as long
+    # as its longest bundle, 39 us a block on one SM.
+    k6_per = []
+    for a, o in a_calls:
+        t_l = min(event_ms(lambda: ik.walk_cuda(bs, *a, hbm=True), 2)[0])
+        pr = o[4].double()
+        k6_per.append(dict(ms=t_l, max=int(pr.max()), mean=float(pr.mean()),
+                           spec=int(o[5].sum()),
+                           listed=8 * int(a[0].sum())))
+    k6_heavy = max(k6_per, key=lambda r: r["ms"])
+    k6_heavy_b = max(k6_per, key=lambda r: r["max"])
+    k6_dist = dict(
+        launch_ms_max=k6_heavy["ms"], launch_ms_sum=sum(r["ms"] for r in k6_per),
+        heaviest_launch=k6_heavy,
+        heaviest_bundle_launch=dict(k6_heavy_b, ratio=k6_heavy_b["max"]
+                                    / max(k6_heavy_b["mean"], 1e-9)),
+        zero_work_launches=sum(r["listed"] == 0 for r in k6_per),
+        speculative_blocks=k6_spec)
+    log(f"[path A] K6 per launch: {json.dumps(k6_dist)}; every launch: "
+        f"{json.dumps(k6_per)}")
     k6_need = sum(ik.needed_pairs(bs, a[1], a[3], o[0], o[4], members=8)
                   for a, o in a_calls)
     k6_rays = sum(a[3].shape[1] for a, _ in a_calls)
@@ -1689,7 +1771,8 @@ def main() -> int:
                         for a, _ in a_calls)
     log(f"[path A] K6 alone over the frame's {len(a_calls)} calls: "
         f"{', '.join(f'{t:.2f}' for t in k6_ms)} ms (CUDA events); "
-        f"{k6_pairs} (bundle, block) pairs walked, {k6_need} (lane, block) "
+        f"{k6_pairs} (bundle, block) pairs walked and {k6_spec} tested past "
+        f"their bundles' stops (speculative), {k6_need} (lane, block) "
         f"pairs needed ({k6_need / (k6_pairs * 1024):.4f} of the walked "
         f"lanes); frame median {median(a_all) * 1e3:.2f} ms all AOVs, host "
         f"share (frame minus K6) "
@@ -1781,6 +1864,7 @@ def main() -> int:
     k5_ms, _ = event_ms(lambda: [ik.walk_cuda(scene, *a, hbm=False)
                                  for a, _ in b_calls])
     k5_pairs = sum(int(o[4].sum()) for _, o in b_calls)
+    k5_spec = sum(int(o[5].sum()) for _, o in b_calls)
     k5_need = sum(ik.needed_pairs(scene, a[1], a[3], o[0], o[4], members=1)
                   for a, o in b_calls)
     k5_rays = sum(a[3].shape[1] for a, _ in b_calls)
@@ -1788,7 +1872,8 @@ def main() -> int:
                         for a, _ in b_calls)
     log(f"[path B] K5 alone over the frame's {len(b_calls)} calls: "
         f"{', '.join(f'{t:.2f}' for t in k5_ms)} ms (CUDA events, summed); "
-        f"{k5_pairs} (bundle, block) pairs walked, {k5_need} (lane, block) "
+        f"{k5_pairs} (bundle, block) pairs walked and {k5_spec} tested past "
+        f"their bundles' stops, {k5_need} (lane, block) "
         f"pairs needed ({k5_need / (k5_pairs * 1024):.4f} of the walked "
         f"lanes); frame median {median(b_times) * 1e3:.1f} ms, host share "
         f"(frame minus K5) {1 - median(k5_ms) / (median(b_times) * 1e3):.3f}")
@@ -1822,13 +1907,16 @@ def main() -> int:
     def intersect_bound(sc, need, rays, list_bytes):
         """K5/K6's bound over one frame's calls: the (lane, block) pairs
         its closest hits need (``needed_pairs``) x 128 rows x
-        ROW_TEST_FLOPS at the f32 peak, or its bytes (every ray, list and
-        output once, the tables once)."""
-        ops = need * 128 * ROW_TEST_FLOPS
+        ROW_TEST_INSTR_FMA at the f32 instruction rate, or its bytes (every ray,
+        list and output once, the tables once); and the previous basis,
+        x ROW_TEST_FLOPS at 67 TFLOP/s."""
+        ops = need * 128 * ROW_TEST_INSTR_FMA
         nbytes = (rays * INTERSECT_RAY_BYTES + list_bytes
                   + (sc.p.numel() + sc.nrm.numel()) * 4)
-        return max((ops / PEAK_F32 * 1e3, "operations"),
-                   (nbytes / PEAK_BYTES * 1e3, "bytes"))
+        return (*max((ops / PEAK_F32_INSTR * 1e3, "operations"),
+                     (nbytes / PEAK_BYTES * 1e3, "bytes")),
+                max(need * 128 * ROW_TEST_FLOPS / PEAK_F32,
+                    nbytes / PEAK_BYTES) * 1e3)
 
     # Bounds (the larger of bytes / 3.35 TB/s and operations / peak):
     macs = env.macs
@@ -1837,15 +1925,16 @@ def main() -> int:
                + seg64 * fs.n_ap * AP_TEST_FLOPS)
     rec_bytes = int(fdone_t.sum()) * REC_BYTES
     bounds = {
-        "k1": (k1_bound_ms, "operations"),
-        "k1_rec": max((rec_ops / PEAK_F32 * 1e3, "operations"),
-                      (rec_bytes / PEAK_BYTES * 1e3, "bytes")),
-        "env": max((n_esc * 2 * macs / PEAK_BF16 * 1e3, "operations"),
-                   (n_esc * 24 / PEAK_BYTES * 1e3, "bytes")),
-        "bank": max((rec_bytes / PEAK_BYTES * 1e3, "bytes"),
-                    (n_esc * 6 / PEAK_F32 * 1e3, "operations")),
-        "k3": (k3_bound, k3_by),
-        "k4": k4_bound,
+        "k1": (k1_bound_ms, "operations", k1_ops / PEAK_F32 * 1e3),
+        "k1_rec": (*max((rec_ops / PEAK_F32_INSTR * 1e3, "operations"),
+                        (rec_bytes / PEAK_BYTES * 1e3, "bytes")),
+                   max(rec_ops / PEAK_F32, rec_bytes / PEAK_BYTES) * 1e3),
+        "env": (*max((n_esc * 2 * macs / PEAK_BF16 * 1e3, "operations"),
+                     (n_esc * 24 / PEAK_BYTES * 1e3, "bytes")), None),
+        "bank": (*max((rec_bytes / PEAK_BYTES * 1e3, "bytes"),
+                      (n_esc * 6 / PEAK_F32 * 1e3, "operations")), None),
+        "k3": (k3_bound, k3_by, k3_bound_flop),
+        "k4": (*k4_bound, k4_bound_flop),
         "k5": intersect_bound(scene, k5_need, k5_rays, k5_list_bytes),
         "k6": intersect_bound(bs, k6_need, k6_rays, k6_list_bytes),
     }
@@ -1869,6 +1958,7 @@ def main() -> int:
                 "replaces": replaces, "launches": n_launch,
                 "max_abs_err": err[key], "ms": ms_, "plain_ms": plain_ms,
                 "bound_ms": bounds[key][0], "bound_by": bounds[key][1],
+                "bound_ms_flop_basis": bounds[key][2],
                 "library_ms": library_ms, "ms_shape": shape,
                 "plain_shape": plain_shape,
                 "kernel_ms_at_plain_shape": kernel_ms_plain_shape,
@@ -1881,7 +1971,8 @@ def main() -> int:
               "k1", k1_launches, main_ms,
               f"Cornell main path's launch, {FULL}^2 spp {SPP}",
               p_main * 1e3, k_main * 1e3,
-              f"its slot pool (R={R}, J={J}) at spp 1"),
+              f"its slot pool (R={R}, J={J}) at spp 1",
+              counters=counted5["summary"]),
         entry("megakernel_path_trace[record]", "megakernel.cu",
               f"{mega}:2362", "k1_rec", launches["k1_rec"], median(rec_ms),
               f"flagship launch, spheres+NIF {NIF_SIZE}^2 spp {NIF_SPP}",
@@ -1929,7 +2020,7 @@ def main() -> int:
               median(k4_ms), "the same frame, chunk by chunk",
               needed_pairs=[k4_need_p, k4_need_o],
               pairs=[k4_walk["primary_pairs"], k4_walk["occlusion_pairs"]],
-              bound_ms_bundle_pairs=k4_ops_bundles / PEAK_F32 * 1e3,
+              bound_ms_bundle_pairs=k4_ops_bundles / PEAK_F32_INSTR * 1e3,
               frame_ms_all_aovs=median(s_all) * 1e3,
               frame_ms_normals=median(s_nrm) * 1e3,
               epilogue_ms=median(epi_ms), camera_cull_ms=median(cull_ms),
@@ -1942,6 +2033,7 @@ def main() -> int:
               k5_rep_p * 1e3, k5_rep_k * 1e3,
               "the frame's first and a mid-frame iteration",
               pairs=k5_pairs, needed_pairs=k5_need,
+              speculative_blocks=k5_spec,
               frame_ms=median(b_times) * 1e3,
               iterations=b_iters),
         entry("hbm_intersect", "intersect.cu",
@@ -1952,7 +2044,9 @@ def main() -> int:
               k6_rep_p * 1e3, k6_rep_k * 1e3,
               "the frame's primary and occlusion calls of one chunk and "
               "its heaviest occlusion call", pairs=k6_pairs,
-              needed_pairs=k6_need,
+              needed_pairs=k6_need, speculative_blocks=k6_spec,
+              distribution={k: v for k, v in k6_dist.items()
+                            if k != "speculative_blocks"},
               frame_ms_all_aovs=median(a_all) * 1e3,
               frame_ms_normals=median(a_nrm) * 1e3),
     ]}))

@@ -4,8 +4,9 @@ Fills the role of the reference's Embree-callback BVH build and
 flattening pass (ref: include/embree_utils/bvh.hpp:27-126,
 src/CompactBvhBuild.cpp:6-56), re-designed for the TPU runtime:
 
-* Built here with a binned-SAH builder (numpy; optional C++ fast path in
-  :mod:`.cbuilder`) — no Embree dependency.
+* Built here with a binned-SAH builder (the native C++ build in
+  :mod:`.cbuilder`; the same algorithm in numpy,
+  :func:`build_bvh_python`) — no Embree dependency.
 * Flattened depth-first with the first child adjacent and an explicit
   second-child index, exactly like the reference's compact node array —
   *plus* a per-node **miss link**, which converts the array into a
@@ -73,16 +74,13 @@ def build_bvh(
     prim_ids: np.ndarray,
 ) -> CompactBvh:
     """Binned-SAH BVH2 over per-primitive AABBs (one primitive per
-    leaf), flattened compactly."""
-    try:
-        from .cbuilder import build_bvh_native
-    except Exception:
-        build_bvh_native = None
-    if build_bvh_native is not None:
-        result = build_bvh_native(prim_lo, prim_hi, geom_ids, prim_ids)
-        if result is not None:
-            return result
-    return build_bvh_python(prim_lo, prim_hi, geom_ids, prim_ids)
+    leaf), flattened compactly: the native build (:mod:`.cbuilder`), the
+    JAX package's, whose leaf order the blocked tables follow. It raises
+    where that build cannot run; :func:`build_bvh_python` is the same
+    algorithm in numpy, called only by name."""
+    from .cbuilder import build_bvh_native
+
+    return build_bvh_native(prim_lo, prim_hi, geom_ids, prim_ids)
 
 
 def build_bvh_python(prim_lo, prim_hi, geom_ids, prim_ids) -> CompactBvh:

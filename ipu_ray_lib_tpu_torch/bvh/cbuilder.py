@@ -5,8 +5,11 @@ shared with the JAX package) implements the identical algorithm and node
 encoding as :func:`.builder.build_bvh_python` but runs orders of
 magnitude faster on large scenes. It is compiled at first use with the
 system C++ compiler into ``ipu_ray_lib_tpu_torch/_build/``, keyed on a
-hash of the source; if the compiler is missing or the build fails,
-callers fall back to the Python builder.
+hash of the source. A missing compiler, a failed build or load, or a
+failed native build raises with the cause: nothing falls back to the
+Python builder, which differs from this one in the rounding of some
+f16 extents (tests/test_torch_bvh_build.py) and is reached only by
+calling :func:`.builder.build_bvh_python` directly.
 
 The blocked tables' triangle order is the DFS leaf order of this build,
 so the port must use the same builder the JAX package uses (the native
@@ -26,7 +29,6 @@ import numpy as np
 
 _lock = threading.Lock()
 _lib = None
-_tried = False
 
 _SRC = os.path.join(os.path.dirname(__file__), "..", "..", "csrc",
                     "bvh_builder.cpp")
@@ -34,11 +36,12 @@ _BUILD_DIR = os.path.join(os.path.dirname(__file__), "..", "_build")
 _CXXFLAGS = ["-O3", "-fPIC", "-shared", "-std=c++17"]
 
 
-def _compile() -> str | None:
-    """Build the shared library if needed; return its path or None."""
+def _compile() -> str:
+    """Build the shared library if needed; return its path."""
     cxx = os.environ.get("CXX") or shutil.which("g++") or shutil.which("c++")
-    if cxx is None or not os.path.exists(_SRC):
-        return None
+    if cxx is None:
+        raise RuntimeError("no C++ compiler for the native BVH builder "
+                           "(set CXX, or install g++)")
     with open(_SRC, "rb") as f:
         digest = hashlib.sha256(f.read() + " ".join(_CXXFLAGS).encode())
     so = os.path.join(_BUILD_DIR, f"native_bvh_{digest.hexdigest()[:16]}.so")
@@ -46,28 +49,21 @@ def _compile() -> str | None:
         return so
     os.makedirs(_BUILD_DIR, exist_ok=True)
     tmp = f"{so}.{os.getpid()}.tmp"
-    try:
-        subprocess.run([cxx, *_CXXFLAGS, "-o", tmp, _SRC], check=True,
-                       stdout=subprocess.DEVNULL, stderr=subprocess.DEVNULL)
-        os.replace(tmp, so)
-    except (OSError, subprocess.CalledProcessError):
-        return None
+    proc = subprocess.run([cxx, *_CXXFLAGS, "-o", tmp, _SRC],
+                          capture_output=True, text=True)
+    if proc.returncode != 0:
+        raise RuntimeError(f"native BVH build failed ({cxx}, "
+                           f"{proc.returncode}):\n{proc.stdout}{proc.stderr}")
+    os.replace(tmp, so)
     return so
 
 
 def _load():
-    global _lib, _tried
+    global _lib
     with _lock:
-        if _tried:
+        if _lib is not None:
             return _lib
-        _tried = True
-        so = _compile()
-        if so is None:
-            return None
-        try:
-            lib = ctypes.CDLL(so)
-        except OSError:
-            return None
+        lib = ctypes.CDLL(_compile())
         fn = lib.bvh_build_compact
         fn.restype = ctypes.c_int
         fn.argtypes = [
@@ -90,13 +86,11 @@ def _load():
 
 
 def build_bvh_native(prim_lo, prim_hi, geom_ids, prim_ids):
-    """Native build; returns a CompactBvh or None if unavailable."""
+    """Native build: a CompactBvh (raises if the library cannot be built
+    or the build fails)."""
     from .builder import MAX_LEAF_SIZE, CompactBvh
 
     lib = _load()
-    if lib is None:
-        return None
-
     prim_lo = np.ascontiguousarray(prim_lo, np.float32).reshape(-1, 3)
     prim_hi = np.ascontiguousarray(prim_hi, np.float32).reshape(-1, 3)
     geom_ids = np.ascontiguousarray(geom_ids, np.int32)
@@ -125,8 +119,10 @@ def build_bvh_native(prim_lo, prim_hi, geom_ids, prim_ids):
     )
     if rc == -2:
         raise ValueError("Cannot compress BVH bounds into fp16 (half)")
+    if rc == -1:
+        raise ValueError("Cannot build a BVH over zero primitives.")
     if rc != 0:
-        return None
+        raise RuntimeError(f"native BVH build failed (code {rc})")
     m = num_nodes.value
     return CompactBvh(
         mins=mins[:m],

@@ -36,7 +36,23 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-fmad=false", "-Xcompiler", "-fPIC",
               "-Xptxas", "-v"]
 
-# The counters of a counting launch of K3, in megakernel.cu's order:
+# The warp walks (K1, K3) test a block with its rows spread over the warp
+# when at most this many lanes need it, else each needing lane over all of
+# its rows. K3's: a row test costs ~55 instruction slots and spreading one
+# lane's rows ~130 more (its ray's 7 shuffles, 2 reductions, the loop),
+# so over a 64-row stage spreading pays below 14.7 lanes; the overhead was
+# chosen on the card among 20 to 300 by the grid-512 1440^2 spp 64 frame.
+# K1's (128 rows through L1): swept from 8 to 32 on an H100 by the Cornell
+# 1440^2 spp 64 frame; 16 and 20 ran fastest, 32 (always spread) 1.8x slower.
+K3_SPREAD = 14
+K1_SPREAD = 20
+# Chunks (2 supers) of each bundle's list a wave of K6 tests (its scratch:
+# [bundles, WAVE_CHUNKS, 1024] t and row). On the path-A frame 64 ran as
+# fast as one wave of whole lists, with 4% fewer blocks tested past the
+# stops; 16 and 32 ran 17% and 10% slower (H100).
+WAVE_CHUNKS = 64
+
+# The counters of a counting launch (K1, K3), in megakernel.cu's order:
 COUNTERS = ("cyc_group", "cyc_slab", "cyc_rows", "cyc_other", "segments",
             "group_tests", "super_tests", "member_tests", "lane_blocks",
             "warp_walks", "warp_lanes", "union_blocks", "spread_blocks")
@@ -49,14 +65,14 @@ build_info: dict = {}
 _P, _I, _U, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint, ctypes.c_float
 _SIGNATURES = {
     "megakernel_launch": [_P] * 12 + [_I] * 11 + [_U] + [_I] * 4 + [_P]
-                         + [_F] * 5 + [_P],
+                         + [_I] + [_F] * 5 + [_P],
     "bank_launch": [_P] * 3 + [_I] * 3 + [_P],
     "env_mlp_launch": [_P, _P, _I, _P, _I, _P, _P, _P, _P] + [_I] * 5
                       + [_P, _P],
     "env_mlp_smem_bytes": [_I, _I],
     "shadow_launch": [_P] * 10 + [_I] * 4 + [_F] * 3 + [_P],
     "shadow_smem_bytes": [_I],
-    "intersect_launch": [_P] * 11 + [_I] * 5 + [_P],
+    "intersect_launch": [_P] * 15 + [_I] * 7 + [_P],
 }
 
 
@@ -167,8 +183,8 @@ def launch_megakernel(scene, rows, cols, out, done, *, seed: int,
     VMEM-mode walk, or K3's HBM-mode warp walk with ``hbm``. ``out`` is
     the accumulator [J, 3, R] f32, zeroed, or with ``record`` the path
     records [10, J*spp, R] f32 (record mode); ``done`` [R] i32 is written.
-    ``counters`` (HBM mode only: [COUNTERS] int64, zeroed) makes it a
-    counting launch, which adds the walk's counters to it."""
+    ``counters`` ([COUNTERS] int64, zeroed) makes it a counting launch,
+    which adds the walk's counters to it."""
     f32 = torch.float32
     nb = scene.baabb.shape[0]
     ns, ng = -(-nb // 8), -(-nb // 64)
@@ -192,8 +208,6 @@ def launch_megakernel(scene, rows, cols, out, done, *, seed: int,
     _same_device(scene.p, scene.nrm, scene.baabb, scene.saabb, scene.sgaabb,
                  scene.ap, scene.apay, rows, cols, out, done)
     if counters is not None:
-        if not hbm:
-            raise ValueError("counting launches are HBM mode's (K3)")
         _check("counters", counters, torch.int64, (len(COUNTERS),))
         _same_device(rows, counters)
     lib = load()
@@ -208,6 +222,7 @@ def launch_megakernel(scene, rows, cols, out, done, *, seed: int,
             roulette_start_depth, max_iters, seed & 0xFFFFFFFF, n_valid, j0,
             slot0, int(hbm),
             None if counters is None else counters.data_ptr(),
+            K3_SPREAD if hbm else K1_SPREAD,
             cam.sx, cam.sy, cam.inv_w, cam.inv_h, cam.aa,
             _stream(rows.device))
     _raise_on(err, "megakernel")
@@ -308,14 +323,20 @@ def launch_shadow(scene, counts, order, dists, rays, out_f, out_i, *,
 
 
 def launch_intersect(scene, counts, order, dists, rays, out_t, out_i, out_n,
-                     out_m, pairs, *, hbm: bool) -> None:
+                     out_m, pairs, spec, *, hbm: bool) -> None:
     """Launch the closest-hit kernel on the current stream: K5 over block
-    lists, or K6 over super lists with ``hbm``; one block of 1,024 threads
-    per bundle. ``counts`` [nrb] i32, ``order`` [nrb, nl] i32 and ``dists``
-    [nrb, nl] f32 from the cull (nl blocks, or supers with ``hbm``),
-    ``rays`` [8, nrb*1024] f32; ``out_t`` [Rp] f32, ``out_i`` [Rp] i32,
-    ``out_n`` and ``out_m`` [8, Rp] f32 and ``pairs`` [nrb] i32 (the
-    blocks each bundle tested) are written."""
+    lists, one block of 1,024 threads per bundle, or K6 over super lists
+    with ``hbm``, in waves: the chunks (2 supers of a bundle's list) of a
+    wave tested at once over the card, then folded in walk order, one
+    block of 1,024 threads per bundle (intersect.cu). ``counts`` [nrb] i32, ``order`` [nrb, nl] i32 and
+    ``dists`` [nrb, nl] f32 from the cull (nl blocks, or supers with
+    ``hbm``), ``rays`` [8, nrb*1024] f32; ``out_t`` [Rp] f32, ``out_i``
+    [Rp] i32, ``out_n`` and ``out_m`` [8, Rp] f32, ``pairs`` [nrb] i32
+    (the blocks each bundle's walk tested) and ``spec`` [nrb] i32 (the
+    blocks tested past its stop; 0 for K5) are written. A wave of K6
+    tests the next WAVE_CHUNKS chunks of every bundle that has not
+    stopped; the number of waves follows from the list's width, so
+    nothing waits for the device."""
     f32, i32 = torch.float32, torch.int32
     nb = scene.baabb.shape[0]
     nrb = counts.shape[0]
@@ -334,15 +355,32 @@ def launch_intersect(scene, counts, order, dists, rays, out_t, out_i, out_n,
     _check("out_n", out_n, f32, (8, Rp))
     _check("out_m", out_m, f32, (8, Rp))
     _check("pairs", pairs, i32, (nrb,))
+    _check("spec", spec, i32, (nrb,))
     _same_device(scene.p, scene.nrm, counts, order, dists, rays, out_t, out_i,
-                 out_n, out_m, pairs)
+                 out_n, out_m, pairs, spec)
+    if nrb < 1:
+        raise ValueError("no bundle to walk")
+    if hbm and scene.p.data_ptr() % 16:
+        raise ValueError("the row table is not 16-byte aligned (bulk copies)")
+    dev = rays.device
+    part_t = part_i = state = None
+    W = n_waves = 0
+    if hbm:  # K6's waves: the next WAVE_CHUNKS chunks of 2 supers each
+        chunks = -(-nl // 2)
+        W = min(WAVE_CHUNKS, chunks)
+        n_waves = -(-chunks // W)
+        part_t = torch.empty((nrb, W, 1024), dtype=f32, device=dev)
+        part_i = torch.empty((nrb, W, 1024), dtype=i32, device=dev)
+        state = torch.empty(nrb, dtype=i32, device=dev)
+    ptr = lambda t: None if t is None else t.data_ptr()
     lib = load()
-    with torch.cuda.device(rays.device):
+    with torch.cuda.device(dev):
         err = lib.intersect_launch(
             scene.p.data_ptr(), scene.nrm.data_ptr(), counts.data_ptr(),
             order.data_ptr(), dists.data_ptr(), rays.data_ptr(),
+            ptr(part_t), ptr(part_i), ptr(state),
             out_t.data_ptr(), out_i.data_ptr(), out_n.data_ptr(),
-            out_m.data_ptr(), pairs.data_ptr(), nrb, nl, nb,
-            int(hbm and scene.payload_split),
-            int(hbm), _stream(rays.device))
+            out_m.data_ptr(), pairs.data_ptr(), spec.data_ptr(), nrb, nl, nb,
+            int(hbm and scene.payload_split), W, n_waves, int(hbm),
+            _stream(dev))
     _raise_on(err, "intersect")

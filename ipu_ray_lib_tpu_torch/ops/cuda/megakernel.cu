@@ -17,7 +17,7 @@
 // is the check.
 //
 // The two modes differ only in the triangle walk and the payload
-// (template parameter kHbm; K1's VMEM instantiation is unchanged):
+// (template parameter kHbm):
 // - VMEM (K1): a lane tests every block whose AABB its slab admits, and
 //   rounds the winner's barycentrics to bf16 before the payload;
 // - HBM (K3): a lane walks the super-group AABBs, the 8 supers of each
@@ -25,39 +25,41 @@
 //   against their AABBs and its best t at the super's entry (tin *
 //   SLAB_LO < best_t, :1150-1162) and tests the rows of the blocks that
 //   pass, in ascending order; the payload takes the winner's f32
-//   barycentrics (:1362-1365, 1403-1405). The TPU streams each flagged
-//   super through VMEM by DMA and culls per bundle; here each lane culls
-//   for itself, and the warp walks together (`warp_walk`): every lane of
-//   the warp takes the groups and the supers in ascending order in step,
-//   each lane with a live segment testing only the boxes its own walk
-//   would test, with its own best t, and the others taking part with
-//   nothing to test. Of each super the warp stages the union of the
-//   member blocks its lanes need into shared memory, 64 rows at a time
-//   with coalesced 16-byte loads, so a block several lanes need is read
-//   once. A block that few lanes need is tested with its rows spread over
-//   the warp, one needing lane at a time: every lane tests that lane's ray
-//   against rows lane, lane + 32, ... in order, and the warp reduces to
-//   the least t and, among equal t, the least row; a block that many
-//   lanes need is tested by each of them over its rows in order. Either
-//   way a lane's best t and row come out as its own walk over the same
-//   blocks, rows in ascending order with strict `<`, gives them, bit for
-//   bit. The walk's shuffles and barriers take the whole warp, so in HBM
-//   mode no lane leaves the kernel early: the bounce loop runs while any
-//   lane of the warp is live, and a lane whose paths are done only joins
-//   the walks.
+//   barycentrics (:1362-1365, 1403-1405).
+// Both walks run per warp: every lane of the warp takes the blocks (K3:
+// the groups and supers) in ascending order in step, each lane with a
+// live segment testing only the boxes its own walk would test, with its
+// own best t, and the others taking part with nothing to test. A block
+// that few of the warp's lanes need is tested with its rows spread over
+// the warp, one needing lane at a time: every lane tests that lane's ray
+// against rows lane, lane + 32, ... in order, and the warp reduces to the
+// least t and, among equal t, the least row; a block that many lanes
+// need is tested by each of them over its rows in order (`warp_rows`).
+// Either way a lane's best t and row come out as its own walk over the
+// same blocks, rows in ascending order with strict `<`, gives them, bit
+// for bit. K1 reads the rows through the read-only cache (L1 broadcasts a
+// row the whole warp reads and coalesces the spread rows); K3 stages the
+// union of the member blocks its lanes need into shared memory, 64 rows
+// at a time with coalesced 16-byte loads, so a block several lanes need
+// is read from L2 or HBM once. The TPU streams each flagged super through
+// VMEM by DMA and culls per bundle; here each lane culls for itself. The
+// walks' shuffles and barriers take the whole warp, so no lane leaves the
+// kernel early: the bounce loop runs while any lane of the warp is live,
+// and a lane whose paths are done (or past the pool) only joins the
+// walks.
 //
 // What bounds it on this card: the dense row test, ~50 f32 operations per
-// (ray, triangle) pair with no FMA, over the rows of every block the
-// lane's walk admits; in HBM mode also ~15 per slab test at each level.
-// The tables (p: 64 B per triangle row) stay in L1/L2 for small scenes;
-// at millions of triangles a lane's blocks come from L2 or HBM (33 MB of
-// rows at the grid-512 stress scene). K1 reads them through the caches,
-// a warp whose lanes admit the same block reading each row once as a
-// broadcast; K3 stages them as above. Counting launches (kCount, only
-// chip_smoke.py makes them) add clock64() cycles split between the
-// group scan, the super and member slab tests, the row tests (staging
-// included) and the rest of the bounce (payload, shading, banking), and
-// the blocks each warp walks against the sum over its lanes.
+// (ray, triangle) pair with no FMA (so each is one instruction: half the
+// card's 67 TFLOP/s, which counts an FMA as two), over the rows of every
+// block the lane's walk admits; in HBM mode also ~15 per slab test at
+// each level. The tables (p: 64 B per triangle row) stay in L1/L2 for
+// small scenes; at millions of triangles a lane's blocks come from L2 or
+// HBM (33 MB of rows at the grid-512 stress scene). Counting launches
+// (kCount, only chip_smoke.py and the experiments make them) add
+// clock64() cycles split between the group scan, the super and member
+// slab tests, the row tests (staging included) and the rest of the
+// bounce (payload, shading, banking), and the blocks each warp walks
+// against the sum over its lanes.
 //
 // Accumulation: accum[(j*3 + c)*R + slot]; a slot's column is written by
 // its own thread only, so no atomics and the per-pixel summation order is
@@ -115,6 +117,7 @@ struct Params {
   unsigned long long* cnt;  // [N_COUNT] walk counters (counting launches)
   int R, J, spp, K_tot, nb, ns, ng, n_ap;
   int max_path_length, roulette_start_depth, max_iters;
+  int spread_max;  // a block at most this many lanes need is tested spread
   uint32_t seed;
   int n_valid, j0, s0;  // s0: the first slot's index in the pool
   float sx, sy, inv_w, inv_h, aa;
@@ -326,30 +329,84 @@ __device__ __forceinline__ void tick(Counts& C, int k, long long& t,
 }
 
 constexpr int STAGE_ROWS = 64;  // rows a warp stages at a time (4 KB)
-// Instruction slots of one row test, and the overhead of spreading one lane's
-// rows over the warp (its ray's 7 shuffles, 2 reductions, the loop and
-// what they wait on): a block is tested spread when its needing lanes'
-// spread tests cost less than one pass of its rows by every needing lane
-// at once. The overhead was chosen on the card, among 20 to 300, by the
-// time of the grid-512 1440^2 spp 64 frame (the ladder's did not move).
-constexpr int kRowCost = 55;
-constexpr int kSpreadCost = 130;
+// A block is tested with its rows spread over the warp when at most
+// P.spread_max lanes need it (ops/cuda/build.py sets it per walk).
 
-// The acceptance of the staged row c4 (4 float4) for ray (o, d): the
-// arithmetic of K1's row test, its t in t_out.
+// One float4 of a row: through the read-only cache from the table
+// (kGlobal), or from a row staged in shared memory.
+template <bool kGlobal>
+__device__ __forceinline__ float4 ld4(const float4* p) {
+  if (kGlobal) return __ldg(p);
+  return *p;
+}
+
+// The acceptance of the row c4 (4 float4) for ray (o, d): the arithmetic
+// of K1's row test, its t in t_out.
+template <bool kGlobal>
 __device__ __forceinline__ bool row_hit(const float4* c4, V3 o, V3 d,
                                         float omag, float& t_out) {
   float c[16];
-  *reinterpret_cast<float4*>(c + 0) = c4[0];
-  *reinterpret_cast<float4*>(c + 4) = c4[1];
-  *reinterpret_cast<float4*>(c + 8) = c4[2];
-  *reinterpret_cast<float4*>(c + 12) = c4[3];
+  *reinterpret_cast<float4*>(c + 0) = ld4<kGlobal>(c4 + 0);
+  *reinterpret_cast<float4*>(c + 4) = ld4<kGlobal>(c4 + 1);
+  *reinterpret_cast<float4*>(c + 8) = ld4<kGlobal>(c4 + 2);
+  *reinterpret_cast<float4*>(c + 12) = ld4<kGlobal>(c4 + 3);
   const RowTest rt = row_chain(c, o, d);
   const float et = (c[14] + fabsf(rt.on)) * fabsf(rt.r);
   const float eps = jmin(c[12] + c[13] * (omag + et), kEpsClamp());
   t_out = rt.t;
   return (jmin(rt.b1, rt.b2) >= -eps) && (rt.b1 + rt.b2 <= 1.0f + eps) &&
          (rt.t > 0.0f);
+}
+
+// The rows [0, kRows) at src (row r at src + 4r, global row row0 + r),
+// tested by all 32 lanes of a warp together for the lanes of `needers`
+// (this lane's bit: `mine`): spread, one needing lane at a time, its rows
+// over the warp (each lane tests rows lane, lane + 32, ... in order, then
+// the warp takes the least t and, among equal t, the least row: t > 0, so
+// its bits order as the floats do); or each needing lane over all rows in
+// order. Either way a lane's best t and row come out as its own pass over
+// the rows in ascending order with strict `<` gives them.
+template <bool kGlobal, int kRows>
+__device__ __forceinline__ void warp_rows(const float4* src, int row0,
+                                          bool spread, unsigned needers,
+                                          bool mine, V3 o, V3 d, float omag,
+                                          float& best_t, int& best_row) {
+  constexpr unsigned wm = 0xffffffffu;
+  const int lane = threadIdx.x & 31;
+  if (spread) {
+    for (unsigned q = needers; q != 0u; q &= q - 1u) {
+      const int ql = __ffs(q) - 1;
+      const V3 qo = {__shfl_sync(wm, o.x, ql), __shfl_sync(wm, o.y, ql),
+                     __shfl_sync(wm, o.z, ql)};
+      const V3 qd = {__shfl_sync(wm, d.x, ql), __shfl_sync(wm, d.y, ql),
+                     __shfl_sync(wm, d.z, ql)};
+      const float qm = __shfl_sync(wm, omag, ql);
+      unsigned tb = __float_as_uint(kInf()), rb = 0xffffffffu;
+#pragma unroll
+      for (int r = lane; r < kRows; r += 32) {
+        float rt_t;
+        if (row_hit<kGlobal>(src + r * 4, qo, qd, qm, rt_t) &&
+            __float_as_uint(rt_t) < tb) {
+          tb = __float_as_uint(rt_t);
+          rb = (unsigned)r;
+        }
+      }
+      const unsigned tmin = __reduce_min_sync(wm, tb);
+      const unsigned rmin = __reduce_min_sync(wm, tb == tmin ? rb : 0xffffffffu);
+      if (lane == ql && __uint_as_float(tmin) < best_t) {
+        best_t = __uint_as_float(tmin);
+        best_row = row0 + (int)rmin;
+      }
+    }
+  } else if (mine) {
+    for (int r = 0; r < kRows; ++r) {
+      float rt_t;
+      if (row_hit<kGlobal>(src + r * 4, o, d, omag, rt_t) && rt_t < best_t) {
+        best_t = rt_t;
+        best_row = row0 + r;
+      }
+    }
+  }
 }
 
 // The HBM walk, called by all 32 lanes of a warp together (see the
@@ -405,52 +462,15 @@ __device__ __forceinline__ void warp_walk(const Params& P, float4* stage,
         const int b = sp * SB + m;
         const bool mine = (need >> m) & 1u;
         const unsigned needers = __ballot_sync(wm, mine);
-        const int per_lane = (STAGE_ROWS + nl - 1) / nl;
-        const bool spread = __popc(needers) * (per_lane * kRowCost + kSpreadCost) <
-                            STAGE_ROWS * kRowCost;
+        const bool spread = __popc(needers) <= P.spread_max;
         if (kCount && lane == 0 && spread) C.v[C_SPREAD_BLOCKS] += 1;
         const float4* src = reinterpret_cast<const float4*>(P.p) + (size_t)b * TB * 4;
         for (int h = 0; h < TB; h += STAGE_ROWS) {
           for (int i = lane; i < STAGE_ROWS * 4; i += nl)
             stage[i] = __ldg(src + h * 4 + i);
           __syncwarp(wm);
-          if (spread) {
-            // One needing lane at a time, its rows spread over the warp:
-            // each lane tests rows lane, lane + nl, ... in order, then the
-            // warp takes the least t and, among equal t, the least row
-            // (t > 0, so its bits order as the floats do).
-            for (unsigned q = needers; q != 0u; q &= q - 1u) {
-              const int ql = __ffs(q) - 1;
-              const V3 qo = {__shfl_sync(wm, o.x, ql), __shfl_sync(wm, o.y, ql),
-                             __shfl_sync(wm, o.z, ql)};
-              const V3 qd = {__shfl_sync(wm, d.x, ql), __shfl_sync(wm, d.y, ql),
-                             __shfl_sync(wm, d.z, ql)};
-              const float qm = __shfl_sync(wm, omag, ql);
-              unsigned tb = __float_as_uint(kInf()), rb = 0xffffffffu;
-              for (int r = lane; r < STAGE_ROWS; r += nl) {
-                float rt_t;
-                if (row_hit(stage + r * 4, qo, qd, qm, rt_t) &&
-                    __float_as_uint(rt_t) < tb) {
-                  tb = __float_as_uint(rt_t);
-                  rb = (unsigned)r;
-                }
-              }
-              const unsigned tmin = __reduce_min_sync(wm, tb);
-              const unsigned rmin = __reduce_min_sync(wm, tb == tmin ? rb : 0xffffffffu);
-              if (lane == ql && __uint_as_float(tmin) < best_t) {
-                best_t = __uint_as_float(tmin);
-                best_row = b * TB + h + (int)rmin;
-              }
-            }
-          } else if (mine) {
-            for (int r = 0; r < STAGE_ROWS; ++r) {
-              float rt_t;
-              if (row_hit(stage + r * 4, o, d, omag, rt_t) && rt_t < best_t) {
-                best_t = rt_t;
-                best_row = b * TB + h + r;
-              }
-            }
-          }
+          warp_rows<false, STAGE_ROWS>(stage, b * TB + h, spread, needers, mine,
+                                       o, d, omag, best_t, best_row);
           __syncwarp(wm);
         }
       }
@@ -459,13 +479,55 @@ __device__ __forceinline__ void warp_walk(const Params& P, float4* stage,
   }
 }
 
+// K1's walk, called by all 32 lanes of a warp together: the blocks in
+// ascending order, each `live` lane testing every block its own slab
+// admits (no refinement by its best t, as the reference's VMEM walk); a
+// block no lane admits is skipped, and one that some lanes admit is
+// tested for them (warp_rows) with its rows read through the read-only
+// cache from the table: L1 broadcasts a row the whole warp reads, and
+// coalesces the spread rows (staging them in shared memory as K3 does ran
+// 1-2% slower on an H100, the Cornell 1440^2 spp 64 launch).
+template <bool kCount>
+__device__ __forceinline__ void warp_walk_vmem(const Params& P, bool live,
+                                               V3 o, V3 d, float ix,
+                                               float iy, float iz, float omag,
+                                               float& best_t, int& best_row,
+                                               Counts& C, long long& t) {
+  constexpr unsigned wm = 0xffffffffu;
+  const int lane = threadIdx.x & 31;
+  if (kCount) {
+    const unsigned lm = __ballot_sync(wm, live);
+    if (lane == 0) {
+      C.v[C_WARP_WALKS] += 1;
+      C.v[C_WARP_LANES] += __popc(lm);
+    }
+  }
+  for (int b = 0; b < P.nb; ++b) {
+    float tin;
+    const bool mine = live && slab(P.baabb + b * 8, o, ix, iy, iz, tin);
+    const unsigned needers = __ballot_sync(wm, mine);
+    const bool spread = __popc(needers) <= P.spread_max;
+    if (kCount) {
+      C.v[C_LANE_BLOCKS] += mine;
+      if (lane == 0) {
+        C.v[C_UNION_BLOCKS] += needers != 0u;
+        C.v[C_SPREAD_BLOCKS] += needers != 0u && spread;
+      }
+    }
+    tick<kCount>(C, C_CYC_SLAB, t, live);
+    if (needers == 0u) continue;
+    warp_rows<true, TB>(reinterpret_cast<const float4*>(P.p) + b * TB * 4, b * TB,
+                        spread, needers, mine, o, d, omag, best_t, best_row);
+    tick<kCount>(C, C_CYC_ROWS, t, live);
+  }
+}
+
 template <bool kHbm, bool kCount>
 __global__ void __launch_bounds__(128) megakernel(const Params P) {
   const int s = blockIdx.x * blockDim.x + threadIdx.x;
-  // K3's warp walk takes every lane of the warp: there a lane past the
-  // pool stays, with no path to trace.
+  // The warp walks take every lane of the warp: a lane past the pool
+  // stays, with no path to trace.
   const bool in_pool = s < P.R;
-  if (!kHbm && !in_pool) return;
   const int K = P.J * P.spp;
   const float INF = kInf(), BIG = kBig();
 
@@ -477,7 +539,8 @@ __global__ void __launch_bounds__(128) megakernel(const Params P) {
   const uint32_t pid_base =
       (uint32_t)(s + P.s0) * (uint32_t)P.K_tot + (uint32_t)(P.j0 * P.spp);
   // Table offsets: 64-bit in HBM mode (p holds 134 M floats at grid
-  // 2048); K1 keeps its 32-bit ones (its code, and its speed, unchanged).
+  // 2048); 32-bit in VMEM mode (K1 visits every block of its scene for
+  // every segment, so its scenes stay small).
   using Off = typename std::conditional<kHbm, size_t, int>::type;
   const Off ncol = (Off)P.nb * 3 * TB;
   extern __shared__ float4 stage_all[];  // kHbm: STAGE_ROWS rows per warp
@@ -495,12 +558,10 @@ __global__ void __launch_bounds__(128) megakernel(const Params P) {
   if (in_pool) camera_ray(P, s, pid_base, 0, o, d);
   V3 tp = {1.0f, 1.0f, 1.0f}, color = {0.0f, 0.0f, 0.0f};
 
-  // K3: while any lane of the warp is live, every lane goes round (the
-  // walk's shuffles and barriers take the whole warp); K1: while this
-  // lane is.
-  for (int it = 0;
-       it < P.max_iters && (kHbm ? __any_sync(0xffffffffu, active) : active);
-       ++it) {
+  // While any lane of the warp is live, every lane goes round (the
+  // walks' shuffles and barriers take the whole warp); a lane whose
+  // paths are done only joins the walks.
+  for (int it = 0; it < P.max_iters && __any_sync(0xffffffffu, active); ++it) {
     const float omag = jmax(jmax(fabsf(o.x), fabsf(o.y)), fabsf(o.z));
     const uint32_t pid = pid_base + (uint32_t)k;
 
@@ -510,54 +571,15 @@ __global__ void __launch_bounds__(128) megakernel(const Params P) {
     const float ix = 1.0f / (d.x == 0.0f ? kTiny() : d.x);
     const float iy = 1.0f / (d.y == 0.0f ? kTiny() : d.y);
     const float iz = 1.0f / (d.z == 0.0f ? kTiny() : d.z);
-    if (kHbm) {
-      tick<kCount>(C, C_CYC_OTHER, t_clk, active);
-      if (kCount) C.v[C_SEGMENTS] += active;
-      warp_walk<kCount>(P, stage, active, o, d, ix, iy, iz, omag, best_t,
-                        best_row, C, t_clk);
-      if (!active) continue;
-    } else {
-      // K1's block walk, written out here: routed through slab() and a
-      // shared row test it compiled otherwise and ran 2-3% slower on an
-      // H100 (the Cornell 1440^2 spp 64 launch).
-      for (int b = 0; b < P.nb; ++b) {
-        const float* box = P.baabb + b * 8;
-        float tin = 0.0f, tout = BIG;
-        {
-          const float t0 = (__ldg(box + 0) - o.x) * ix, t1 = (__ldg(box + 3) - o.x) * ix;
-          tin = jmax(tin, jmin(t0, t1));
-          tout = jmin(tout, jmax(t0, t1) * kSlabScale());
-        }
-        {
-          const float t0 = (__ldg(box + 1) - o.y) * iy, t1 = (__ldg(box + 4) - o.y) * iy;
-          tin = jmax(tin, jmin(t0, t1));
-          tout = jmin(tout, jmax(t0, t1) * kSlabScale());
-        }
-        {
-          const float t0 = (__ldg(box + 2) - o.z) * iz, t1 = (__ldg(box + 5) - o.z) * iz;
-          tin = jmax(tin, jmin(t0, t1));
-          tout = jmin(tout, jmax(t0, t1) * kSlabScale());
-        }
-        if (!(tin <= tout && __ldg(box + 0) < BIG)) continue;
-        const float4* rows4 = reinterpret_cast<const float4*>(P.p) + (size_t)b * TB * 4;
-        for (int r = 0; r < TB; ++r) {
-          float c[16];
-          *reinterpret_cast<float4*>(c + 0) = __ldg(rows4 + r * 4 + 0);
-          *reinterpret_cast<float4*>(c + 4) = __ldg(rows4 + r * 4 + 1);
-          *reinterpret_cast<float4*>(c + 8) = __ldg(rows4 + r * 4 + 2);
-          *reinterpret_cast<float4*>(c + 12) = __ldg(rows4 + r * 4 + 3);
-          const RowTest rt = row_chain(c, o, d);
-          const float et = (c[14] + fabsf(rt.on)) * fabsf(rt.r);
-          const float eps = jmin(c[12] + c[13] * (omag + et), kEpsClamp());
-          const bool ok = (jmin(rt.b1, rt.b2) >= -eps) && (rt.b1 + rt.b2 <= 1.0f + eps) &&
-                          (rt.t > 0.0f);
-          if (ok && rt.t < best_t) {
-            best_t = rt.t;
-            best_row = b * TB + r;
-          }
-        }
-      }
-    }
+    tick<kCount>(C, C_CYC_OTHER, t_clk, active);
+    if (kCount) C.v[C_SEGMENTS] += active;
+    if (kHbm)
+      warp_walk<kCount>(P, stage, active, o, d, ix, iy, iz, omag, best_t, best_row,
+                        C, t_clk);
+    else
+      warp_walk_vmem<kCount>(P, active, o, d, ix, iy, iz, omag, best_t, best_row,
+                             C, t_clk);
+    if (!active) continue;
 
     // ---- payload of the winning triangle (bf16 barycentrics in VMEM
     // mode, f32 in HBM mode) ----
@@ -751,7 +773,7 @@ extern "C" int megakernel_launch(
     const float* cols, float* accum, float* rec, int* done, int R, int J,
     int spp, int K_tot, int nb, int ns, int ng, int n_ap, int max_path_length,
     int roulette_start_depth, int max_iters, unsigned int seed, int n_valid,
-    int j0, int s0, int hbm, unsigned long long* counters,
+    int j0, int s0, int hbm, unsigned long long* counters, int spread_max,
     float sx, float sy, float inv_w, float inv_h, float aa, void* stream) {
   Params P;
   P.p = p;
@@ -787,14 +809,17 @@ extern "C" int megakernel_launch(
   P.inv_w = inv_w;
   P.inv_h = inv_h;
   P.aa = aa;
+  P.spread_max = spread_max;
   const int threads = 128;
   const int blocks = (R + threads - 1) / threads;
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int smem = (threads / 32) * STAGE_ROWS * 4 * (int)sizeof(float4);
   const bool count = counters != nullptr;
   if (!hbm) {
-    if (count) return (int)cudaErrorInvalidValue;
-    megakernel<false, false><<<blocks, threads, 0, st>>>(P);
+    if (count)
+      megakernel<false, true><<<blocks, threads, 0, st>>>(P);
+    else
+      megakernel<false, false><<<blocks, threads, 0, st>>>(P);
   } else if (count) {
     megakernel<true, true><<<blocks, threads, smem, st>>>(P);
   } else {

@@ -235,8 +235,10 @@ def needed_pairs(scene, order, rays, out_t, tested, *, members: int) -> int:
 
 
 def walk_cuda(scene, counts, order, dists, rays, *, hbm: bool):
-    """The CUDA kernel K5 (K6 with ``hbm``): same results as the plain
-    version; asynchronous on the current stream."""
+    """The CUDA kernel K5 (K6 with ``hbm``): the plain version's results,
+    and a sixth output [nrb] i32, the blocks each bundle tested past its
+    stop (K6 tests a wave of chunks of its list at once,
+    ops/cuda/intersect.cu; 0 for K5)."""
     from .cuda.build import launch_intersect
 
     Rp = rays.shape[1]
@@ -246,9 +248,10 @@ def walk_cuda(scene, counts, order, dists, rays, *, hbm: bool):
     out_n = torch.empty((8, Rp), dtype=torch.float32, device=dev)
     out_m = torch.empty((8, Rp), dtype=torch.float32, device=dev)
     pairs = torch.empty(counts.shape[0], dtype=torch.int32, device=dev)
+    spec = torch.empty(counts.shape[0], dtype=torch.int32, device=dev)
     launch_intersect(scene, counts, order, dists, rays, out_t, out_i, out_n,
-                     out_m, pairs, hbm=hbm)
-    return out_t, out_i, out_n, out_m, pairs
+                     out_m, pairs, spec, hbm=hbm)
+    return out_t, out_i, out_n, out_m, pairs, spec
 
 
 def dense_walk_cuda(scene, counts, order, dists, rays):
