@@ -295,10 +295,16 @@ def timed(fn):
     return out, time.perf_counter() - t0
 
 
-def event_ms(fn, reps: int = 3) -> tuple[list[float], object]:
-    """CUDA-event times (ms) of ``reps`` calls, and the last result."""
+def event_ms(fn, reps: int = 3,
+             hold_ms: float = 0.0) -> tuple[list[float], object]:
+    """CUDA-event times (ms) of ``reps`` calls, and the last result. With
+    ``hold_ms`` a spin kernel of about that long runs before each call, so
+    that the host has queued the call's launches before the card reaches
+    them: the time is the card's, not the host's launch rate."""
     out, ms = None, []
     for _ in range(reps):
+        if hold_ms:
+            torch.cuda._sleep(int(hold_ms * 2e6))  # ~2e6 cycles per ms
         ev0 = torch.cuda.Event(enable_timing=True)
         ev1 = torch.cuda.Event(enable_timing=True)
         ev0.record()
@@ -311,6 +317,21 @@ def event_ms(fn, reps: int = 3) -> tuple[list[float], object]:
 
 def median(xs):
     return sorted(xs)[len(xs) // 2]
+
+
+def k45_counting(launch) -> dict:
+    """A counting launch of K4 or K5 (``launch(counters)`` makes one or
+    more): the summed counters and the cycle split (shares of the
+    lane-cycles)."""
+    from ipu_ray_lib_tpu_torch.ops.cuda.build import K45_COUNTERS
+
+    c = torch.zeros(len(K45_COUNTERS), dtype=torch.int64, device="cuda")
+    launch(c)
+    cnt = dict(zip(K45_COUNTERS, c.tolist()))
+    cyc = {k: v for k, v in cnt.items() if k.startswith("cyc_")}
+    tot = max(sum(cyc.values()), 1)
+    cnt["split"] = {k[4:]: round(v / tot, 4) for k, v in cyc.items()}
+    return cnt
 
 
 def main() -> int:
@@ -355,6 +376,17 @@ def main() -> int:
     log(f"kernel build: {time.perf_counter() - t0:.2f} s "
         f"(nvcc {cuda_build.build_info.get('seconds', 0.0):.2f} s)")
     log(cuda_build.build_info.get("log", ""))
+    # ptxas' registers, spills and shared memory of K4's and K5's
+    # instantiations (<counting launch>):
+    fn, res = None, {}
+    for line in cuda_build.build_info.get("log", "").splitlines():
+        if "Function properties for" in line:
+            fn = line.split()[-1]
+        elif fn and ("shadow_kernel" in fn or "bundle_kernel" in fn) and (
+                "Used" in line or "spill" in line):
+            res.setdefault(fn, []).append(line.split(":", 1)[-1].strip())
+    for fn, lines in sorted(res.items()):
+        log(f"[ptxas K4/K5] {fn}: {'; '.join(lines)}")
 
     mesh = os.path.join(ROOT, "assets", "monkey_bust.glb")
     err = {"k1": 0.0, "k1_rec": 0.0, "env": 0.0, "bank": 0.0, "k3": 0.0,
@@ -1047,13 +1079,24 @@ def main() -> int:
                 e = max(e, float((a - b)[fin].abs().max()))
         err[key] = max(err[key], e)
         n_hit = int((kout[1] >= 0).sum())
+        # The (lane, block) pairs the lanes tested: K5's culled walk
+        # between the pairs its hits need and the dense walk's; K6 all.
+        dense = int(pout[4].sum()) * 1024
+        need = (0 if hbm else
+                ik.needed_pairs(scene, inp[1], inp[3], pout[0], pout[4],
+                                members=1))
+        tested = int(kout[6].sum())
         log(f"[{'K6' if hbm else 'K5'} {name}] {inp[3].shape[1]} padded "
             f"rays, {inp[0].shape[0]} bundles: plain {t_p:.3f} s; bit for "
             f"bit {same} (max |diff| {e:.3g}); hits {n_hit}; blocks tested "
-            f"{int(kout[4].sum())}")
+            f"{int(kout[4].sum())}; (lane, block) pairs tested {tested}, "
+            f"needed {need}, dense {dense}")
         if not same:
             raise AssertionError(f"{name}: the closest-hit kernel disagrees "
                                  "with its plain version")
+        if not (need <= tested <= dense and (tested == dense or not hbm)):
+            raise AssertionError(f"{name}: the (lane, block) pairs tested "
+                                 "lie outside [needed, dense]")
         return t_p
 
     def intersect_vs_plain(name, scene, o, d, hbm):
@@ -1405,6 +1448,12 @@ def main() -> int:
     k4_ms, k_outs = event_ms(lambda: [sh.shadow_trace_cuda(scene, *a,
                                                            light=light)
                                       for _, a in inputs])
+    # The same launches behind a spin kernel: the card's time alone, apart
+    # from the host's launch rate (``ms`` above is timed without it, as the
+    # earlier kernels were).
+    k4_card_ms, _ = event_ms(lambda: [sh.shadow_trace_cuda(scene, *a,
+                                                           light=light)
+                                      for _, a in inputs], hold_ms=40.0)
     epi_ms, epis = event_ms(lambda: [
         sh.shadow_epilogue(scene, None, d, f, i, light, 0.05)
         for (d, _), (f, i) in zip(inputs, k_outs)])
@@ -1424,7 +1473,8 @@ def main() -> int:
     log(f"[shadow main breakdown] per frame ({n_chunks} chunks of "
         f"{DEFAULT_CHUNK} rays): camera + cull "
         f"{', '.join(f'{t:.2f}' for t in cull_ms)} ms; K4 alone "
-        f"{', '.join(f'{t:.2f}' for t in k4_ms)} ms; epilogue "
+        f"{', '.join(f'{t:.2f}' for t in k4_ms)} ms (behind a spin kernel "
+        f"{', '.join(f'{t:.2f}' for t in k4_card_ms)} ms); epilogue "
         f"{', '.join(f'{t:.2f}' for t in epi_ms)} ms; un-tiling "
         f"{', '.join(f'{t:.2f}' for t in untile_ms)} ms; device-to-host "
         f"{nbytes / 1e6:.1f} MB {', '.join(f'{t:.2f}' for t in d2h)} ms; end "
@@ -1454,6 +1504,34 @@ def main() -> int:
                                     a[0], members=1)
                     for (_, a), (kf, _) in zip(inputs, k_outs))
     k4_need_o = k4_walk["occlusion_needed"]
+    # The (lane, block) pairs K4's lanes tested, launch by launch: the
+    # primary walk's between the pairs its hits need and the dense walk's
+    # (1,024 per walked block), the occlusion walk's at most the dense
+    # walk's (a lane stops at its first occluder); the bundles' blocks
+    # equal the plain version's (bundle, block) pairs.
+    k4_lp = [0, 0, 0, 0]
+    for (_, a), (kf, _) in zip(inputs, k_outs):
+        pr = torch.zeros((4, a[0].shape[0]), dtype=torch.int32, device=dev)
+        sh.shadow_trace_cuda(scene, *a, light=light, pairs=pr)
+        pr = [int(x) for x in pr.sum(dim=1).tolist()]
+        need = ik.needed_pairs(scene, a[1], a[3], kf[3].contiguous(), a[0],
+                               members=1)
+        if not (need <= pr[2] <= pr[0] * 1024 and pr[3] <= pr[1] * 1024):
+            raise AssertionError("K4: a launch's (lane, block) pairs lie "
+                                 "outside [needed, dense]")
+        k4_lp = [x + y for x, y in zip(k4_lp, pr)]
+    if (k4_lp[0] != k4_walk["primary_pairs"]
+            or k4_lp[1] != k4_walk["occlusion_pairs"]):
+        raise AssertionError("K4's bundles walked other blocks than the plain "
+                             "version's")
+    k4_count = k45_counting(lambda c: [sh.shadow_trace_cuda(
+        scene, *a, light=light, counters=c) for _, a in inputs])
+    log(f"[K4 pairs] (lane, block) pairs tested: primary {k4_lp[2]} "
+        f"(needed {k4_need_p}, dense {k4_lp[0] * 1024}), occlusion "
+        f"{k4_lp[3]} (needed by the nearest occluders {k4_need_o}, dense "
+        f"{k4_lp[1] * 1024}); every launch within [needed, dense]")
+    log(f"[K4 counting launch] the frame's {n_chunks} launches: "
+        f"{json.dumps(k4_count)}")
     rp_frame = n_chunks * DEFAULT_CHUNK
     log(f"[shadow main] K4 vs plain over the frame's {rp_frame} rays: "
         f"{k4_bad} rays differ (max |diff| {err['k4']:.3g}); plain "
@@ -1863,15 +1941,33 @@ def main() -> int:
         render_streaming(scene, pb, env=sky)
     k5_ms, _ = event_ms(lambda: [ik.walk_cuda(scene, *a, hbm=False)
                                  for a, _ in b_calls])
+    k5_card_ms, _ = event_ms(lambda: [ik.walk_cuda(scene, *a, hbm=False)
+                                      for a, _ in b_calls], hold_ms=300.0)
     k5_pairs = sum(int(o[4].sum()) for _, o in b_calls)
     k5_spec = sum(int(o[5].sum()) for _, o in b_calls)
-    k5_need = sum(ik.needed_pairs(scene, a[1], a[3], o[0], o[4], members=1)
-                  for a, o in b_calls)
+    k5_need = k5_tested = 0
+    for a, o in b_calls:  # each launch's pairs within [needed, dense]
+        need = ik.needed_pairs(scene, a[1], a[3], o[0], o[4], members=1)
+        tested = int(o[6].sum())
+        if not need <= tested <= int(o[4].sum()) * 1024:
+            raise AssertionError("K5: a launch's (lane, block) pairs lie "
+                                 "outside [needed, dense]")
+        k5_need += need
+        k5_tested += tested
+    k5_count = k45_counting(lambda c: [ik.walk_cuda(
+        scene, *a, hbm=False, counters=c) for a, _ in b_calls])
+    log(f"[K5 pairs] (lane, block) pairs tested {k5_tested}, needed "
+        f"{k5_need}, dense {k5_pairs * 1024}; every launch within [needed, "
+        f"dense]")
+    log(f"[K5 counting launch] the frame's {len(b_calls)} launches: "
+        f"{json.dumps(k5_count)}")
     k5_rays = sum(a[3].shape[1] for a, _ in b_calls)
     k5_list_bytes = sum(a[1].numel() * 8 + a[0].numel() * 4
                         for a, _ in b_calls)
     log(f"[path B] K5 alone over the frame's {len(b_calls)} calls: "
-        f"{', '.join(f'{t:.2f}' for t in k5_ms)} ms (CUDA events, summed); "
+        f"{', '.join(f'{t:.2f}' for t in k5_ms)} ms (CUDA events, summed; "
+        f"behind a spin kernel {', '.join(f'{t:.2f}' for t in k5_card_ms)} "
+        f"ms); "
         f"{k5_pairs} (bundle, block) pairs walked and {k5_spec} tested past "
         f"their bundles' stops, {k5_need} (lane, block) "
         f"pairs needed ({k5_need / (k5_pairs * 1024):.4f} of the walked "
@@ -2020,6 +2116,8 @@ def main() -> int:
               median(k4_ms), "the same frame, chunk by chunk",
               needed_pairs=[k4_need_p, k4_need_o],
               pairs=[k4_walk["primary_pairs"], k4_walk["occlusion_pairs"]],
+              lane_pairs_tested=k4_lp[2:], counters=k4_count,
+              ms_card=median(k4_card_ms),
               bound_ms_bundle_pairs=k4_ops_bundles / PEAK_F32_INSTR * 1e3,
               frame_ms_all_aovs=median(s_all) * 1e3,
               frame_ms_normals=median(s_nrm) * 1e3,
@@ -2033,6 +2131,8 @@ def main() -> int:
               k5_rep_p * 1e3, k5_rep_k * 1e3,
               "the frame's first and a mid-frame iteration",
               pairs=k5_pairs, needed_pairs=k5_need,
+              lane_pairs_tested=k5_tested, counters=k5_count,
+              ms_card=median(k5_card_ms),
               speculative_blocks=k5_spec,
               frame_ms=median(b_times) * 1e3,
               iterations=b_iters),

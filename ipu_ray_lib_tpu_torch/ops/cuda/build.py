@@ -46,6 +46,12 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 # 1440^2 spp 64 frame; 16 and 20 ran fastest, 32 (always spread) 1.8x slower.
 K3_SPREAD = 14
 K1_SPREAD = 20
+# K5's and K4's culled walks split a block's 128 rows into this many
+# chunks of consecutive rows; a warp item is 32 listed lanes against one.
+# Chosen on an H100 by the path-B frame (K5: 4 / 8 / 16 / 32) and the
+# Cornell + monkey 1440^2 shadow frame (K4: 4 / 8 / 16).
+K5_SPREAD = 16
+K4_SPREAD = 4
 # Chunks (2 supers) of each bundle's list a wave of K6 tests (its scratch:
 # [bundles, WAVE_CHUNKS, 1024] t and row). On the path-A frame 64 ran as
 # fast as one wave of whole lists, with 4% fewer blocks tested past the
@@ -56,6 +62,12 @@ WAVE_CHUNKS = 64
 COUNTERS = ("cyc_group", "cyc_slab", "cyc_rows", "cyc_other", "segments",
             "group_tests", "super_tests", "member_tests", "lane_blocks",
             "warp_walks", "warp_lanes", "union_blocks", "spread_blocks")
+
+# The counters of a counting launch of K4 and K5, in rows.cuh's order:
+K45_COUNTERS = ("cyc_stage", "cyc_rows", "cyc_flags", "cyc_prims",
+                "cyc_epilogue", "cyc_cull", "lane_pairs", "occ_lane_pairs",
+                "bundle_blocks", "occ_blocks", "max_bundle_blocks",
+                "cta_blocks", "work_items", "work_rounds", "live_lanes")
 
 _lock = threading.Lock()
 _lib = None
@@ -70,9 +82,9 @@ _SIGNATURES = {
     "env_mlp_launch": [_P, _P, _I, _P, _I, _P, _P, _P, _P] + [_I] * 5
                       + [_P, _P],
     "env_mlp_smem_bytes": [_I, _I],
-    "shadow_launch": [_P] * 10 + [_I] * 4 + [_F] * 3 + [_P],
+    "shadow_launch": [_P] * 13 + [_I] * 5 + [_F] * 3 + [_P],
     "shadow_smem_bytes": [_I],
-    "intersect_launch": [_P] * 15 + [_I] * 7 + [_P],
+    "intersect_launch": [_P] * 18 + [_I] * 8 + [_P],
 }
 
 
@@ -156,6 +168,15 @@ def _check(name: str, t: torch.Tensor, dtype, shape=None):
         raise ValueError(f"{name} must be contiguous")
     if shape is not None and tuple(t.shape) != tuple(shape):
         raise ValueError(f"{name} must have shape {shape}, got {tuple(t.shape)}")
+
+
+def _check_pbox(scene, kernel: str) -> None:
+    """The padded boxes of K4's and K5's cull, which only a VMEM-mode scene
+    carries (scene/build.py)."""
+    if scene.pbox is None:
+        raise ValueError(f"{kernel} walks VMEM-mode scenes: this scene has no "
+                         "padded boxes (build it with intersector='pallas')")
+    _check("pbox", scene.pbox, torch.float32, (scene.baabb.shape[0], 8))
 
 
 def _same_device(*ts: torch.Tensor) -> None:
@@ -281,12 +302,17 @@ def launch_env_mlp(dirs, out, env, packed) -> None:
 
 
 def launch_shadow(scene, counts, order, dists, rays, out_f, out_i, *,
-                  light) -> None:
-    """Launch the fused shadow kernel (K4) on the current stream: one
-    block of 1,024 threads per bundle. ``counts`` [nrb] i32, ``order``
-    [nrb, nb] i32 and ``dists`` [nrb, nb] f32 from the bundle cull,
-    ``rays`` [8, nrb*1024] f32; ``out_f`` [4, nrb*1024] f32 and ``out_i``
-    [4, nrb*1024] i32 are written; ``light`` three f32 values."""
+                  light, pairs=None, counters=None) -> None:
+    """Launch the fused shadow kernel (K4) on the current stream: each
+    bundle a cluster of 4 CTAs of 256 threads. ``counts`` [nrb] i32,
+    ``order`` [nrb, nb] i32 and ``dists`` [nrb, nb] f32 from the bundle
+    cull, ``rays`` [8, nrb*1024] f32; ``out_f`` [4, nrb*1024] f32 and
+    ``out_i`` [4, nrb*1024] i32 are written; ``light`` three f32 values.
+    ``pairs`` ([4, nrb] i32, zeroed) gains per bundle the blocks of its
+    primary walk and of its occlusion union and the (lane, block) pairs
+    each walk's lanes tested; ``counters`` ([K45_COUNTERS] int64, zeroed)
+    makes it a counting launch. The scene must carry its padded boxes
+    (``pbox``: a VMEM-mode scene)."""
     f32, i32 = torch.float32, torch.int32
     nb = scene.baabb.shape[0]
     nrb = counts.shape[0]
@@ -296,6 +322,7 @@ def launch_shadow(scene, counts, order, dists, rays, out_f, out_i, *,
     _check("p", scene.p, f32, (nb * 128, 16))
     _check("nrm", scene.nrm, f32, (8, nb * 3 * 128))
     _check("baabb", scene.baabb, f32, (nb, 8))
+    _check_pbox(scene, "K4")
     _check("ap", scene.ap, f32, (n_ap, 16))
     if n_sph + n_dsc > n_ap:
         raise ValueError(f"{n_sph} spheres + {n_dsc} discs exceed {n_ap} ap rows")
@@ -305,38 +332,51 @@ def launch_shadow(scene, counts, order, dists, rays, out_f, out_i, *,
     _check("rays", rays, f32, (8, Rp))
     _check("out_f", out_f, f32, (4, Rp))
     _check("out_i", out_i, i32, (4, Rp))
-    _same_device(scene.p, scene.nrm, scene.baabb, scene.ap, counts, order,
-                 dists, rays, out_f, out_i)
+    _same_device(scene.p, scene.nrm, scene.baabb, scene.pbox, scene.ap, counts,
+                 order, dists, rays, out_f, out_i)
+    if pairs is not None:
+        _check("pairs", pairs, i32, (4, nrb))
+        _same_device(rays, pairs)
+    if counters is not None:
+        _check("counters", counters, torch.int64, (len(K45_COUNTERS),))
+        _same_device(rays, counters)
     lib = load()
     smem = lib.shadow_smem_bytes(nb)
-    if smem > 40 * 1024:  # with the 8 KB row stage, within 48 KB a block
+    if smem > 40 * 1024:
         raise ValueError(f"{nb} blocks need {smem} bytes of block flags in "
                          "shared memory; the kernel takes up to 40 KB")
     with torch.cuda.device(rays.device):
         err = lib.shadow_launch(
             scene.p.data_ptr(), scene.nrm.data_ptr(), scene.baabb.data_ptr(),
-            scene.ap.data_ptr(), counts.data_ptr(), order.data_ptr(),
-            dists.data_ptr(), rays.data_ptr(), out_f.data_ptr(),
-            out_i.data_ptr(), nrb, nb, n_sph, n_dsc, *light,
-            _stream(rays.device))
+            scene.ap.data_ptr(), scene.pbox.data_ptr(), counts.data_ptr(),
+            order.data_ptr(), dists.data_ptr(), rays.data_ptr(),
+            out_f.data_ptr(), out_i.data_ptr(),
+            None if pairs is None else pairs.data_ptr(),
+            None if counters is None else counters.data_ptr(),
+            nrb, nb, n_sph, n_dsc, K4_SPREAD, *light, _stream(rays.device))
     _raise_on(err, "shadow")
 
 
 def launch_intersect(scene, counts, order, dists, rays, out_t, out_i, out_n,
-                     out_m, pairs, spec, *, hbm: bool) -> None:
+                     out_m, pairs, spec, lane_pairs, *, hbm: bool,
+                     counters=None) -> None:
     """Launch the closest-hit kernel on the current stream: K5 over block
-    lists, one block of 1,024 threads per bundle, or K6 over super lists
-    with ``hbm``, in waves: the chunks (2 supers of a bundle's list) of a
-    wave tested at once over the card, then folded in walk order, one
-    block of 1,024 threads per bundle (intersect.cu). ``counts`` [nrb] i32, ``order`` [nrb, nl] i32 and
-    ``dists`` [nrb, nl] f32 from the cull (nl blocks, or supers with
-    ``hbm``), ``rays`` [8, nrb*1024] f32; ``out_t`` [Rp] f32, ``out_i``
-    [Rp] i32, ``out_n`` and ``out_m`` [8, Rp] f32, ``pairs`` [nrb] i32
-    (the blocks each bundle's walk tested) and ``spec`` [nrb] i32 (the
-    blocks tested past its stop; 0 for K5) are written. A wave of K6
-    tests the next WAVE_CHUNKS chunks of every bundle that has not
+    lists, the culled walk with one CTA of 1,024 threads per bundle (the
+    scene must carry its padded boxes, ``pbox``: a VMEM-mode scene), or
+    K6 over super lists with ``hbm``, in waves: the chunks (2 supers of a bundle's list) of a wave
+    tested at once over the card, then folded in walk order, one block of
+    1,024 threads per bundle (intersect.cu). ``counts`` [nrb] i32,
+    ``order`` [nrb, nl] i32 and ``dists`` [nrb, nl] f32 from the cull (nl
+    blocks, or supers with ``hbm``), ``rays`` [8, nrb*1024] f32;
+    ``out_t`` [Rp] f32, ``out_i`` [Rp] i32, ``out_n`` and ``out_m`` [8, Rp]
+    f32, ``pairs`` [nrb] i32 (the blocks each bundle's walk walked),
+    ``spec`` [nrb] i32 (the blocks tested past its stop; 0 for K5) and
+    ``lane_pairs`` [nrb] i32 (the (lane, block) pairs its lanes tested;
+    K6 tests 1,024 lanes per block) are written. A wave of
+    K6 tests the next WAVE_CHUNKS chunks of every bundle that has not
     stopped; the number of waves follows from the list's width, so
-    nothing waits for the device."""
+    nothing waits for the device. ``counters`` ([K45_COUNTERS] int64,
+    zeroed) makes a K5 launch a counting launch."""
     f32, i32 = torch.float32, torch.int32
     nb = scene.baabb.shape[0]
     nrb = counts.shape[0]
@@ -356,8 +396,17 @@ def launch_intersect(scene, counts, order, dists, rays, out_t, out_i, out_n,
     _check("out_m", out_m, f32, (8, Rp))
     _check("pairs", pairs, i32, (nrb,))
     _check("spec", spec, i32, (nrb,))
+    _check("lane_pairs", lane_pairs, i32, (nrb,))
     _same_device(scene.p, scene.nrm, counts, order, dists, rays, out_t, out_i,
-                 out_n, out_m, pairs, spec)
+                 out_n, out_m, pairs, spec, lane_pairs)
+    if not hbm:
+        _check_pbox(scene, "K5")
+        _same_device(rays, scene.pbox)
+    if counters is not None:
+        if hbm:
+            raise ValueError("K6 has no counting launch")
+        _check("counters", counters, torch.int64, (len(K45_COUNTERS),))
+        _same_device(rays, counters)
     if nrb < 1:
         raise ValueError("no bundle to walk")
     if hbm and scene.p.data_ptr() % 16:
@@ -378,9 +427,11 @@ def launch_intersect(scene, counts, order, dists, rays, out_t, out_i, out_n,
         err = lib.intersect_launch(
             scene.p.data_ptr(), scene.nrm.data_ptr(), counts.data_ptr(),
             order.data_ptr(), dists.data_ptr(), rays.data_ptr(),
-            ptr(part_t), ptr(part_i), ptr(state),
+            ptr(None if hbm else scene.pbox), ptr(part_t), ptr(part_i),
+            ptr(state),
             out_t.data_ptr(), out_i.data_ptr(), out_n.data_ptr(),
-            out_m.data_ptr(), pairs.data_ptr(), spec.data_ptr(), nrb, nl, nb,
+            out_m.data_ptr(), pairs.data_ptr(), spec.data_ptr(),
+            lane_pairs.data_ptr(), ptr(counters), nrb, nl, nb,
             int(hbm and scene.payload_split), W, n_waves, int(hbm),
-            _stream(dev))
+            K5_SPREAD, _stream(dev))
     _raise_on(err, "intersect")

@@ -13,8 +13,18 @@
 // lowest row, across blocks (and K6's members) the block first in the
 // walk.
 //
-// K5 runs one thread block of 1,024 threads per bundle (`bundle_kernel`),
-// one thread per ray, each tested block staged in shared memory.
+// K5 (`bundle_kernel`) walks each bundle's list with one thread per ray,
+// a bundle being one CTA of 1,024 threads (clusters of 2 and 4 CTAs ran
+// 20-25% slower over a path-B frame on an H100). Within the bundle's
+// decisions, which stay the dense walk's, a lane tests a block only when
+// its exact cull admits it (rows.cuh lane_admits): the block is
+// unbounded, or its padded box lies in the lane's slab with an entry
+// below the lane's best t. Per block each CTA lists its admitting lanes
+// and shares their row tests over its warps (rows.cuh walk_step: a warp
+// takes 32 listed lanes against one chunk of the block's rows, staged in
+// shared memory by cp.async while the previous block is tested). Each
+// bundle reports the (lane, block) pairs its lanes tested
+// (`lane_pairs`).
 //
 // K6's walk is split over the whole card, exactly, in waves. A chunk is
 // CHECK_EVERY consecutive entries of one bundle's list: the stretch
@@ -61,8 +71,10 @@
 // read from L2 once per pair (per quarter bundle in K6: 8 KB), far below
 // the operations' time. What the design does about it: K6's bundles no
 // longer walk on one SM each (a launch took as long as its longest
-// bundle, 39 us per block of it on an H100), and the TPU kernels' work
-// is kept exactly (no per-lane cull).
+// bundle, 39 us per block of it on an H100); K5's lanes test only the
+// blocks their exact cull admits (the path-B frame's hits need 5.8% of
+// the (lane, block) pairs its bundles walk). K6 keeps the TPU kernel's
+// work per bundle (no per-lane cull yet).
 
 #include "rows.cuh"
 
@@ -93,7 +105,10 @@ struct Params {
   float* out_m;         // [8, Rp]
   int* pairs;           // [nrb] blocks the walk tested per bundle
   int* spec;            // [nrb] blocks tested past the bundle's stop
-  int nl, nb, nrb, Rp, split, W, wave;
+  const float* pbox;    // K5: [nb, 8] padded boxes (ops/tables.py)
+  int* lane_pairs;      // [nrb] (lane, block) pairs tested (K5: zeroed)
+  unsigned long long* cnt;  // K5: [K_N] counters of a counting launch
+  int nl, nb, nrb, Rp, split, W, wave, spread;
 };
 
 __device__ __forceinline__ V3 ray_o(const Params& P, size_t ray) {
@@ -102,25 +117,6 @@ __device__ __forceinline__ V3 ray_o(const Params& P, size_t ray) {
 __device__ __forceinline__ V3 ray_d(const Params& P, size_t ray) {
   const size_t Rp = P.Rp;
   return {P.rays[3 * Rp + ray], P.rays[4 * Rp + ray], P.rays[5 * Rp + ray]};
-}
-
-// Whether the bundle stops: the max of best t over its 1,024 lanes below
-// `bound` (called by the whole block; `warp_max` and `stop` in shared
-// memory).
-__device__ __forceinline__ bool bundle_stops(float best_t, float bound,
-                                             float* warp_max, int& stop) {
-  const int lane = threadIdx.x;
-  float w = best_t;
-  for (int off = 16; off > 0; off >>= 1) w = fmaxf(w, __shfl_xor_sync(0xffffffffu, w, off));
-  if ((lane & 31) == 0) warp_max[lane >> 5] = w;
-  __syncthreads();
-  if (lane < 32) {
-    w = warp_max[lane];
-    for (int off = 16; off > 0; off >>= 1) w = fmaxf(w, __shfl_xor_sync(0xffffffffu, w, off));
-    if (lane == 0) stop = w < bound;
-  }
-  __syncthreads();
-  return stop;
 }
 
 // A lane's outputs: its best t and row, and its winner's payload.
@@ -155,47 +151,74 @@ __device__ __forceinline__ void write_hit(const Params& P, size_t ray, V3 o, V3 
   }
 }
 
-// K5: one block per bundle walks its block list.
+// K5: a bundle of 1,024 rays per CTA, walking its lanes (rows.cuh
+// walk_step).
+template <bool kCount>
 __global__ void __launch_bounds__(BR) bundle_kernel(const Params P) {
-  __shared__ float4 rows4[TB * 4];
-  __shared__ float warp_max[BR / 32];
-  __shared__ int stop;
+  __shared__ BundleSync<BR, 1> sync;
+  extern __shared__ __align__(16) unsigned char smem[];
+  WalkSmem<BR>& W = *reinterpret_cast<WalkSmem<BR>*>(smem);
 
+  Cnt C = {};
+  long long tc = kCount ? clock64() : 0;
   const int i = blockIdx.x;
+  const int tid = threadIdx.x;
+  const bool head = tid == 0;
   const size_t Rp = P.Rp;
-  const size_t ray = (size_t)i * BR + threadIdx.x;
+  const size_t ray = (size_t)i * BR + tid;
   const V3 o = ray_o(P, ray), d = ray_d(P, ray);
   const float tmin = P.rays[6 * Rp + ray];
-  float best_t = P.rays[7 * Rp + ray];
-  int best_row = -1;
+  const float tmax = P.rays[7 * Rp + ray];
   const float omag = jmax(jmax(fabsf(o.x), fabsf(o.y)), fabsf(o.z));
+  const LaneRay L = lane_ray(o, d, omag);
+  W.ox[tid] = o.x;
+  W.oy[tid] = o.y;
+  W.oz[tid] = o.z;
+  W.dx[tid] = d.x;
+  W.dy[tid] = d.y;
+  W.dz[tid] = d.z;
+  W.tmin[tid] = tmin;
+  float best_t = tmax;
+  int best_row = -1;
+  if (kCount) C.v[K_LIVE_LANES] = tmin < tmax;
   const int count = P.counts[i];
   const int* list = P.order + (size_t)i * P.nl;
   const float* dist_lb = P.dists + (size_t)i * P.nl;
-  int j = 0;
+  int tested = 0;  // the bundle's (lane, block) pairs
+  int buf = 0, parity = 0, j = 0;
+  if (count > 0) stage_async<BR>(W.stage[0], P.p, list[0]);
+  tick<kCount>(C, K_CYC_EPILOGUE, tc);
   while (j < count) {
-    const int blk = list[j];
-    __syncthreads();  // the previous block's rows are no longer read
-    stage(P.p, blk, rows4);
-    __syncthreads();
-    test_rows(rows4, blk, o, d, omag, tmin, best_t, best_row);
+    tested += walk_step<BR, kCount>(W, P.p, P.pbox, list[j], j + 1 < count ? list[j + 1] : -1,
+                                    buf, true, L, tmin, best_t, best_row, P.spread, C, tc);
     ++j;
-    if (j % kCheckK5 == 0 && j < P.nl && bundle_stops(best_t, dist_lb[j], warp_max, stop))
-      break;
+    if (j % kCheckK5 == 0 && j < P.nl) {
+      const bool stop = sync.stops(best_t, dist_lb[j], parity);
+      tick<kCount>(C, K_CYC_STAGE, tc);
+      if (stop) break;
+    }
   }
-  if (threadIdx.x == 0) {
+  stage_wait();
+  tick<kCount>(C, K_CYC_STAGE, tc);
+  if (head) {
     P.pairs[i] = j;
     P.spec[i] = 0;
+    P.lane_pairs[i] = tested;
   }
   write_hit(P, ray, o, d, best_t, best_row);
-}
-
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+  if (kCount) {
+    tick<kCount>(C, K_CYC_EPILOGUE, tc);
+    if (head) {
+      C.v[K_LANE_PAIRS] = tested;
+      C.v[K_BUNDLE_BLOCKS] = j;
+      C.v[K_MAX_BUNDLE_BLOCKS] = j;
+    }
+    flush<kCount>(C, P.cnt);
+  }
 }
 
 __device__ __forceinline__ void mbar_init(uint64_t* bar) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;" ::"r"(smem_addr(bar)));
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;" ::"r"(smem_u32(bar)));
 }
 
 // Block blk's 8 KB of rows into dst, completing on bar (one thread).
@@ -203,11 +226,11 @@ __device__ __forceinline__ void bulk_load(float4* dst, const float* p, int blk,
                                           uint64_t* bar) {
   const float4* src = reinterpret_cast<const float4*>(p) + (size_t)blk * TB * 4;
   asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;"
-               ::"r"(smem_addr(bar)), "r"(kBlockBytes) : "memory");
+               ::"r"(smem_u32(bar)), "r"(kBlockBytes) : "memory");
   asm volatile(
       "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
       "[%0], [%1], %2, [%3];"
-      ::"r"(smem_addr(dst)), "l"(src), "r"(kBlockBytes), "r"(smem_addr(bar))
+      ::"r"(smem_u32(dst)), "l"(src), "r"(kBlockBytes), "r"(smem_u32(bar))
       : "memory");
 }
 
@@ -219,7 +242,7 @@ __device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
         "{\n .reg .pred p;\n"
         " mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
         " selp.u32 %0, 1, 0, p;\n}"
-        : "=r"(done) : "r"(smem_addr(bar)), "r"(parity) : "memory");
+        : "=r"(done) : "r"(smem_u32(bar)), "r"(parity) : "memory");
   }
 }
 
@@ -271,8 +294,8 @@ __global__ void __launch_bounds__(LG) chunk_kernel(const Params P) {
 
 // K6, one wave: one block per bundle folds the wave's chunks in walk order.
 __global__ void __launch_bounds__(BR) fold_kernel(const Params P) {
-  __shared__ float warp_max[BR / 32];
-  __shared__ int stop;
+  __shared__ BundleSync<BR, 1> sync;
+  int parity = 0;
 
   const int i = blockIdx.x;
   if (P.wave > 0 && P.state[i] < 0) return;  // stopped in an earlier wave
@@ -294,7 +317,7 @@ __global__ void __launch_bounds__(BR) fold_kernel(const Params P) {
       best_row = P.part_i[at];
     }
     j = min(j + kCheckK6, count);
-    stopped = j < count && j < P.nl && bundle_stops(best_t, dist_lb[j], warp_max, stop);
+    stopped = j < count && j < P.nl && sync.stops(best_t, dist_lb[j], parity);
   }
   const bool more = !stopped && j < count;  // the next wave goes on
   __syncthreads();  // every lane has read the bundle's state
@@ -302,6 +325,7 @@ __global__ void __launch_bounds__(BR) fold_kernel(const Params P) {
     P.state[i] = more ? j : -1;
     if (!more) {
       P.pairs[i] = SB * j;
+      P.lane_pairs[i] = BR * SB * j;
       P.spec[i] = SB * (min(c1 * kCheckK6, count) - j);
     }
   }
@@ -326,14 +350,30 @@ int chunk_grid() {
   return grid;
 }
 
+// One K5 launch: nrb bundles, one CTA each.
+template <bool kCount>
+cudaError_t launch_k5(const Params& P, cudaStream_t s) {
+  constexpr int smem = sizeof(WalkSmem<BR>);
+  static bool opted = false;  // above 48 KB a kernel opts in once
+  if (!opted) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        bundle_kernel<kCount>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err != cudaSuccess) return err;
+    opted = true;
+  }
+  bundle_kernel<kCount><<<P.nrb, BR, smem, s>>>(P);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" int intersect_launch(const float* p, const float* nrm, const int* counts,
                                 const int* order, const float* dists, const float* rays,
-                                float* part_t, int* part_i, int* state, float* out_t,
-                                int* out_i, float* out_n, float* out_m, int* pairs,
-                                int* spec, int nrb, int nl, int nb, int split, int W,
-                                int n_waves, int hbm, void* stream) {
+                                const float* pbox, float* part_t, int* part_i, int* state,
+                                float* out_t, int* out_i, float* out_n, float* out_m,
+                                int* pairs, int* spec, int* lane_pairs,
+                                unsigned long long* cnt, int nrb, int nl, int nb, int split,
+                                int W, int n_waves, int hbm, int spread, void* stream) {
   Params P;
   P.p = p;
   P.nrm = nrm;
@@ -341,6 +381,7 @@ extern "C" int intersect_launch(const float* p, const float* nrm, const int* cou
   P.order = order;
   P.dists = dists;
   P.rays = rays;
+  P.pbox = pbox;
   P.part_t = part_t;
   P.part_i = part_i;
   P.state = state;
@@ -350,6 +391,8 @@ extern "C" int intersect_launch(const float* p, const float* nrm, const int* cou
   P.out_m = out_m;
   P.pairs = pairs;
   P.spec = spec;
+  P.lane_pairs = lane_pairs;
+  P.cnt = cnt;
   P.nl = nl;
   P.nb = nb;
   P.nrb = nrb;
@@ -357,10 +400,11 @@ extern "C" int intersect_launch(const float* p, const float* nrm, const int* cou
   P.split = split;
   P.W = W;
   P.wave = 0;
+  P.spread = spread;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (!hbm) {
-    bundle_kernel<<<nrb, BR, 0, s>>>(P);
-    return static_cast<int>(cudaGetLastError());
+    const cudaError_t err = cnt ? launch_k5<true>(P, s) : launch_k5<false>(P, s);
+    return static_cast<int>(err);
   }
   const int grid = min(nrb * W * NQ, chunk_grid());
   for (P.wave = 0; P.wave < n_waves; ++P.wave) {

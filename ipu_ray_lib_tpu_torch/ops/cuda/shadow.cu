@@ -2,20 +2,30 @@
 // shadow ray to a point light, occlusion, for bundles of 1,024 rays.
 //
 // Replaces the TPU kernel ipu_ray_lib_tpu/ops/pallas/shadow_kernel.py
-// `_shadow_kernel` (K4). One thread block of 1,024 threads owns one bundle
-// of 1,024 consecutive rays, one thread per ray, and keeps the TPU
-// kernel's per-bundle decisions:
-// - the primary walk tests the bundle's block list (the bundle cull,
-//   ops/cull.py) nearest first, and after every CHECK_EVERY = 4 tested
-//   blocks stops once the block-wide max of best t is below the next
-//   block's distance bound (shared-memory max, __syncthreads);
-// - the occlusion walk tests, in ascending order, every block that any
+// `_shadow_kernel` (K4). A bundle of 1,024 consecutive rays, one thread
+// per ray, is a cluster of CL = 4 CTAs of 256 threads (the 64 bundles of
+// a 65,536-ray chunk fill the card as 256 CTAs; one CTA of 1,024 threads
+// per bundle ran 1.5x slower over the shadow frame on an H100), and keeps
+// the TPU kernel's per-bundle decisions:
+// - the primary walk walks the bundle's block list (the bundle cull,
+//   ops/cull.py) nearest first, and after every CHECK_EVERY = 4 blocks
+//   stops once the max of best t over the bundle's 1,024 lanes is below
+//   the next block's distance bound (each CTA's max, then the cluster's
+//   through distributed shared memory; rows.cuh BundleSync);
+// - the occlusion walk walks, in ascending order, every block that any
 //   ray of the bundle flags with K4's own conservative slab test of its
-//   shadow ray (a shared bitmask, warp ballots and atomicOr).
-// Each tested block's 128 triangle rows (8 KB) are staged in shared memory,
-// so all threads test the same rows without divergence. Ties resolve as
-// on the TPU: inside a block the lowest row (strictly smaller t replaces,
-// rows ascending), across blocks the block first in the walk.
+//   shadow ray (each CTA's bitmask by warp ballots and atomicOr, then
+//   their OR over the cluster through distributed shared memory).
+// Within those, a lane tests a block only when its exact cull admits it
+// for a hit below its best t (rows.cuh lane_admits: the block is
+// unbounded, or its padded box lies in the lane's slab), and a lane
+// already occluded tests nothing more. Per block each CTA lists its
+// admitting lanes and spreads their row tests over all its threads, the
+// rows staged in shared memory by cp.async while the previous block is
+// tested (rows.cuh walk_step, as K5's).
+// Ties resolve as on the TPU: inside a block the lowest row (strictly
+// smaller t replaces, rows ascending), across blocks the block first in
+// the walk.
 //
 // Per ray, every formula is the TPU kernel's as XLA compiles its CPU
 // interpret mode, which is what the JAX package's results come from: a
@@ -34,14 +44,18 @@
 // = the winning triangle's raw shading normal xyz, hit t; out_i [4, Rp] =
 // triangle row or -1, sphere index or -1, disc index or -1, occluded.
 //
-// What bounds it on this card: operations. Each admitted (bundle, block)
-// pair of either walk costs 1,024 rays x 128 rows x ~49 f32 operations;
-// the slab flags ~30 per (ray, block), the sphere and disc tests ~45 per
-// (ray, primitive), twice. The tables (p: 8 KB per block) are read from
-// device memory once per pair, which is far below the operations' time.
-// What the design does about it now: the per-bundle walk keeps the TPU
-// kernel's work exactly (no per-ray cull), the staging makes row reads
-// shared-memory broadcasts; nothing more yet.
+// Outputs beside them, per bundle, when `pairs` is given (the checks and
+// the measurements; the renderer passes none): pairs [4, nrb] = blocks
+// the primary walk walked, blocks in the occlusion union, and the (lane,
+// block) pairs each walk's lanes tested.
+//
+// What bounds it on this card: operations. Each tested (lane, block) pair
+// of either walk costs 128 rows x ~33 f32 instructions; the slab flags
+// ~30 per (ray, block), the sphere and disc tests ~45 per (ray,
+// primitive), twice. The tables (p: 8 KB per block) come through L1/L2,
+// far below the operations' time. What the design does about it: the
+// lanes test only the pairs their cull admits, and the clusters put the
+// 64 bundles of a chunk on 256 CTAs over the card's 132 SMs.
 
 #include "rows.cuh"
 
@@ -50,6 +64,8 @@ namespace {
 using namespace rows;
 
 constexpr int CHECK_EVERY = 4;
+constexpr int CL = 4;         // CTAs per bundle, a cluster
+constexpr int NT = BR / CL;   // threads per CTA
 
 struct Params {
   const float* p;       // [nb*TB, 16] triangle rows
@@ -62,7 +78,10 @@ struct Params {
   const float* rays;    // [8, Rp] origin, direction, t_min, t_max rows
   float* out_f;         // [4, Rp]
   int* out_i;           // [4, Rp]
-  int nb, n_sph, n_dsc, Rp;
+  const float* pbox;    // [nb, 8] padded boxes (ops/tables.py)
+  int* pairs;           // [4, nrb] per bundle (zeroed), or null
+  unsigned long long* cnt;  // [K_N] counters of a counting launch
+  int nb, n_sph, n_dsc, Rp, nrb, spread;
   float lx, ly, lz;     // the point light
 };
 
@@ -120,15 +139,22 @@ __device__ __forceinline__ void disc_pass(const Params& P, V3 o, V3 d, float tmi
   }
 }
 
-__global__ void __launch_bounds__(BR) shadow_kernel(const Params P) {
-  __shared__ float4 rows4[TB * 4];
-  __shared__ float warp_max[BR / 32];
-  __shared__ int stop;
-  extern __shared__ unsigned flags[];  // (nb + 31) / 32 words
+template <bool kCount>
+__global__ void __launch_bounds__(NT) shadow_kernel(const Params P) {
+  constexpr unsigned wm = 0xffffffffu;
+  __shared__ BundleSync<NT, CL> sync;
+  extern __shared__ __align__(16) unsigned char smem[];
+  WalkSmem<NT>& W = *reinterpret_cast<WalkSmem<NT>*>(smem);
+  // 2 x (nb + 31) / 32 words: this CTA's flags, then the bundle's union
+  unsigned* flags = reinterpret_cast<unsigned*>(smem + sizeof(WalkSmem<NT>));
 
-  const int i = blockIdx.x;
-  const int lane = threadIdx.x;
-  const size_t ray = (size_t)i * BR + lane;
+  Cnt C = {};
+  long long tc = kCount ? clock64() : 0;
+  const int i = blockIdx.x / CL;
+  const int tid = threadIdx.x;
+  const bool head = blockIdx.x % CL == 0 && tid == 0;
+  const int lane = tid & 31;
+  const size_t ray = (size_t)i * BR + (blockIdx.x % CL) * NT + tid;
   const int nb = P.nb;
   const float INF = kInf();
   const V3 o = {P.rays[ray], P.rays[P.Rp + ray], P.rays[2 * (size_t)P.Rp + ray]};
@@ -136,34 +162,42 @@ __global__ void __launch_bounds__(BR) shadow_kernel(const Params P) {
                 P.rays[5 * (size_t)P.Rp + ray]};
   const float tmin = P.rays[6 * (size_t)P.Rp + ray];
   const float tmax = P.rays[7 * (size_t)P.Rp + ray];
+  if (kCount) C.v[K_LIVE_LANES] = tmin < tmax;
 
   // ---- primary walk: the bundle's list, nearest first, early stop ----
+  const float omag = jmax(jmax(fabsf(o.x), fabsf(o.y)), fabsf(o.z));
+  const LaneRay L = lane_ray(o, d, omag);
+  W.ox[tid] = o.x;
+  W.oy[tid] = o.y;
+  W.oz[tid] = o.z;
+  W.dx[tid] = d.x;
+  W.dy[tid] = d.y;
+  W.dz[tid] = d.z;
+  W.tmin[tid] = tmin;
   float best_t = tmax;
   int best_row = -1;
-  const float omag = jmax(jmax(fabsf(o.x), fabsf(o.y)), fabsf(o.z));
   const int count = P.counts[i];
   const int* list = P.order + (size_t)i * nb;
   const float* dist_lb = P.dists + (size_t)i * nb;
-  for (int j = 0; j < count;) {
-    const int blk = list[j];
-    __syncthreads();  // the previous block's rows are no longer read
-    stage(P.p, blk, rows4);
-    __syncthreads();
-    test_rows(rows4, blk, o, d, omag, tmin, best_t, best_row);
+  int tested = 0, occ_tested = 0;  // this CTA's (lane, block) pairs
+  int buf = 0, parity = 0, j = 0;
+  if (count > 0) stage_async<NT>(W.stage[0], P.p, list[0]);
+  tick<kCount>(C, K_CYC_EPILOGUE, tc);
+  while (j < count) {
+    tested += walk_step<NT, kCount>(W, P.p, P.pbox, list[j], j + 1 < count ? list[j + 1] : -1,
+                                    buf, true, L, tmin, best_t, best_row, P.spread, C, tc);
     ++j;
     if (j % CHECK_EVERY == 0 && j < nb) {
-      float m = best_t;
-      for (int off = 16; off > 0; off >>= 1) m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, off));
-      if ((lane & 31) == 0) warp_max[lane >> 5] = m;
-      __syncthreads();
-      if (lane < 32) {
-        float w = warp_max[lane];
-        for (int off = 16; off > 0; off >>= 1) w = fmaxf(w, __shfl_xor_sync(0xffffffffu, w, off));
-        if (lane == 0) stop = w < dist_lb[j];
-      }
-      __syncthreads();
+      const bool stop = sync.stops(best_t, dist_lb[j], parity);
+      tick<kCount>(C, K_CYC_STAGE, tc);
       if (stop) break;
     }
+  }
+  stage_wait();
+  tick<kCount>(C, K_CYC_STAGE, tc);
+  if (kCount && head) {
+    C.v[K_BUNDLE_BLOCKS] = j;
+    C.v[K_MAX_BUNDLE_BLOCKS] = j;
   }
 
   const bool found_tri = best_row >= 0;
@@ -182,6 +216,7 @@ __global__ void __launch_bounds__(BR) shadow_kernel(const Params P) {
     n_raw.y = seg0[ncol] + (seg0[ncol + TB] * rc.b1 + seg0[ncol + 2 * TB] * rc.b2);
     n_raw.z = seg0[2 * ncol] + (seg0[2 * ncol + TB] * rc.b1 + seg0[2 * ncol + 2 * TB] * rc.b2);
   }
+  tick<kCount>(C, K_CYC_EPILOGUE, tc);
 
   // ---- spheres, then discs, override when strictly nearer ----
   float st, dt;
@@ -193,6 +228,7 @@ __global__ void __launch_bounds__(BR) shadow_kernel(const Params P) {
   disc_pass(P, o, d, tmin, dt, di, d_n);
   const bool db = dt < best;
   if (db) best = dt;
+  tick<kCount>(C, K_CYC_PRIMS, tc);
   const bool found = found_tri || sb || db;
   const float hit_t = found ? best : tmax;
 
@@ -224,10 +260,11 @@ __global__ void __launch_bounds__(BR) shadow_kernel(const Params P) {
   const float m_off = mag * kRayEps() * sgn;
   const V3 so = {__fmaf_rn(normal.x, m_off, hp.x), __fmaf_rn(normal.y, m_off, hp.y),
                  __fmaf_rn(normal.z, m_off, hp.z)};
+  tick<kCount>(C, K_CYC_EPILOGUE, tc);
 
   // ---- per-bundle block flags: any ray's conservative slab hit ----
   const int n_words = (nb + 31) / 32;
-  for (int w = lane; w < n_words; w += BR) flags[w] = 0u;
+  for (int w = tid; w < n_words; w += NT) flags[w] = 0u;
   __syncthreads();
   const float s_o[3] = {so.x, so.y, so.z}, s_d[3] = {sdir.x, sdir.y, sdir.z};
   for (int b = 0; b < nb; ++b) {
@@ -248,27 +285,50 @@ __global__ void __launch_bounds__(BR) shadow_kernel(const Params P) {
       tout = jmin(tout, tf);
     }
     const bool hit = tin <= tout && tout >= 0.0f && tin <= dist && __ldg(box) < kBig30();
-    const unsigned vote = __ballot_sync(0xffffffffu, hit);
-    if ((lane & 31) == 0 && vote) atomicOr(&flags[b >> 5], 1u << (b & 31));
+    const unsigned vote = __ballot_sync(wm, hit);
+    if (lane == 0 && vote) atomicOr(&flags[b >> 5], 1u << (b & 31));
   }
   __syncthreads();
+  {  // the bundle's union: the OR of its CTAs' flags
+    namespace cg = cooperative_groups;
+    cg::cluster_group cluster = cg::this_cluster();
+    cluster.sync();
+    for (int w = tid; w < n_words; w += NT) {
+      unsigned u = 0u;
+#pragma unroll
+      for (int r = 0; r < CL; ++r) u |= cluster.map_shared_rank(flags, r)[w];
+      flags[n_words + w] = u;
+    }
+    __syncthreads();
+  }
+  const unsigned* uni = flags + n_words;
+  tick<kCount>(C, K_CYC_FLAGS, tc);
 
-  // ---- occlusion walk over the flagged blocks, ascending ----
+  // ---- occlusion walk over the union's blocks, ascending ----
   const float somag = jmax(jmax(fabsf(so.x), fabsf(so.y)), fabsf(so.z));
+  const LaneRay SL = lane_ray(so, sdir, somag);
+  W.ox[tid] = so.x;
+  W.oy[tid] = so.y;
+  W.oz[tid] = so.z;
+  W.dx[tid] = sdir.x;
+  W.dy[tid] = sdir.y;
+  W.dz[tid] = sdir.z;
   float s_t = dist;
   int s_row = -1;
-  for (int w = 0; w < n_words; ++w) {
-    unsigned bits = flags[w];
-    while (bits) {
-      const int b = w * 32 + __ffs(bits) - 1;
-      bits &= bits - 1u;
-      __syncthreads();
-      stage(P.p, b, rows4);
-      __syncthreads();
-      // A ray with a hit is occluded already; further rows only lower t.
-      if (s_row < 0) test_rows(rows4, b, so, sdir, somag, tmin, s_t, s_row);
-    }
+  int n_union = 0;
+  for (int w = 0; w < n_words; ++w) n_union += __popc(uni[w]);
+  // A lane with a hit is occluded already and tests nothing more.
+  __syncthreads();  // no thread reads the stage of the primary walk
+  int b = next_flag(uni, n_words, -1);
+  if (b >= 0) stage_async<NT>(W.stage[buf], P.p, b);
+  while (b >= 0) {
+    const int nx = next_flag(uni, n_words, b);
+    occ_tested += walk_step<NT, kCount>(W, P.p, P.pbox, b, nx, buf, s_row < 0, SL, tmin,
+                                        s_t, s_row, P.spread, C, tc);
+    b = nx;
   }
+  stage_wait();
+  if (kCount && head) C.v[K_OCC_BLOCKS] = n_union;
   const bool s_tri = s_row >= 0;
   float s_best = s_tri ? s_t : dist;
   float sst, sdt;
@@ -280,6 +340,7 @@ __global__ void __launch_bounds__(BR) shadow_kernel(const Params P) {
   disc_pass(P, so, sdir, tmin, sdt, unused_i, unused_v);
   const bool sdb = sdt < s_best;
   if (sdb) s_best = sdt;
+  tick<kCount>(C, K_CYC_PRIMS, tc);
   const bool s_found = s_tri || ssb || sdb;
   const bool occ = s_found && ((s_found ? s_best : dist) < dist);
 
@@ -292,35 +353,88 @@ __global__ void __launch_bounds__(BR) shadow_kernel(const Params P) {
   P.out_i[Rp + ray] = sb ? si : -1;
   P.out_i[2 * Rp + ray] = db ? di : -1;
   P.out_i[3 * Rp + ray] = occ ? 1 : 0;
+  if (head && P.pairs) {
+    P.pairs[i] = j;
+    P.pairs[P.nrb + i] = n_union;
+  }
+  if (tid == 0 && P.pairs) {
+    atomicAdd(P.pairs + 2 * P.nrb + i, tested);
+    atomicAdd(P.pairs + 3 * P.nrb + i, occ_tested);
+  }
+  if (kCount) {
+    tick<kCount>(C, K_CYC_EPILOGUE, tc);
+    if (tid == 0) {
+      C.v[K_LANE_PAIRS] = tested;
+      C.v[K_OCC_LANE_PAIRS] = occ_tested;
+    }
+    flush<kCount>(C, P.cnt);
+  }
+  cooperative_groups::this_cluster().sync();  // DSMEM reads done
+}
+
+// One K4 launch: nrb bundles, a cluster of CL CTAs each.
+template <bool kCount>
+cudaError_t launch_k4(const Params& P, int flag_bytes, cudaStream_t s) {
+  const int smem = (int)sizeof(WalkSmem<NT>) + flag_bytes;
+  static int opted = 0;  // the dynamic shared memory a kernel opted in to
+  if (smem > opted) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        shadow_kernel<kCount>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err != cudaSuccess) return err;
+    opted = smem;
+  }
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(P.nrb * CL);
+  cfg.blockDim = dim3(NT);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = s;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = CL;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  const cudaError_t err = cudaLaunchKernelEx(&cfg, shadow_kernel<kCount>, P);
+  if (err != cudaSuccess) return err;
+  return cudaGetLastError();  // a refused cluster launch never runs
 }
 
 }  // namespace
 
-extern "C" int shadow_smem_bytes(int nb) { return ((nb + 31) / 32) * 4; }
+extern "C" int shadow_smem_bytes(int nb) { return 2 * ((nb + 31) / 32) * 4; }
 
 extern "C" int shadow_launch(const float* p, const float* nrm, const float* baabb,
-                             const float* ap, const int* counts, const int* order,
-                             const float* dists, const float* rays, float* out_f,
-                             int* out_i, int nrb, int nb, int n_sph, int n_dsc,
+                             const float* ap, const float* pbox, const int* counts,
+                             const int* order, const float* dists, const float* rays,
+                             float* out_f, int* out_i, int* pairs, unsigned long long* cnt,
+                             int nrb, int nb, int n_sph, int n_dsc, int spread,
                              float lx, float ly, float lz, void* stream) {
   Params P;
   P.p = p;
   P.nrm = nrm;
   P.baabb = baabb;
   P.ap = ap;
+  P.pbox = pbox;
   P.counts = counts;
   P.order = order;
   P.dists = dists;
   P.rays = rays;
   P.out_f = out_f;
   P.out_i = out_i;
+  P.pairs = pairs;
+  P.cnt = cnt;
   P.nb = nb;
   P.n_sph = n_sph;
   P.n_dsc = n_dsc;
   P.Rp = nrb * BR;
+  P.nrb = nrb;
+  P.spread = spread;
   P.lx = lx;
   P.ly = ly;
   P.lz = lz;
-  shadow_kernel<<<nrb, BR, shadow_smem_bytes(nb), static_cast<cudaStream_t>(stream)>>>(P);
-  return static_cast<int>(cudaGetLastError());
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int smem = shadow_smem_bytes(nb);
+  const cudaError_t err = cnt ? launch_k4<true>(P, smem, s) : launch_k4<false>(P, smem, s);
+  return static_cast<int>(err);
 }

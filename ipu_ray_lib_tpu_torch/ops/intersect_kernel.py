@@ -15,8 +15,10 @@ normal ``N0 + (dN1*b1 + dN2*b2)`` and the material payload rows of the
 Two implementations with one contract, for the walk and the winner's
 payload:
 
-* the CUDA kernel (``ops/cuda/intersect.cu``), one thread block per
-  bundle, for CUDA tensors;
+* the CUDA kernel (``ops/cuda/intersect.cu``), each bundle a CTA whose
+  lanes test only the blocks they may hit (the exact cull of
+  :func:`lane_admits`; K5 walks VMEM-mode scenes, which carry the padded
+  boxes), for CUDA tensors;
 * :func:`dense_walk_ref`, plain torch over all bundles at once, for CPU
   tensors and for checking the kernel on the card.
 
@@ -30,6 +32,9 @@ block) pairs: the work of the bundle design, 1,024 lanes per pair).
 :func:`intersect_epilogue` makes of them what ``pallas_intersect`` returns.
 :func:`needed_pairs` counts the work the closest hits need: the (lane,
 block) pairs no walk can skip, which bound the kernels' time.
+:func:`lane_admits` is the kernels' per-lane cull in plain torch: a lane
+skips a block only when no row of it can hold a hit below its best t
+(ops/tables.py ``padded_boxes``), so the cull changes no result.
 
 The row test is the JAX kernel's as XLA compiles its CPU interpret mode:
 a product feeding a sum is one fused multiply-add (``_dot``), the
@@ -234,11 +239,69 @@ def needed_pairs(scene, order, rays, out_t, tested, *, members: int) -> int:
     return int(total)
 
 
-def walk_cuda(scene, counts, order, dists, rays, *, hbm: bool):
+_FLAT = 2.0 ** -30     # an axis with |d_a| <= |d|inf * this is flat
+_D_MIN = 2.0 ** -60    # below this |d|inf a lane tests every block
+_F32_MAX = float(np.finfo(np.float32).max)
+
+
+def lane_admits(box, o, d, t_min, best_t):
+    """Whether a lane must test a block for a hit in (t_min, best_t): the
+    exact cull of K4 and K5 (ops/cuda/rows.cuh lane_admits),
+    operation for operation. ``box``: rows of the scene's ``pbox`` (lo.xyz,
+    hi.xyz, kappa, kind) broadcast against the lanes' vec3s ``o``, ``d``
+    and ``t_min``, ``best_t``. Always for an unbounded block (kind 1),
+    never for an empty one (-1) or when no hit can be kept (t_min >=
+    best_t); else when the block's padded box grown by kappa (T D + omag)
+    lies in the lane's slab with an entry below best t and an exit above
+    t_min (D = |d|inf, omag = |o|inf; T bounds |t| of a hit: the larger
+    of |t_min| and |best_t|, or of |t_min| and the box's farthest face
+    along the axis of D over D, grown by kappa omag and 2%), or when the
+    lane's ray is not finite, D < 2^-60 or T is not finite."""
+    col = lambda c: box[..., c]
+    kind = col(7)
+    ad = [torch.abs(c) for c in d]
+    D = torch.maximum(torch.maximum(ad[0], ad[1]), ad[2])
+    fin = (torch.isfinite(o[0]) & torch.isfinite(o[1]) & torch.isfinite(o[2])
+           & torch.isfinite(d[0]) & torch.isfinite(d[1])
+           & torch.isfinite(d[2]))
+    omag = o_mag(o)
+    first = (ad[0] >= ad[1]) & (ad[0] >= ad[2])
+    pick = lambda v: torch.where(first, v[0],
+                                 torch.where(ad[1] >= ad[2], v[1], v[2]))
+    lo_x, hi_x, o_x = pick((col(0), col(1), col(2))), pick((col(3), col(4),
+                                                            col(5))), pick(o)
+    far = torch.maximum(torch.abs(lo_x - o_x), torch.abs(hi_x - o_x))
+    at = torch.abs(t_min)
+    T = torch.minimum(torch.maximum(at, torch.abs(best_t)),
+                      torch.maximum(at, (far + col(6) * omag) * 1.02 / D))
+    cull = fin & (D >= _D_MIN) & (T <= _F32_MAX)
+    m = col(6) * (T * D + omag)
+    tin = torch.full_like(m, -INF)
+    tout = torch.full_like(m, INF)
+    inside = torch.ones_like(m, dtype=torch.bool)
+    lim = D * _FLAT
+    for a in range(3):
+        lo, hi = col(a) - m, col(a + 3) + m
+        flat = ad[a] <= lim
+        inv = 1.0 / torch.where(flat, 1.0, d[a])
+        t1, t2 = (lo - o[a]) * inv, (hi - o[a]) * inv
+        tin = torch.where(flat, tin, torch.maximum(tin, torch.minimum(t1, t2)))
+        tout = torch.where(flat, tout,
+                           torch.minimum(tout, torch.maximum(t1, t2)))
+        inside = inside & (~flat | ((o[a] >= lo) & (o[a] <= hi)))
+    slab = inside & (tin <= tout) & (tin < best_t) & (tout > t_min)
+    return ((t_min < best_t) & (kind >= 0)
+            & ((kind > 0) | ~cull | slab))
+
+
+def walk_cuda(scene, counts, order, dists, rays, *, hbm: bool,
+              counters=None):
     """The CUDA kernel K5 (K6 with ``hbm``): the plain version's results,
-    and a sixth output [nrb] i32, the blocks each bundle tested past its
-    stop (K6 tests a wave of chunks of its list at once,
-    ops/cuda/intersect.cu; 0 for K5)."""
+    a sixth output [nrb] i32, the blocks each bundle tested past its stop
+    (K6 tests a wave of chunks of its list at once, ops/cuda/intersect.cu;
+    0 for K5), and a seventh [nrb] i32, the (lane, block) pairs its lanes
+    tested (K5's culled walk; K6: 1,024 per block). ``counters``
+    ([K45_COUNTERS] int64, zeroed): a counting launch of K5."""
     from .cuda.build import launch_intersect
 
     Rp = rays.shape[1]
@@ -249,9 +312,11 @@ def walk_cuda(scene, counts, order, dists, rays, *, hbm: bool):
     out_m = torch.empty((8, Rp), dtype=torch.float32, device=dev)
     pairs = torch.empty(counts.shape[0], dtype=torch.int32, device=dev)
     spec = torch.empty(counts.shape[0], dtype=torch.int32, device=dev)
+    lane_pairs = torch.empty(counts.shape[0], dtype=torch.int32, device=dev)
     launch_intersect(scene, counts, order, dists, rays, out_t, out_i, out_n,
-                     out_m, pairs, spec, hbm=hbm)
-    return out_t, out_i, out_n, out_m, pairs, spec
+                     out_m, pairs, spec, lane_pairs, hbm=hbm,
+                     counters=counters)
+    return out_t, out_i, out_n, out_m, pairs, spec, lane_pairs
 
 
 def dense_walk_cuda(scene, counts, order, dists, rays):

@@ -22,8 +22,9 @@ and reports whether anything lies between.
 
 Two implementations with one contract:
 
-* the CUDA kernel (``ops/cuda/shadow.cu``), one thread block per bundle,
-  for CUDA tensors;
+* the CUDA kernel (``ops/cuda/shadow.cu``), each bundle a cluster of
+  CTAs whose lanes test only the blocks they may hit (the exact cull of
+  ``intersect_kernel.lane_admits``), for CUDA tensors;
 * :func:`shadow_trace_ref`, plain torch over all bundles at once, for CPU
   tensors and for checking the kernel on the card.
 
@@ -216,9 +217,14 @@ def shadow_trace_ref(scene, counts, order, dists, rays, *, light,
             torch.cat([i for _, i in outs], dim=1))
 
 
-def shadow_trace_cuda(scene, counts, order, dists, rays, *, light):
+def shadow_trace_cuda(scene, counts, order, dists, rays, *, light,
+                      pairs=None, counters=None):
     """The CUDA kernel (same arguments and results as
-    :func:`shadow_trace_ref`); asynchronous on the current stream."""
+    :func:`shadow_trace_ref`); asynchronous on the current stream.
+    ``pairs`` ([4, nrb] i32, zeroed) gains per bundle the blocks of its
+    primary walk and of its occlusion union and the (lane, block) pairs
+    each walk's lanes tested; ``counters`` ([K45_COUNTERS] int64, zeroed)
+    makes it a counting launch."""
     global launches
     from .cuda.build import launch_shadow
 
@@ -226,7 +232,8 @@ def shadow_trace_cuda(scene, counts, order, dists, rays, *, light):
     out_f = torch.empty((4, Rp), dtype=torch.float32, device=rays.device)
     out_i = torch.empty((4, Rp), dtype=torch.int32, device=rays.device)
     launch_shadow(scene, counts, order, dists, rays, out_f, out_i,
-                  light=tuple(float(np.float32(v)) for v in light))
+                  light=tuple(float(np.float32(v)) for v in light),
+                  pairs=pairs, counters=counters)
     launches += 1
     return out_f, out_i
 

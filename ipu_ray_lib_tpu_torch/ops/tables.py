@@ -26,6 +26,11 @@ Layouts (f32 unless noted):
   sgaabb [ceil(ns/SB), 8]  super-group AABBs (groups of SB supers; the
                       tail group pads with inverted boxes)
   tri_geom/tri_prim [nb*TB] i32, padding -> -1
+  pbox   [nb, 8]      (the port's own, from ``p`` and ``baabb``:
+                      :func:`padded_boxes`) lo.xyz, hi.xyz of the region
+                      a row of the block can accept a hit in, the lanes'
+                      rounding coefficient kappa, and the block's kind:
+                      0 bounded, 1 unbounded, -1 empty
 """
 
 from __future__ import annotations
@@ -284,3 +289,122 @@ def build_blocked_tables(tri_v: np.ndarray, verts: np.ndarray,
         sgaabb=group_aabb(sg_lo, sg_hi, SB),
         tri_geom=np.pad(tri_geom, (0, Tp - T), constant_values=-1),
         tri_prim=np.pad(tri_prim, (0, Tp - T), constant_values=-1))
+
+
+# Rounding of the row test (rows.cuh row_chain / test_rows), f32 with
+# unit roundoff U: a dot of 3 contracted as XLA does it is within GAMMA3
+# of the exact dot (relative to the sum of |products|); t's product with
+# dn is within EPS_T of c0 - on, because 1/bf16(dn) is off by at most
+# 2^-8 (+U) and the Newton step squares that (1.54e-5) before 4 roundings.
+_U = 2.0 ** -24
+_GAMMA3 = 3 * _U / (1 - 3 * _U)
+_EPS_T = 1.6e-5
+_EPS_MAX = float(np.float32(1e-3))  # the clamp of an accepted row's eps
+# Rows whose lane coefficient exceeds this are unbounded: a box padded by
+# more than 1% of the ray's reach would admit nearly every lane anyway.
+KAPPA_MAX = 1e-2
+# Rows processed at a time (f64 temporaries of [n, 3, 3]).
+_CHUNK = 1 << 20
+
+
+def _outward(lo: torch.Tensor, hi: torch.Tensor):
+    """f64 bounds rounded outward to f32."""
+    lo32, hi32 = lo.float(), hi.float()
+    ninf = torch.tensor(-np.inf, dtype=torch.float32, device=lo.device)
+    lo32 = torch.where(lo32.double() > lo, torch.nextafter(lo32, ninf), lo32)
+    hi32 = torch.where(hi32.double() < hi, torch.nextafter(hi32, -ninf), hi32)
+    return lo32, hi32
+
+
+def _row_regions(p: torch.Tensor):
+    """Per row of ``p`` [n, 16] f32: (kind [n] i8: -1 never accepted, 0
+    bounded, 1 unbounded; lo [n, 3], hi [n, 3] f64 of the region a bounded
+    row accepts hits in, host rounding included; kappa [n] f64, the lane
+    coefficient).
+
+    A row accepts (t, b1, b2) only with b1, b2 >= -eps, b1 + b2 <= 1 + eps
+    and eps <= 1e-3 (rows.cuh). Its rows n, g1, g2 (as f32 values, exact)
+    form A; the point P = o + t d of a hit then satisfies
+    A P = [c0 + pi, c1 + beta1, c2 + beta2] with the exact barycentrics
+    beta within delta_k of the computed ones and the plane residual pi:
+      delta_k <= GAMMA3 |g_k|_1 (T D + omag) + U (2.0042 + |c_k|),
+      |pi|    <= |n|_1 ((GAMMA3 + EPS_T) omag + GAMMA3 T D) + EPS_T |c0|
+    (T = max(|t_min|, |best t|) bounds |t|, D = |d|_inf, omag = |o|_inf;
+    t's rounding enters pi only, the dots' enter both). So P lies in the
+    triangle widened to E = eps + 2 max delta_k + 2.02 U in barycentric
+    units, moved by pi w along w = A^-1 e0. With u1, u2 = A^-1 e1, A^-1
+    e2 (the edges), a corner moves by at most 2 dE (|u1_a| + |u2_a|) on
+    axis a when E grows by dE. The host box takes the constant parts,
+    twice over; kappa takes the lane parts, twice over, plus the slab's
+    own rounding (4 U T D), so that the lane's box padded by
+    kappa (T D + omag) holds P with room for its f32 slab test. The f64
+    arithmetic here is covered by a relative 1e-12."""
+    f = p.double()
+    c, n, g1, g2 = f[:, 0:3], f[:, 3:6], f[:, 6:9], f[:, 9:12]
+    never = (p[:, 3:6] == 0.0).all(dim=1)  # dn = 0: t is NaN, never kept
+    cross = lambda a, b: torch.linalg.cross(a, b, dim=1)
+    det = (n * cross(g1, g2)).sum(dim=1, keepdim=True)
+    w, u1, u2 = cross(g1, g2) / det, cross(g2, n) / det, cross(n, g1) / det
+    q0 = c[:, 0:1] * w + c[:, 1:2] * u1 + c[:, 2:3] * u2
+    dc = 1.001 * _U * (2.0042 + c[:, 1:3].abs()).amax(dim=1)
+    E = (_EPS_MAX + 2.0 * (2.0 * dc + 2.02 * _U))[:, None]
+    corners = torch.stack([q0 - E * (u1 + u2), q0 + (1 + 2 * E) * u1 - E * u2,
+                           q0 - E * u1 + (1 + 2 * E) * u2])      # [3, n, 3]
+    lo, hi = corners.amin(dim=0), corners.amax(dim=0)
+    n1 = n.abs().sum(dim=1)
+    gmax = torch.maximum(g1.abs().sum(dim=1), g2.abs().sum(dim=1))
+    pad = (2.0 * w.abs() * _EPS_T * c[:, 0:1].abs()
+           + 1e-12 * (lo.abs() + hi.abs() + 1.0))
+    lo, hi = lo - pad, hi + pad
+    kappa = (2.0 * (4.0 * _GAMMA3 * gmax[:, None] * (u1.abs() + u2.abs())
+                    + w.abs() * n1[:, None]
+                    * (3.0 * _GAMMA3 + _EPS_T + _GAMMA3 * _EPS_T)
+                    + 4.0 * _U) + 1e-6).amax(dim=1)
+    ok = (torch.isfinite(f[:, 0:12]).all(dim=1) & (det[:, 0] != 0.0)
+          & torch.isfinite(lo).all(dim=1) & torch.isfinite(hi).all(dim=1)
+          & torch.isfinite(kappa) & (kappa <= KAPPA_MAX) & (n1 >= 0.5))
+    kind = torch.where(never, -1, torch.where(ok, 0, 1)).to(torch.int8)
+    return kind, lo, hi, kappa
+
+
+def padded_boxes(p: torch.Tensor, baabb: torch.Tensor) -> torch.Tensor:
+    """The blocks' padded boxes [nb, 8] f32 (module docstring, ``pbox``),
+    computed on the tables' device: the union of the block's AABB and its
+    bounded rows' acceptance regions (:func:`_row_regions`), widened by
+    2 U of its coordinates (the lane's f32 rounding of lo - m and hi + m)
+    and rounded outward to f32; kappa, the largest of its bounded rows',
+    rounded up; kind 1 when any row can accept a hit outside a bounded
+    region (a singular or ill-conditioned [n; g1; g2], non-finite
+    coefficients), -1 when no row can accept one and the box is empty,
+    else 0. A lane that may hit a bounded block's row at t < best t finds
+    the box in its slab padded by kappa (T D + omag) with an entry below
+    best t (rows.cuh lane_admits)."""
+    nb = baabb.shape[0]
+    rows = p.reshape(nb, TB, 16)
+    lo, hi = baabb[:, 0:3].double(), baabb[:, 3:6].double()
+    kappa = torch.zeros(nb, dtype=torch.float64, device=p.device)
+    unbounded = torch.zeros(nb, dtype=torch.bool, device=p.device)
+    step = max(1, _CHUNK // TB)
+    for b0 in range(0, nb, step):
+        blk = rows[b0:b0 + step]
+        m = blk.shape[0]
+        kind, rlo, rhi, rk = _row_regions(blk.reshape(m * TB, 16))
+        kind, bounded = kind.reshape(m, TB), (kind == 0).reshape(m, TB, 1)
+        rlo = torch.where(bounded, rlo.reshape(m, TB, 3), np.inf).amin(dim=1)
+        rhi = torch.where(bounded, rhi.reshape(m, TB, 3), -np.inf).amax(dim=1)
+        lo[b0:b0 + m] = torch.minimum(lo[b0:b0 + m], rlo)
+        hi[b0:b0 + m] = torch.maximum(hi[b0:b0 + m], rhi)
+        kappa[b0:b0 + m] = torch.where(bounded[..., 0], rk.reshape(m, TB),
+                                       0.0).amax(dim=1)
+        unbounded[b0:b0 + m] = (kind == 1).any(dim=1)
+    empty = ~(lo <= hi).all(dim=1)
+    mag = torch.maximum(lo.abs(), hi.abs())
+    mag = torch.where(torch.isfinite(mag), mag, 0.0)
+    lo32, hi32 = _outward(lo - 2 * _U * mag, hi + 2 * _U * mag)
+    k32 = kappa.float()
+    k32 = torch.where(k32.double() < kappa,
+                      torch.nextafter(k32, torch.full_like(k32, np.inf)), k32)
+    kind = torch.where(unbounded, 1.0, torch.where(empty, -1.0, 0.0))
+    return torch.cat([torch.where(empty[:, None], np.inf, lo32),
+                      torch.where(empty[:, None], -np.inf, hi32),
+                      k32[:, None], kind[:, None].float()], dim=1).contiguous()

@@ -24,7 +24,8 @@ import numpy as np
 import torch
 
 from ..bvh.builder import INVALID_GEOM_ID, build_bvh
-from ..ops.tables import HBM_SPLIT_MIN_TRIS, SB, TB, build_blocked_tables
+from ..ops.tables import (HBM_SPLIT_MIN_TRIS, SB, TB, build_blocked_tables,
+                          padded_boxes)
 from ..runtime.device import cuda_device
 from .types import CropWindow, SceneDescription
 
@@ -95,6 +96,10 @@ class TorchScene:
     # padded rows, or ``payload_split=True``): the HBM-mode closest-hit
     # kernel then rounds the winner's barycentrics to bf16 too.
     payload_split: bool = False
+    # The blocks' padded boxes, lane coefficients and kinds, from ``p``
+    # (ops/tables.py padded_boxes): the per-lane cull of K4 and K5, which
+    # walk VMEM-mode scenes. None in HBM mode (K3 and K6 do not read it).
+    pbox: torch.Tensor | None = None  # [nb, 8] f32
 
     @property
     def device(self) -> torch.device:
@@ -189,13 +194,17 @@ _TABLES = ("p", "nrm", "baabb", "saabb", "sgaabb", "tri_geom", "tri_prim",
 _CARRIED = _TABLES + ("spheres", "discs")
 
 
-def _from_leaves(leaves: dict, device,
-                 payload_split: bool | None = None) -> TorchScene:
+def _from_leaves(leaves: dict, device, payload_split: bool | None = None,
+                 vmem_mode: bool | None = None) -> TorchScene:
     """Build a TorchScene from numpy leaves named as in ``_CARRIED``; the
-    sphere/disc tables are derived here. ``payload_split`` None: the
-    leaves' own ``payload_split`` flag (set by :func:`compile_scene`)."""
+    sphere/disc tables are derived here, and the padded boxes (``pbox``)
+    for a VMEM-mode scene. ``payload_split`` and ``vmem_mode`` None: the
+    leaves' own flags (set by :func:`compile_scene`; VMEM mode when
+    absent)."""
     if payload_split is None:
         payload_split = bool(leaves.get("payload_split", False))
+    if vmem_mode is None:
+        vmem_mode = bool(leaves.get("vmem_mode", True))
     ap, apay = analytic_tables(
         leaves["spheres"], leaves["discs"], leaves["sphere_geom"],
         leaves["disc_geom"], leaves["mat_id"], leaves["mat_albedo"],
@@ -204,6 +213,8 @@ def _from_leaves(leaves: dict, device,
     t = {k: torch.from_numpy(np.array(leaves[k])).to(device)
          for k in _TABLES}
     return TorchScene(ap=torch.from_numpy(ap).to(device),
+                      pbox=(padded_boxes(t["p"], t["baabb"]) if vmem_mode
+                            else None),
                       apay=torch.from_numpy(apay).to(device),
                       payload_split=bool(payload_split), **t)
 
@@ -216,8 +227,10 @@ def from_jax_arrays(leaves: dict[str, np.ndarray], device) -> TorchScene:
     ``{**arrays._asdict(), **arrays.blocked._asdict()}`` after
     ``np.asarray``). Only the leaves the megakernel path reads are kept.
     Above its VMEM ceiling the JAX package builds no ``p``/``nrm``; they
-    are then unpacked from its ``pn8`` (and ``pay8``) super slabs."""
+    are then unpacked from its ``pn8`` (and ``pay8``) super slabs, and the
+    scene is an HBM-mode scene (no ``pbox``)."""
     leaves = dict(leaves)
+    vmem_mode = leaves.get("p") is not None
     if (leaves.get("p") is None and leaves.get("nrm") is None
             and leaves.get("pn8") is not None):
         leaves["p"], leaves["nrm"] = unpack_super_slabs(
@@ -226,7 +239,7 @@ def from_jax_arrays(leaves: dict[str, np.ndarray], device) -> TorchScene:
     if missing:
         raise KeyError(f"from_jax_arrays: missing leaves {missing}")
     return _from_leaves({k: np.asarray(leaves[k]) for k in _CARRIED}, device,
-                        leaves.get("pay8") is not None)
+                        leaves.get("pay8") is not None, vmem_mode)
 
 
 def unpack_super_slabs(pn8: np.ndarray, pay8=None):
@@ -319,8 +332,8 @@ def compile_scene(
     """The host half of :func:`build_scene` (same arguments): the scene's
     numpy leaves, named as the JAX package's (the blocked tables,
     including the ``baabb32`` leaf no ported kernel reads yet, and the
-    sphere, disc and material arrays), with the ``payload_split`` flag as
-    resolved, and its params."""
+    sphere, disc and material arrays), with the ``payload_split`` and
+    ``vmem_mode`` flags as resolved, and its params."""
     scene.validate()
 
     tri_list, vert_list, norm_list, mesh_first_tri = [], [], [], []
@@ -416,6 +429,7 @@ def compile_scene(
     leaves["payload_split"] = bool(
         payload_split if payload_split is not None
         else blocked.p.shape[0] > HBM_SPLIT_MIN_TRIS)
+    leaves["vmem_mode"] = intersector == "pallas"
     leaves.update(
         spheres=_pad_rows(scene.spheres), discs=_pad_rows(scene.discs),
         mat_id=_pad_rows(mat_id), mat_albedo=_pad_rows(mat_albedo),
