@@ -22,7 +22,11 @@ version:
   kernel K6 (``ops/cuda/intersect.cu``), twice per chunk;
 * the path trace under an environment light that is not a NIF (path B):
   the XLA-loop integrator on the Cornell box with the monkey at 1440x1440
-  spp 4 (the closest-hit kernel K5 once per iteration).
+  spp 4 (the closest-hit kernel K5 once per iteration);
+* multi-device rendering on a mesh of 3 shards of the card
+  (``parallel/mesh.py``: ``render_streaming_sharded`` through K1,
+  ``render_shadow_sharded`` through K4), the progressive path trace, the
+  f16 readback, and two processes sharing the card.
 
 Run from the repository root:
 
@@ -160,7 +164,29 @@ Phases (any failed check raises, so the exit code is non-zero):
      alone over one frame's calls (CUDA events), its pairs walked and
      needed; K5 against its plain version on the frame's own launches of
      the first iteration that walks a block and of a mid-frame iteration;
-     then the grid-512 scene at 256^2 spp 8 (K6).
+     then the grid-512 scene at 256^2 spp 8 (K6);
+  12. sharded and progressive, on a mesh of 3 shards of the card: the
+     Cornell + monkey at 64x64 spp 4, ``render_streaming_sharded`` against
+     its plain route bit for bit, image and ``done`` (``chunk_slots=256``:
+     K1, the plain route the same render with the megakernel's entry
+     replaced by ``megakernel_path_trace_ref``; ``chunk_slots=200``: the
+     XLA loop with K5, against the plain walks); spheres + NIF 48x32 spp 2
+     on 2 shards (``done`` bit for bit, the image at the env tolerance);
+     the main path's last shard (1440^2 on 3 shards: R = 131072, J = 6,
+     n_valid 500,736) at spp 1 with the plan's rows, seed and n_valid, K1
+     against ``megakernel_path_trace_ref`` bit for bit; the main path at
+     1440^2 spp 64 on the 3 shards (done, finite, and as a sanity check
+     the mean within SHARDED_MEAN_REL of the one-device frame timed in
+     turns with it); ``render_shadow_sharded`` of the 1440^2 raster-order
+     rays against one ``shadow_trace`` call, every field bit for bit;
+     ``render(mode="path-trace", progress_callback=...)`` at 64x64 spp 20,
+     each frame against the plain route's, and at 1440^2 spp 64; the f16
+     readback of the path trace and of the shadow AOVs against the f32
+     ones rounded (``_prep_f``), with the copy to the host of a stand-in
+     tensor of the image's shape in f32 and in f16 timed; two gloo
+     processes with 2 shards of the card each
+     (tests/torch_multihost_worker.py) against one process with 4, bit for
+     bit.
 Before the last two lines: a JSON object with each kernel's launches on
 its main path, its largest deviation from its plain version, its times
 and its bound (the least time the card could take for the same work:
@@ -332,6 +358,368 @@ def k45_counting(launch) -> dict:
     tot = max(sum(cyc.values()), 1)
     cnt["split"] = {k[4:]: round(v / tot, 4) for k, v in cyc.items()}
     return cnt
+
+
+# Phase 12, the sharded and progressive paths: a mesh of SHARDS shards of
+# one card; the two-rank check at TWO_RANK_SIZE^2 spp TWO_RANK_SPP.
+SHARDS = 3
+SHARDED_MEAN_REL = 0.02  # the sharded frame's mean against one device's
+TWO_RANK_SIZE, TWO_RANK_SPP = 256, 4
+RANK_TIMEOUT = 300
+
+
+def bits_equal(a, b) -> bool:
+    """Bit for bit (+0 and -0 apart; NaN equal to its own bits)."""
+    a, b = np.asarray(a), np.asarray(b)
+    if a.shape != b.shape or a.dtype != b.dtype:
+        return False
+    if a.dtype.kind == "f":
+        a, b = a.view(f"u{a.itemsize}"), b.view(f"u{b.itemsize}")
+    return bool(np.array_equal(a, b))
+
+
+def sharded_and_progressive(dev, scene, params, env, plain_walks,
+                            full=FULL, spp=SPP) -> dict:
+    """Phase 12: the sharded path trace (``render_streaming_sharded``) and
+    shadow trace (``render_shadow_sharded``) on a mesh of SHARDS shards of
+    ``dev``, the progressive path trace and the f16 readback, each
+    kernel route against its plain route; ``scene``/``params``: the
+    Cornell + monkey frame at full^2 spp. Raises on any failed check.
+    Returns the numbers it logged."""
+    import socket
+    import subprocess
+    import tempfile
+
+    from ipu_ray_lib_tpu_torch.ops import env as envk
+    from ipu_ray_lib_tpu_torch.ops import intersect_kernel as ik
+    from ipu_ray_lib_tpu_torch.ops import megakernel as mk
+    from ipu_ray_lib_tpu_torch.ops import shadow as sh
+    from ipu_ray_lib_tpu_torch.ops.camera import generate_camera_rays
+    from ipu_ray_lib_tpu_torch.parallel import (make_ray_mesh,
+                                                render_shadow_sharded,
+                                                render_streaming_sharded,
+                                                shard_plan, shard_seeds)
+    from ipu_ray_lib_tpu_torch.render import streaming
+    from ipu_ray_lib_tpu_torch.render.renderer import _prep_f, render
+    from ipu_ray_lib_tpu_torch.render.shadow import shadow_trace
+    from ipu_ray_lib_tpu_torch.render.streaming import (render_streaming,
+                                                        trace_batch,
+                                                        uses_megakernel)
+    from ipu_ray_lib_tpu_torch.runtime.device import gpu_identity
+    from ipu_ray_lib_tpu_torch.scene.build import build_scene
+    from ipu_ray_lib_tpu_torch.scene.builtin import (make_cornell_box_scene,
+                                                     make_primitive_scene)
+
+    monkey = os.path.join(ROOT, "assets", "monkey_bust.glb")
+    t_phase = time.perf_counter()
+    rmesh = make_ray_mesh([dev] * SHARDS)
+    out = {"launches": {}}
+
+    @contextlib.contextmanager
+    def plain_megakernel():
+        """The plain route of every path trace that reaches the megakernel:
+        its entry replaced by ``megakernel_path_trace_ref`` on the same
+        device (for replays only)."""
+        saved = streaming.megakernel_path_trace
+        streaming.megakernel_path_trace = mk.megakernel_path_trace_ref
+        try:
+            yield
+        finally:
+            streaming.megakernel_path_trace = saved
+
+    # -- two processes (gloo), 2 shards of the card each, against one
+    # process with 4 shards: started first, so that their start-up
+    # overlaps the plain routes below, and collected before anything is
+    # timed --
+    with socket.socket() as sk:
+        sk.bind(("127.0.0.1", 0))
+        port = sk.getsockname()[1]
+    worker = os.path.join(ROOT, "tests", "torch_multihost_worker.py")
+    tmp = tempfile.TemporaryDirectory()
+    outs = [os.path.join(tmp.name, f"rank{r}.npz") for r in range(2)]
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen(
+        [sys.executable, worker, str(port), str(r), "2", outs[r],
+         "--device", str(dev), "--shards", "2", "--size",
+         str(TWO_RANK_SIZE), "--spp", str(TWO_RANK_SPP), "--monkey",
+         "--chunk-slots", str(1 << 17)],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT)
+        for r in range(2)]
+    try:
+        # -- the kernel route against the plain route, 64x64 spp 4 on SHARDS
+        # shards: the megakernel (K1; R = 256, J = 6) and the XLA loop (K5;
+        # R = 200 does not tile into 256) --
+        ms, mp = build_scene(make_cornell_box_scene(monkey, box_only=False),
+                             device=dev, image_width=64, image_height=64,
+                             samples_per_pixel=4)
+        for chunk in (256, 200):
+            plan = shard_plan(mp, SHARDS, chunk)
+            mega = uses_megakernel(plan.slots, None)
+            if mega != (chunk == 256):
+                raise AssertionError(f"chunk_slots {chunk} took the wrong "
+                                     "route")
+            mk.reset_launches()
+            ik.reset_launches()
+            (krgb, kdone), t_k = timed(lambda: render_streaming_sharded(
+                ms, mp, rmesh, chunk_slots=chunk))
+            kl = {"K1": mk.launches, "K5": ik.launches}
+            with plain_megakernel() if mega else plain_walks():
+                (prgb, pdone), t_p = timed(lambda: render_streaming_sharded(
+                    ms, mp, rmesh, chunk_slots=chunk))
+            same = bits_equal(krgb, prgb)
+            name = f"sharded 64x64 spp 4, {SHARDS} shards, chunk_slots {chunk}"
+            log(f"[{name}] R={plan.slots} J={plan.j_per_slot} n_valid "
+                f"{plan.n_valid}, {'K1' if mega else 'XLA loop + K5'}: kernel "
+                f"route {t_k:.3f} s, plain route {t_p:.3f} s; bit for bit "
+                f"{same}; done {kdone}/{pdone}; launches {kl}")
+            routed = (kl == {"K1": SHARDS, "K5": 0} if mega
+                      else kl["K1"] == 0 and kl["K5"] > 0)
+            if (not same or kdone != pdone or kdone != 64 * 64 * 4
+                    or not routed):
+                raise AssertionError(f"{name}: the kernel route disagrees "
+                                     "with the plain route")
+            out["launches"][f"chunk_slots {chunk}"] = kl
+
+        # -- spheres + NIF 48x32 spp 2 on 2 shards (K1 record mode, K2, bank):
+        # done bit for bit, the image at the env tolerance --
+        ns, np_ = build_scene(make_primitive_scene(), device=dev,
+                              image_width=48, image_height=32,
+                              samples_per_pixel=2)
+        for m in (mk, envk):
+            m.reset_launches()
+        (krgb, kdone), t_k = timed(lambda: render_streaming_sharded(
+            ns, np_, make_ray_mesh([dev] * 2), env=env))
+        kl = {"K1 record": mk.launches, "env MLP": envk.launches,
+              "bank": mk.bank_launches}
+        with plain_megakernel():
+            (prgb, pdone), t_p = timed(lambda: render_streaming_sharded(
+                ns, np_, make_ray_mesh([dev] * 2), env=env))
+        dev_ = envk.deviation(krgb, prgb)
+        out_of = envk.within_high_frequency(dev_)
+        log(f"[sharded spheres+NIF 48x32 spp 2, 2 shards] kernel route "
+            f"{t_k:.3f} s, plain route {t_p:.3f} s; done {kdone}/{pdone}; "
+            f"within 1e-5 {dev_['within_1e5']:.6f}, within 1e-2 "
+            f"{dev_['within_1e2']:.6f}, max rel {dev_['max_rel']:.4g}; "
+            f"launches {kl}")
+        if (out_of or kdone != pdone or kdone != 48 * 32 * 2
+                or set(kl.values()) != {2}):
+            raise AssertionError(f"sharded NIF render: {out_of}, done "
+                                 f"{kdone} vs {pdone}, launches {kl}")
+        out["launches"]["spheres+NIF"] = kl
+
+        # -- the main path's last shard (full^2 on SHARDS shards: R = 131072,
+        # J = 6, a partial pool) at spp 1 with the plan's rows, seed and
+        # n_valid: K1 against its plain version bit for bit --
+        plan = shard_plan(params, SHARDS)
+        last = SHARDS - 1
+        lrows = torch.from_numpy(plan.rows[last]).to(dev)
+        lcols = torch.from_numpy(plan.cols[last]).to(dev)
+        lseed = int(shard_seeds(params.rng_seed, SHARDS, 0)[last])
+
+        def last_shard():
+            flat, d = trace_batch(scene, lrows, lcols, lseed,
+                                  plan.n_valid[last], params=params,
+                                  slots=plan.slots,
+                                  j_per_slot=plan.j_per_slot, spp=1)
+            return flat.cpu().numpy(), int(d)
+
+        (kflat, kdone), t_k = timed(last_shard)
+        with plain_megakernel():
+            (pflat, pdone), t_p = timed(last_shard)
+        same = bits_equal(kflat, pflat)
+        out["last_shard"] = dict(n_valid=plan.n_valid[last], done=kdone,
+                                 kernel_s=t_k, plain_s=t_p)
+        log(f"[sharded main path, last shard] {full}^2 on {SHARDS} shards, "
+            f"shard {last}: R={plan.slots} J={plan.j_per_slot} n_valid "
+            f"{plan.n_valid[last]} seed {lseed:#x} spp 1: K1 {t_k:.3f} s, "
+            f"plain {t_p:.3f} s; bit for bit {same}; done {kdone}/{pdone}")
+        if not same or kdone != pdone or kdone != plan.n_valid[last]:
+            raise AssertionError("the main path's last shard: K1 disagrees "
+                                 "with its plain version")
+
+        logs = [p.communicate(timeout=RANK_TIMEOUT)[0].decode()
+                for p in procs]
+        t_ranks = time.perf_counter() - t0
+        for p, lg in zip(procs, logs):
+            if p.returncode != 0:
+                raise AssertionError(f"a rank failed ({p.returncode}):\n"
+                                     f"{lg[-3000:]}")
+        s2, p2 = build_scene(make_cornell_box_scene(monkey, box_only=False),
+                             device=dev, image_width=TWO_RANK_SIZE,
+                             image_height=TWO_RANK_SIZE,
+                             samples_per_pixel=TWO_RANK_SPP)
+        one4, one4_done = render_streaming_sharded(s2, p2,
+                                                   make_ray_mesh([dev] * 4))
+        ranks = [np.load(o) for o in outs]
+        same = [bits_equal(r["rgb"], one4) for r in ranks]
+        dones = [int(r["done"]) for r in ranks]
+        out["two_ranks_s"] = t_ranks
+        log(f"[two ranks] {TWO_RANK_SIZE}^2 spp {TWO_RANK_SPP}, 2 processes "
+            f"x 2 shards of {dev}: collected {t_ranks:.1f} s after their "
+            f"start (they ran beside the checks above); each rank's image bit "
+            f"for bit the one-process "
+            f"4-shard render's {same}; done {dones} (one process "
+            f"{one4_done})")
+        if not all(same) or dones != [one4_done] * 2:
+            raise AssertionError("two ranks disagree with one process")
+
+        # -- the sharded main path: Cornell + monkey full^2 spp on SHARDS
+        # shards (R = 131072, J = 6), timed in turns with one device --
+        log(f"[sharded main path] {full}^2 spp {spp} on {SHARDS} shards of "
+            f"{dev}: R={plan.slots} J={plan.j_per_slot} n_valid "
+            f"{plan.n_valid}")
+        mk.reset_launches()
+        (srgb, sdone), t_warm = timed(lambda: render_streaming_sharded(
+            scene, params, rmesh))
+        k1_sh = mk.launches
+        t_sh, t_one = [], []
+        for _ in range(3):
+            (one, one_done), t = timed(lambda: render_streaming(scene, params))
+            t_one.append(t)
+            (srgb, sdone), t = timed(lambda: render_streaming_sharded(
+                scene, params, rmesh))
+            t_sh.append(t)
+        paths = full * full * spp
+        smean, omean = float(srgb.mean()), float(one.mean())
+        out["main"] = dict(
+            frame_s=t_sh, one_device_s=t_one, paths_per_s=paths / min(t_sh),
+            one_device_paths_per_s=paths / min(t_one), mean=smean,
+            one_device_mean=omean, slots=plan.slots,
+            j_per_slot=plan.j_per_slot, k1_launches=k1_sh)
+        log(f"[sharded main path] warm-up {t_warm:.3f} s; frames "
+            f"{', '.join(f'{t:.3f}' for t in t_sh)} s, best "
+            f"{paths / min(t_sh) / 1e6:.2f} M paths/s; one device in turns "
+            f"{', '.join(f'{t:.3f}' for t in t_one)} s, best "
+            f"{paths / min(t_one) / 1e6:.2f} M paths/s; mean {smean:.6f} (one "
+            f"device {omean:.6f}); done {sdone}; K1 launches {k1_sh}; "
+            f"{gpu_identity()}")
+        if (sdone != paths or one_done != paths
+                or srgb.shape != (full, full, 3)
+                or not np.isfinite(srgb).all()
+                or abs(smean - omean) > SHARDED_MEAN_REL * omean
+                or k1_sh != SHARDS):
+            raise AssertionError("the sharded main path failed its checks")
+
+        # -- the sharded shadow trace of the full^2 raster-order rays against
+        # one shadow_trace call on all of them (the shards' bundles of 1,024
+        # rays fall where one call's do when full^2 / SHARDS is a multiple) --
+        rr, cc = np.meshgrid(np.arange(full), np.arange(full), indexing="ij")
+        rows = rr.ravel().astype(np.float32)
+        cols = cc.ravel().astype(np.float32)
+        if (full * full // SHARDS) % 1024:
+            raise AssertionError("the shards' bundles would not align")
+        sh.reset_launches()
+        res_s, t_w = timed(lambda: render_shadow_sharded(scene, params, rows,
+                                                         cols, rmesh))
+        k4_sh = sh.launches
+        _, t_s = timed(lambda: render_shadow_sharded(scene, params, rows, cols,
+                                                     rmesh))
+
+        def one_call():
+            _, d = generate_camera_rays(
+                torch.from_numpy(rows).to(dev), torch.from_numpy(cols).to(dev),
+                params.image_width, params.image_height, params.fov_radians)
+            r = shadow_trace(scene, None, d, intersector=params.intersector)
+            return type(r)(*(t.cpu() for t in r))
+
+        res_1, t_1 = timed(one_call)
+        diff = [f for f in res_1._fields
+                if not bits_equal(getattr(res_s, f).numpy(),
+                                  getattr(res_1, f).numpy())]
+        hits = int((res_s.geom_id >= 0).sum())
+        out["shadow"] = dict(frame_ms=[t_w * 1e3, t_s * 1e3],
+                             one_call_ms=t_1 * 1e3, k4_launches=k4_sh,
+                             hits=hits)
+        log(f"[sharded shadow] {full}^2 rays on {SHARDS} shards: "
+            f"{t_w * 1e3:.1f}, {t_s * 1e3:.1f} ms (one call {t_1 * 1e3:.1f} "
+            f"ms); fields differing from one call {diff}; hits {hits}; K4 "
+            f"launches {k4_sh}")
+        if diff or not hits or k4_sh != SHARDS:
+            raise AssertionError("the sharded shadow trace differs from one "
+                                 "call")
+
+        # -- the progressive path trace, 64x64 spp 20 (batches 16 + 4), each
+        # frame against the plain route's with the same batch seeds --
+        pp = dataclasses.replace(mp, samples_per_pixel=20)
+        frames, plain_frames = [], []
+        mk.reset_launches()
+        prog = render(ms, pp, mode="path-trace",
+                      progress_callback=lambda bi, im: frames.append(
+                          im.copy()))
+        prog_l = mk.launches
+        with plain_megakernel():
+            plain, t_pp = timed(lambda: render(
+                ms, pp, mode="path-trace",
+                progress_callback=lambda bi, im: plain_frames.append(
+                    im.copy())))
+        bad = [bi for bi, (a, b) in enumerate(zip(frames, plain_frames))
+               if not bits_equal(a, b)]
+        log(f"[progressive 64x64 spp 20] callbacks {len(frames)}, frames "
+            f"differing from the plain route {bad}, image bit for bit "
+            f"{bits_equal(prog.rgb, plain.rgb)}; K1 launches {prog_l}; plain "
+            f"route {t_pp:.3f} s")
+        if (len(frames) != 2 or len(plain_frames) != 2 or bad
+                or not bits_equal(prog.rgb, plain.rgb) or prog_l != 2):
+            raise AssertionError("the progressive path trace differs from the "
+                                 "plain route")
+        frames = []
+        mk.reset_launches()
+        prog, t_prog = timed(lambda: render(
+            scene, params, mode="path-trace",
+            progress_callback=lambda bi, im: frames.append(im)))
+        out["progressive"] = dict(frame_s=t_prog, callbacks=len(frames),
+                                  k1_launches=mk.launches)
+        log(f"[progressive {full}^2 spp {spp}] {t_prog:.3f} s, callbacks "
+            f"{len(frames)}, K1 launches {mk.launches}, the last frame is the "
+            f"image {bits_equal(frames[-1], prog.rgb)}")
+        if (len(frames) != -(-spp // 16)
+                or not bits_equal(frames[-1], prog.rgb)
+                or not np.isfinite(prog.rgb).all()):
+            raise AssertionError("the full-size progressive render failed")
+
+        # -- the f16 readback: the path trace's image and the shadow AOVs --
+        (f32, _), t32 = timed(lambda: render_streaming(scene, params))
+        (f16, d16), t16 = timed(lambda: render_streaming(scene, params,
+                                                         readback_f16=True))
+        ok_img = bits_equal(f16, f32.astype(np.float16).astype(np.float32))
+        a32, a16 = [], []
+        img_t = torch.rand((full * full, 3), device=dev)
+        for _ in range(5):
+            _, t = timed(lambda: img_t.cpu())
+            a32.append(t * 1e3)
+            _, t = timed(lambda: img_t.to(torch.float16).cpu())
+            a16.append(t * 1e3)
+        s32, ts32 = timed(lambda: render(scene, params))
+        s16, ts16 = timed(lambda: render(scene, params, readback_f16=True))
+        fmax = float(np.finfo(np.float16).max)
+        bad_aov = []
+        for f in ("rgb", "t", "normal", "hit_p"):
+            want = _prep_f(torch.from_numpy(getattr(s32, f)), True).numpy()
+            if not bits_equal(getattr(s16, f), want.astype(np.float32)):
+                bad_aov.append(f)
+        bad_aov += [f for f in ("geom_id", "prim_id")
+                    if not bits_equal(getattr(s16, f), getattr(s32, f))]
+        out["f16"] = dict(frame_s=[t32, t16], shadow_frame_ms=[ts32 * 1e3,
+                                                               ts16 * 1e3],
+                          standin_readback_ms=[median(a32), median(a16)])
+        log(f"[f16 readback] path trace {full}^2 spp {spp}: f32 {t32:.3f} s, "
+            f"f16 {t16:.3f} s, the rounded f32 image bit for bit {ok_img}; a "
+            f"stand-in tensor of the image's shape [{full * full}, 3] read "
+            f"back: f32 {median(a32):.2f} ms, "
+            f"cast + f16 {median(a16):.2f} ms (median of 5); shadow frame f32 "
+            f"{ts32 * 1e3:.1f} ms, f16 {ts16 * 1e3:.1f} ms; AOVs differing "
+            f"from the rounded f32 ones {bad_aov} (f16 max {fmax})")
+        if not ok_img or d16 != full * full * spp or bad_aov:
+            raise AssertionError("the f16 readback differs from the rounded "
+                                 "f32")
+    finally:
+        for p in procs:
+            p.kill()
+            p.wait()
+        tmp.cleanup()
+    out["seconds"] = time.perf_counter() - t_phase
+    log(f"[sharded] {json.dumps(out)}")
+    return out
 
 
 def main() -> int:
@@ -1999,6 +2387,12 @@ def main() -> int:
     if (hdone != w_b * w_b * spp_b or not np.isfinite(hrgb).all()
             or ih.launches < 1):
         raise AssertionError("path B on the grid-512 scene failed")
+
+    phase("12")
+    # ---- 12. sharded and progressive: render_streaming_sharded and
+    # render_shadow_sharded on SHARDS shards of the card, the progressive
+    # path trace, the f16 readback, two ranks on the card ----
+    sharded_and_progressive(dev, scene, params, env, plain_walks)
 
     def intersect_bound(sc, need, rays, list_bytes):
         """K5/K6's bound over one frame's calls: the (lane, block) pairs

@@ -1,4 +1,5 @@
-"""Render orchestration: the chunked shadow trace and its AOVs.
+"""Render orchestration: the chunked shadow trace with its AOVs, and the
+path trace, one-shot or progressive.
 
 Port of ``render`` (ipu_ray_lib_tpu/render/renderer.py:152). In
 shadow-trace mode (the default) the window's pixels are streamed in tile
@@ -15,10 +16,16 @@ put back in raster order on the device and copied to the host as
 [H, W, ...] numpy; the others come back filled (zeros, t = inf, prim
 -1). ``geom_id`` is always read back.
 
-In path-trace mode ``render`` runs :func:`render_streaming` once. The
-JAX package's progressive variant (a progress callback in path-trace
-mode) and its f16 readback option (``RAY_READBACK_F16``) are not ported
-(ROADMAP queue 13).
+In path-trace mode ``render`` runs :func:`render_streaming` once; with a
+progress callback it renders decorrelated batches of at most 16 samples
+(batch ``bi`` seeded ``rng_seed + 0x9E3779B9*bi``) and passes the running
+average to the callback after each (the JAX package's progressive mode,
+renderer.py:181-210).
+
+``readback_f16`` (the JAX package's ``RAY_READBACK_F16``) rounds the float
+AOVs to f16 on the device before they are read back: finite values are
+clamped to +-65504 first, true infinities (t of a miss) pass; the ids stay
+exact. The path trace's image is rounded likewise (no clamp).
 """
 
 from __future__ import annotations
@@ -46,6 +53,17 @@ _AOVS = {
     "hit_p": ((3,), torch.float32, 0.0),
 }
 _NP = {torch.float32: np.float32, torch.int32: np.int32}
+
+
+def _prep_f(x: torch.Tensor, f16: bool) -> torch.Tensor:
+    """A float AOV as it is read back: itself, or with ``f16`` rounded to
+    f16 after clamping finite values to the f16 range (port of ``_prep_f``,
+    renderer.py:33-43)."""
+    if not f16:
+        return x
+    fmax = float(np.finfo(np.float16).max)
+    return torch.where(torch.isfinite(x), x.clamp(-fmax, fmax),
+                       x).to(torch.float16)
 
 
 def _filled(k: str, n: int) -> np.ndarray:
@@ -86,7 +104,7 @@ def render(scene, params, mode: str = "shadow-trace",
            chunk_size: int = DEFAULT_CHUNK,
            progress_callback: Optional[Callable[[int, np.ndarray], None]] = None,
            aovs: Optional[tuple] = None, env=None,
-           fused: bool = True) -> RenderOutput:
+           fused: bool = True, readback_f16: bool = False) -> RenderOutput:
     """Render the scene's crop window on the scene's device. ``mode`` is
     'shadow-trace' or 'path-trace' (``env``: an environment light for the
     path trace, as :func:`render_streaming` takes it).
@@ -96,16 +114,31 @@ def render(scene, params, mode: str = "shadow-trace",
     closest-hit kernels (render/shadow.py).
 
     ``aovs`` limits which shadow-trace AOVs are read back (None: all); the
-    others come back filled. ``progress_callback(chunk_index, rgb_chunk)``
-    fires as each shadow-trace chunk completes, with the chunk's rgb [n, 3]
-    in stream order."""
+    others come back filled. ``progress_callback(index, rgb)`` fires as
+    each shadow-trace chunk completes, with the chunk's rgb [n, 3] in
+    stream order, or after each path-trace batch, with the running average
+    [H, W, 3]. ``readback_f16``: see the module note."""
     h, w = params.window_h, params.window_w
     if mode == "path-trace":
-        if progress_callback is not None:
-            raise NotImplementedError(
-                "the progressive path trace is not ported (ROADMAP queue 13)")
-        rgb, _ = render_streaming(scene, params, chunk_slots=chunk_size,
-                                  env=env)
+        kw = dict(chunk_slots=chunk_size, env=env, readback_f16=readback_f16)
+        if progress_callback is None:
+            rgb, _ = render_streaming(scene, params, **kw)
+        else:
+            spp = params.samples_per_pixel
+            batch = max(1, min(16, spp))
+            acc = np.zeros((h, w, 3), np.float32)
+            s = bi = 0
+            while s < spp:
+                b = min(batch, spp - s)
+                img, _ = render_streaming(
+                    scene, params, spp=b,
+                    seed=(params.rng_seed + 0x9E3779B9 * bi) & 0xFFFFFFFF,
+                    **kw)
+                acc += img * b
+                s += b
+                progress_callback(bi, acc / s)
+                bi += 1
+            rgb = acc / spp
         return RenderOutput(rgb=rgb, **{
             k: _filled(k, h * w).reshape((h, w) + _AOVS[k][0])
             for k in _AOVS if k != "rgb"})
@@ -140,7 +173,8 @@ def render(scene, params, mode: str = "shadow-trace",
         for k in fields:
             bufs[k][g0:g0 + chunk_size] = getattr(res, k)
         if progress_callback is not None:
-            progress_callback(ci, res.rgb.cpu().numpy())
+            progress_callback(ci, _prep_f(res.rgb, readback_f16).cpu()
+                              .numpy().astype(np.float32))
 
     # Raster order: image[order[g]] = stream[g].
     inverse = np.empty(total, np.int64)
@@ -148,8 +182,13 @@ def render(scene, params, mode: str = "shadow-trace",
     inv = torch.from_numpy(inverse).to(dev)
     out = {}
     for k, (shape, _, _) in _AOVS.items():
-        a = (bufs[k][:total].index_select(0, inv).cpu().numpy() if k in bufs
-             else _filled(k, total))
+        if k in bufs:
+            a = bufs[k][:total].index_select(0, inv)
+            if a.is_floating_point():
+                a = _prep_f(a, readback_f16)
+            a = a.cpu().numpy().astype(_NP[_AOVS[k][1]], copy=False)
+        else:
+            a = _filled(k, total)
         out[k] = a.reshape((h, w) + shape)
     g = out["geom_id"]
     out["geom_id"] = np.where(g == INVALID_GEOM_ID, -1, g).astype(np.int32)

@@ -219,22 +219,52 @@ def streaming_path_trace(scene, rows, cols, seed: int, n_valid: int, *,
     return accum.permute(0, 2, 1), done, iters
 
 
-def render_streaming(scene, params, chunk_slots: int = 1 << 17, env=None,
-                     stats: dict | None = None):
-    """Full-window streaming render on the scene's device at
-    ``params.samples_per_pixel``, seeded by ``params.rng_seed``, lit by
-    ``env`` when given: a :class:`~ipu_ray_lib_tpu_torch.nif.model.NifEnv`
-    on the scene's device (the megakernel), or any callable
-    ``env(dirs [R, 3]) -> rgb [R, 3]`` (the XLA-loop integrator). Returns
-    (rgb [H, W, 3] float32 numpy, done: the number of finished paths).
+def uses_megakernel(slots: int, env) -> bool:
+    """The megakernel route (K1/K3, with a NifEnv its record mode, env MLP
+    and bank) when the env is none or a NIF and the pool of ``slots``
+    tiles into 256; otherwise the XLA-loop integrator."""
+    return (env is None or isinstance(env, NifEnv)) and slots % 256 == 0
+
+
+def trace_batch(scene, rows, cols, seed: int, n_valid: int, *, params,
+                slots: int, j_per_slot: int, spp: int, env=None,
+                stats: dict | None = None):
+    """One batch of ``spp`` samples of the stream rows/cols [slots *
+    j_per_slot] (the first ``n_valid`` real) on the route
+    :func:`uses_megakernel` picks. Returns (flat [slots*j_per_slot, 3] f32
+    spp-averaged radiance, done: the finished paths, a 0-d tensor).
     ``stats`` (a dict, XLA-loop integrator only) gains ``iters``."""
-    spp = params.samples_per_pixel
-    seed = params.rng_seed
+    R, J = slots, j_per_slot
+    kw = dict(params=params, slots=R, j_per_slot=J, spp=spp,
+              max_iters=J * spp * params.max_path_length + 16, env=env)
+    if uses_megakernel(R, env):
+        return megakernel_path_trace(scene, rows, cols, seed, n_valid, **kw)
+    accum, done, iters = streaming_path_trace(scene, rows, cols, seed,
+                                              n_valid, **kw)
+    if stats is not None:
+        stats["iters"] = stats.get("iters", 0) + iters
+    return accum.permute(0, 2, 1).reshape(R * J, 3) / spp, done
+
+
+def render_streaming(scene, params, chunk_slots: int = 1 << 17, env=None,
+                     spp: int | None = None, seed: int | None = None,
+                     readback_f16: bool = False, stats: dict | None = None):
+    """Full-window streaming render on the scene's device at ``spp``
+    samples per pixel (default ``params.samples_per_pixel``), seeded by
+    ``seed`` (default ``params.rng_seed``), lit by ``env`` when given: a
+    :class:`~ipu_ray_lib_tpu_torch.nif.model.NifEnv` on the scene's device
+    (the megakernel), or any callable ``env(dirs [R, 3]) -> rgb [R, 3]``
+    (the XLA-loop integrator). Returns (rgb [H, W, 3] float32 numpy, done:
+    the number of finished paths). ``readback_f16``: the accumulated image
+    is rounded to f16 on the device (to nearest even) before it is read
+    back, then widened to f32. ``stats`` (a dict, XLA-loop integrator only)
+    gains ``iters``."""
+    spp = params.samples_per_pixel if spp is None else int(spp)
+    seed = params.rng_seed if seed is None else int(seed)
     w, h = params.window_w, params.window_h
     n_pix = w * h
     rows_np, cols_np, order = _pixel_stream(params)
-    mega = env is None or isinstance(env, NifEnv)
-    if mega:
+    if env is None or isinstance(env, NifEnv):
         R, J = slot_pool(n_pix, chunk_slots)
     else:
         R = min(chunk_slots, n_pix)
@@ -251,25 +281,17 @@ def render_streaming(scene, params, chunk_slots: int = 1 << 17, env=None,
     while s < spp:
         b = min(SPP_BATCH, b_cap, spp - s)
         bseed = (seed + 0x9E3779B9 * bi) & _U32
-        max_iters = J * b * params.max_path_length + 16
-        if mega:
-            flat_b, done_b = megakernel_path_trace(
-                scene, rows, cols, bseed, n_pix, params=params, slots=R,
-                j_per_slot=J, spp=b, max_iters=max_iters, j0=0,
-                k_total=J * b, env=env)
-        else:
-            accum, done_b, iters = streaming_path_trace(
-                scene, rows, cols, bseed, n_pix, params=params, slots=R,
-                j_per_slot=J, spp=b, max_iters=max_iters, env=env)
-            flat_b = accum.permute(0, 2, 1).reshape(R * J, 3) / b
-            if stats is not None:
-                stats["iters"] = stats.get("iters", 0) + iters
+        flat_b, done_b = trace_batch(scene, rows, cols, bseed, n_pix,
+                                     params=params, slots=R, j_per_slot=J,
+                                     spp=b, env=env, stats=stats)
         wgt = float(np.float32(b / spp))
         flat_acc = (flat_b * wgt if flat_acc is None
                     else flat_acc + flat_b * wgt)
         dones.append(done_b)
         s += b
         bi += 1
+    if readback_f16:
+        flat_acc = flat_acc.to(torch.float16)
     img = np.empty((n_pix, 3), np.float32)
     img[order] = flat_acc[:n_pix].cpu().numpy()
     done = int(torch.stack(dones).sum())

@@ -116,7 +116,8 @@ def test_every_module_imports_without_jax():
     neither)."""
     mods = _port_modules()
     for m in ("ops.megakernel", "ops.env", "nif.hdf5", "nif.metadata",
-              "nif.model", "scene.builtin", "render.streaming"):
+              "nif.model", "scene.builtin", "render.streaming",
+              "parallel.mesh", "utils.xoshiro"):
         assert f"ipu_ray_lib_tpu_torch.{m}" in mods, m
     code = (
         "import importlib, sys\n"
@@ -139,6 +140,8 @@ def test_every_module_imports_without_jax():
 def test_no_jax_import_statements():
     pkg = pathlib.Path(ipu_ray_lib_tpu_torch.__file__).parent
     pat = re.compile(r"^\s*(import|from) (jax|h5py|ipu_ray_lib_tpu)\b", re.M)
-    files = list(pkg.rglob("*.py")) + [pkg.parent / "chip_smoke.py"]
+    files = list(pkg.rglob("*.py")) + [
+        pkg.parent / f for f in ("chip_smoke.py", "dryrun_multichip_torch.py",
+                                 "tests/torch_multihost_worker.py")]
     hits = [str(p) for p in files if pat.search(p.read_text())]
     assert not hits, hits

@@ -331,8 +331,12 @@ def test_render_path_trace_is_render_streaming():
     rgb, done = render_streaming(ts, params, chunk_slots=1 << 16)
     assert done == 256 and _equal(out.rgb, rgb) == 0
     assert (out.geom_id == -1).all() and np.isinf(out.t).all()
-    with pytest.raises(NotImplementedError, match="queue 13"):
-        render(ts, params, mode="path-trace", progress_callback=print)
+    # progressive: spp 1 is one batch seeded rng_seed, the same image
+    seen = []
+    prog = render(ts, params, mode="path-trace",
+                  progress_callback=lambda bi, rgb: seen.append((bi, rgb)))
+    assert [bi for bi, _ in seen] == [0]
+    assert _equal(seen[0][1], rgb) == 0 and _equal(prog.rgb, rgb) == 0
 
 
 # ---- 5. AOV images ----
