@@ -27,6 +27,9 @@ version:
   (``parallel/mesh.py``: ``render_streaming_sharded`` through K1,
   ``render_shadow_sharded`` through K4), the progressive path trace, the
   f16 readback, and two processes sharing the card.
+* the application: ``trace_torch.py`` (the port's ``trace.py``) with the
+  README's commands: the CLI's flow, the importers, the scene cache, the
+  f64 oracle and the EXR output.
 
 Run from the repository root:
 
@@ -186,7 +189,24 @@ Phases (any failed check raises, so the exit code is non-zero):
      tensor of the image's shape in f32 and in f16 timed; two gloo
      processes with 2 shards of the card each
      (tests/torch_multihost_worker.py) against one process with 4, bit for
-     bit.
+     bit;
+  13. the application: ``trace_torch.run`` (the CLI, in this process) with
+     the README's commands at their own sizes, each kernel's launches
+     counted from 0 around each: (a) ``--scene box -w 1440 -H 1440
+     --samples 64 --gpu-only``, its EXR bit for bit ``render_streaming`` of
+     the same scene and params; (b) ``--scene box-simple --render-mode
+     shadow-trace --visualise normal`` (768x432, the oracle and the CPU
+     twin), the card within MSE 1e-3 of the oracle; (c) ``--mesh-file
+     assets/test_scene.dae --samples 512 --gpu-only``; (d) ``--scene
+     spheres --nif-hdri assets/nif/synthetic_sky/assets.extra --samples
+     1000 --gpu-only``; (e) ``--compile-only`` at 1440^2 spp 1000 (no
+     image, no launch); (f) the grid-512 heightfield written as a binary
+     PLY, shadow-traced at 1440^2 twice with ``--scene-cache`` (``auto``
+     picks HBM mode: path A, K6), the second run a cache hit with the same
+     image, then path-traced at 256^2 spp 8, max_path_length 5 under the
+     NIF sky (K3 in record mode, K2); (g)
+     ``--progressive`` at 256^2 spp 32, and one ``utils/profiling.trace``
+     around a 256^2 frame (the trace's size and its CUDA kernel events).
 Before the last two lines: a JSON object with each kernel's launches on
 its main path, its largest deviation from its plain version, its times
 and its bound (the least time the card could take for the same work:
@@ -719,6 +739,245 @@ def sharded_and_progressive(dev, scene, params, env, plain_walks,
         tmp.cleanup()
     out["seconds"] = time.perf_counter() - t_phase
     log(f"[sharded] {json.dumps(out)}")
+    return out
+
+
+# Phase 13: the README's trace.py commands through trace_torch.py, at
+# their own sizes (ROADMAP queue 1 items 4-5). (f) writes this grid's
+# heightfield as a binary PLY.
+APP_GRID = 512
+APP_PROFILE = (256, 32)  # the progressive run and the profiled frame
+
+
+def write_ply(path: str, mesh) -> None:
+    """A mesh as a binary little-endian PLY: float x, y, z per vertex and a
+    uchar-counted int list per triangle (the port's importer reads it)."""
+    tris = np.asarray(mesh.triangles)
+    face = np.zeros(len(tris), np.dtype([("n", "u1"), ("i", "<i4", (3,))]))
+    face["n"], face["i"] = 3, tris
+    with open(path, "wb") as f:
+        f.write((f"ply\nformat binary_little_endian 1.0\nelement vertex "
+                 f"{len(mesh.vertices)}\nproperty float x\nproperty float y\n"
+                 f"property float z\nelement face {len(tris)}\nproperty list "
+                 "uchar int vertex_indices\nend_header\n").encode())
+        f.write(np.asarray(mesh.vertices, "<f4").tobytes())
+        f.write(face.tobytes())
+
+
+def application(dev) -> dict:
+    """Phase 13: ``trace_torch.run`` (the CLI's flow, in this process) with
+    the README's commands at their own sizes, each kernel's launches
+    counted from 0 around each command: (a) the main path through the CLI,
+    its image against ``render_streaming`` of the same scene and params bit
+    for bit; (b) the shadow trace with the oracle and the CPU twin, the
+    card against the oracle within MSE 1e-3 (tests/test_cli.py:31) and
+    equal to the CPU twin (K4 against its plain version); (c) an
+    imported Collada scene; (d) the NIF light (K2); (e) compile only; (f)
+    a 522,242-triangle PLY shadow-traced twice through the scene cache
+    (path A, K6), the second run a cache hit with the same image, then
+    path-traced at 256^2 spp 8 under the NIF sky (K3, K2); (g) the
+    progressive path trace, and one ``utils/profiling.trace`` around a
+    frame. Raises on any failed check. Returns the numbers it logged."""
+    import tempfile
+
+    from ipu_ray_lib_tpu_torch.ops import env as envk
+    from ipu_ray_lib_tpu_torch.ops import intersect_hbm as ih
+    from ipu_ray_lib_tpu_torch.ops import intersect_kernel as ik
+    from ipu_ray_lib_tpu_torch.ops import megakernel as mk
+    from ipu_ray_lib_tpu_torch.ops import shadow as sh
+    from ipu_ray_lib_tpu_torch.render.renderer import DEFAULT_CHUNK
+    from ipu_ray_lib_tpu_torch.render.streaming import render_streaming
+    from ipu_ray_lib_tpu_torch.scene.build import build_scene
+    from ipu_ray_lib_tpu_torch.scene.builtin import (make_cornell_box_scene,
+                                                     make_stress_scene)
+    from ipu_ray_lib_tpu_torch.scene.types import PathTraceSettings
+    from ipu_ray_lib_tpu_torch.utils import profiling
+    from ipu_ray_lib_tpu_torch.utils.exr import read_exr
+    import trace_torch
+
+    os.chdir(ROOT)  # the CLI finds assets/monkey_bust.glb as trace.py does
+    t_phase = time.perf_counter()
+    tmp = tempfile.TemporaryDirectory()
+    out = {"commands": {}}
+
+    def cli(name, argv):
+        for m in (mk, envk, sh, ik, ih):
+            m.reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        rec = trace_torch.run(argv + ["-o", os.path.join(tmp.name, name),
+                                      "--log-level", "warn"])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = {"k1": mk.launches, "k3": mk.hbm_launches,
+                    "bank": mk.bank_launches, "env": envk.launches,
+                    "k4": sh.launches, "k5": ik.launches, "k6": ih.launches}
+        p = rec.get("params")
+        out["commands"][name] = dict(
+            argv=argv, wall_s=wall, seconds=rec["seconds"], mse=rec["mse"],
+            launches=launches, cache_hit=rec["cache_hit"],
+            intersector=None if p is None else p.intersector)
+        log(f"[app {name}] trace_torch.py {' '.join(argv)}: {wall:.2f} s; "
+            + ", ".join(f"{k} {v:.3f} s" for k, v in rec["seconds"].items())
+            + f"; launches {launches}"
+            + (f"; MSE {rec['mse']}" if rec["mse"] else ""))
+        return rec, launches
+
+    def image(rec, shape):
+        img = read_exr(rec["outputs"]["gpu"])
+        if img.shape != shape or not np.isfinite(img).all():
+            raise AssertionError(f"bad image {img.shape}, want {shape}")
+        return img
+
+    try:
+        # (a) the main path through the CLI, against render_streaming of
+        # the same scene and params (the CLI's slot pool: its --chunk-size,
+        # 65,536, as trace.py passes it):
+        rec, n = cli("a-main", ["--scene", "box", "-w", str(FULL), "-H",
+                                str(FULL), "--samples", str(SPP),
+                                "--gpu-only"])
+        img = image(rec, (FULL, FULL, 3))
+        desc = make_cornell_box_scene(os.path.join(ROOT, "assets",
+                                                   "monkey_bust.glb"))
+        desc.path_trace = PathTraceSettings(samples_per_pixel=SPP)
+        scene, params = build_scene(desc, device=dev, image_width=FULL,
+                                    image_height=FULL, samples_per_pixel=SPP)
+        (ref, done), t_ref = timed(lambda: render_streaming(
+            scene, params, chunk_slots=DEFAULT_CHUNK))
+        same = bits_equal(img, ref)
+        same_params = params == rec["params"]
+        out["a"] = dict(bits_equal=same, params_equal=same_params,
+                        render_streaming_s=t_ref, done=done,
+                        mean=float(img.mean()))
+        log(f"[app a] the CLI's {FULL}^2 spp {SPP} image against "
+            f"render_streaming(chunk_slots={DEFAULT_CHUNK}) of the same "
+            f"scene and params: bit for bit {same}, params equal "
+            f"{same_params}; render_streaming {t_ref:.3f} s, done {done}, "
+            f"mean {float(img.mean()):.6f}")
+        if (not same or not same_params or n["k1"] < 1
+                or done != FULL * FULL * SPP):
+            raise AssertionError("(a): the CLI's main path differs from "
+                                 "render_streaming")
+
+        # (b) the shadow trace with the oracle and the CPU twin:
+        rec, n = cli("b-shadow-oracle", ["--scene", "box-simple",
+                                         "--render-mode", "shadow-trace",
+                                         "--visualise", "normal"])
+        image(rec, (432, 768, 3))
+        out["b"] = dict(rec["mse"], oracle_rays_per_s=768 * 432
+                        / rec["seconds"]["oracle"])
+        log(f"[app b] MSE card vs oracle {rec['mse']['oracle']:.6g} (limit "
+            f"1e-3), card vs CPU twin {rec['mse']['cpu']:.6g} (limit 0); "
+            f"oracle {out['b']['oracle_rays_per_s']:.4g} rays/s; hits "
+            f"{rec['hit_count']}")
+        if not rec["mse"]["oracle"] < 1e-3 or n["k4"] < 1:
+            raise AssertionError("(b): the card's shadow trace is off the "
+                                 "oracle")
+        # K4 against its plain version (the CPU twin) at this path's
+        # shapes: equal, as every K4 check above holds it.
+        if rec["mse"]["cpu"] != 0:
+            raise AssertionError("(b): the card's shadow trace differs from "
+                                 "the CPU twin")
+
+        # (c) an imported scene:
+        rec, n = cli("c-collada", ["--mesh-file", "assets/test_scene.dae",
+                                   "--samples", "512", "--gpu-only"])
+        img = image(rec, (432, 768, 3))
+        if not img.mean() > 0 or n["k1"] < 1:
+            raise AssertionError("(c): the Collada scene rendered black")
+
+        # (d) the NIF light (K2):
+        rec, n = cli("d-nif", ["--scene", "spheres", "--nif-hdri",
+                               "assets/nif/synthetic_sky/assets.extra",
+                               "--samples", "1000", "--gpu-only"])
+        img = image(rec, (432, 768, 3))
+        if not img.mean() > 0 or n["env"] < 1 or n["bank"] < 1:
+            raise AssertionError("(d): the NIF-lit render failed")
+
+        # (e) compile only: builds, writes no image:
+        rec, n = cli("e-compile-only", ["--scene", "box", "-w", str(FULL),
+                                        "-H", str(FULL), "--samples", "1000",
+                                        "--compile-only"])
+        written = [f for f in os.listdir(tmp.name) if f.startswith("e-")]
+        if rec["outputs"] or written or "compile" not in rec["seconds"] \
+                or any(n.values()):
+            raise AssertionError(f"(e): compile-only wrote {written} or "
+                                 f"launched {n}")
+
+        # (f) a large imported scene, twice through the scene cache:
+        ply = os.path.join(tmp.name, f"stress{APP_GRID}.ply")
+        cache = os.path.join(tmp.name, "cache")
+        t0 = time.perf_counter()
+        write_ply(ply, make_stress_scene(APP_GRID).meshes[0])
+        t_write = time.perf_counter() - t0
+        argv = ["--mesh-file", ply, "--render-mode", "shadow-trace", "-w",
+                str(FULL), "-H", str(FULL), "--gpu-only", "--scene-cache",
+                cache]
+        rec1, n1 = cli("f-ply-build", argv)
+        rec2, n2 = cli("f-ply-cached", argv)
+        a, b = (image(r, (FULL, FULL, 3)) for r in (rec1, rec2))
+        same = bits_equal(a, b)
+        out["f"] = dict(ply_write_s=t_write, ply_bytes=os.path.getsize(ply),
+                        bundle_bytes=sum(os.path.getsize(os.path.join(
+                            cache, f)) for f in os.listdir(cache)),
+                        bits_equal=same)
+        log(f"[app f] PLY of grid {APP_GRID} ({out['f']['ply_bytes']} bytes,"
+            f" written in {t_write:.2f} s): import "
+            f"{rec1['seconds']['import']:.2f} s, build "
+            f"{rec1['seconds']['build']:.2f} s, bundle save "
+            f"{rec1['seconds']['cache_save']:.2f} s "
+            f"({out['f']['bundle_bytes']} bytes), load "
+            f"{rec2['seconds']['cache_load']:.2f} s; intersector "
+            f"{rec1['params'].intersector}; images bit for bit {same}")
+        if (not same or rec1["cache_hit"] or not rec2["cache_hit"]
+                or rec1["params"].intersector != "pallas-hbm"
+                or n1["k6"] < 1 or n2["k6"] < 1):
+            raise AssertionError("(f): the cached large scene differs")
+        # ... and path-traced at the ladder's cell (K3; a new key), lit by
+        # the NIF sky (the PLY holds no emitter):
+        size, spp = BIG_SIZE, BIG_SPP
+        rec, n = cli("f-ply-path", ["--mesh-file", ply, "-w", str(size),
+                                    "-H", str(size), "--samples", str(spp),
+                                    "--max-path-length", str(BIG_MPL),
+                                    "--nif-hdri",
+                                    "assets/nif/synthetic_sky/assets.extra",
+                                    "--gpu-only", "--scene-cache", cache])
+        img = image(rec, (size, size, 3))
+        if (rec["cache_hit"] or n["k3"] < 1 or n["env"] < 1
+                or not img.mean() > 0):
+            raise AssertionError("(f): the large scene's path trace failed")
+
+        # (g) progressive, and one profiled frame:
+        size, spp = APP_PROFILE
+        rec, n = cli("g-progressive", ["--scene", "box", "-w", str(size),
+                                       "-H", str(size), "--samples",
+                                       str(spp), "--progressive",
+                                       "--gpu-only"])
+        image(rec, (size, size, 3))
+        if n["k1"] != -(-spp // 16):
+            raise AssertionError(f"(g): {n['k1']} K1 launches")
+        gs, gp = build_scene(make_cornell_box_scene(os.path.join(
+            ROOT, "assets", "monkey_bust.glb")), device=dev,
+            image_width=size, image_height=size, samples_per_pixel=spp)
+        render_streaming(gs, gp)  # warm
+        path = os.path.join(tmp.name, "frame_trace.json")
+        with profiling.trace(path):
+            (_, gdone), t_prof = timed(lambda: render_streaming(gs, gp))
+        summary = profiling.kernel_summary(path)
+        out["g"] = dict(trace_bytes=os.path.getsize(path),
+                        frame_s=t_prof, **summary)
+        log(f"[app g] torch.profiler around a {size}^2 spp {spp} frame "
+            f"({t_prof:.3f} s): trace {out['g']['trace_bytes']} bytes, "
+            f"{summary['kernel_events']} CUDA kernel events, busy "
+            f"{summary['busy_us']:.0f} us of a {summary['span_us']:.0f} us "
+            f"span (idle share {summary['idle_share']}); top "
+            f"{summary['by_name']}")
+        if not out["g"]["trace_bytes"] or gdone != size * size * spp:
+            raise AssertionError("(g): no trace written")
+    finally:
+        tmp.cleanup()
+    out["seconds"] = time.perf_counter() - t_phase
+    log(f"[app] {json.dumps(out, default=str)}")
     return out
 
 
@@ -2394,6 +2653,10 @@ def main() -> int:
     # path trace, the f16 readback, two ranks on the card ----
     sharded_and_progressive(dev, scene, params, env, plain_walks)
 
+    phase("13")
+    # ---- 13. the application: trace_torch.py with the README's commands
+    app = application(dev)
+
     def intersect_bound(sc, need, rays, list_bytes):
         """K5/K6's bound over one frame's calls: the (lane, block) pairs
         its closest hits need (``needed_pairs``) x 128 rows x
@@ -2437,12 +2700,19 @@ def main() -> int:
         f"{median(mlp_ms):.2f} ms; bank {bounds['bank'][0]:.3f} ms "
         f"({rec_bytes} record bytes) vs {median(bank_ms):.3f} ms")
 
+    cli_key = {"k1": "k1", "k1_rec": "k1", "env": "env", "bank": "bank",
+               "k3": "k3", "k4": "k4", "k5": "k5", "k6": "k6"}
+
     def entry(name, source, replaces, key, n_launch, ms_, shape, plain_ms,
               kernel_ms_plain_shape, plain_shape, library_ms=None,
               library_shape=None, **more):
         """One kernel's line: ``ms`` and ``bound_ms`` on its main path;
         ``plain_ms`` (and the kernel at the same shape) where the plain
-        version can run in this script's time."""
+        version can run in this script's time; ``launches_cli``: its
+        launches in each of phase 13's commands (K1's count includes its
+        record mode)."""
+        more["launches_cli"] = {c: v["launches"][cli_key[key]]
+                                for c, v in app["commands"].items()}
         return {"name": name, "route": "cuda",
                 "source": f"ipu_ray_lib_tpu_torch/ops/cuda/{source}",
                 "replaces": replaces, "launches": n_launch,

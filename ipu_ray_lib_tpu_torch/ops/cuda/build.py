@@ -8,7 +8,9 @@ tensor ``data_ptr()``s and the current PyTorch stream, and each returns
 ``cudaGetLastError()``. The build runs at first use into
 ``ipu_ray_lib_tpu_torch/_build/``, keyed on a hash of the sources and
 flags, from the sources in the repository only. A failed build or launch
-raises; nothing falls back to the plain versions.
+raises; nothing falls back to the plain versions. Each nvcc's seconds
+are logged (``runtime/config.py:log_compile``: info from 5 s) and kept in
+``build_info["sources"]``.
 
 Flags: ``sm_90a`` (Hopper), ``-O3``, ``-fmad=false`` (no FMA contraction,
 so every product rounds as in the plain torch versions), IEEE division and
@@ -27,6 +29,8 @@ import time
 
 import numpy as np
 import torch
+
+from ...runtime.config import log_compile
 
 _HERE = os.path.dirname(os.path.abspath(__file__))
 _SOURCES = ("megakernel.cu", "env_mlp.cu", "shadow.cu", "intersect.cu")
@@ -107,7 +111,7 @@ def _compile() -> str:
     key = h.hexdigest()[:16]
     so = os.path.join(BUILD_DIR, f"kernels_{key}.so")
     if os.path.exists(so):
-        build_info.update(seconds=0.0, cached=True, log="")
+        build_info.update(seconds=0.0, cached=True, log="", sources={})
         return so
     os.makedirs(BUILD_DIR, exist_ok=True)
     nvcc = _nvcc()
@@ -120,12 +124,28 @@ def _compile() -> str:
         procs.append(subprocess.Popen(
             [nvcc, *NVCC_FLAGS, "-c", "-o", obj, src],
             stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True))
-    logs, failed = [], []
-    for src, proc in zip(srcs, procs):
-        out, err = proc.communicate()
-        logs.append(f"[{os.path.basename(src)}]\n{out}{err}".strip())
+    # Each nvcc's output is drained by a thread of its own, which also
+    # notes the second at which that nvcc finished:
+    done = [None] * len(procs)
+
+    def drain(i):
+        out, err = procs[i].communicate()
+        done[i] = (out, err, time.perf_counter() - t0)
+
+    threads = [threading.Thread(target=drain, args=(i,))
+               for i in range(len(procs))]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    logs, failed, seconds = [], [], {}
+    for src, proc, (out, err, sec) in zip(srcs, procs, done):
+        name = os.path.basename(src)
+        seconds[name] = sec
+        log_compile(f"nvcc {name}", sec)
+        logs.append(f"[{name}]\n{out}{err}".strip())
         if proc.returncode != 0:
-            failed.append(f"nvcc {os.path.basename(src)} failed "
+            failed.append(f"nvcc {name} failed "
                           f"({proc.returncode}):\n{out}\n{err}")
     if failed:
         raise RuntimeError("\n".join(failed))
@@ -141,7 +161,8 @@ def _compile() -> str:
             f"{proc.stderr}")
     os.replace(tmp, so)
     build_info.update(seconds=time.perf_counter() - t0, cached=False,
-                      log="\n".join(logs))
+                      log="\n".join(logs), sources=seconds)
+    log_compile("the kernel library (nvcc and link)", build_info["seconds"])
     return so
 
 

@@ -282,6 +282,9 @@ def build_scene(
     samples_per_pixel: int = 256,
     intersector: str = "auto",
     max_path_length: int = MAX_PATH_LENGTH,
+    anti_alias_scale: float = ANTI_ALIAS_SCALE,
+    roulette_start_depth: int = ROULETTE_START_DEPTH,
+    rng_seed: int = RNG_SEED,
     payload_split: bool | None = None,
 ) -> tuple[TorchScene, SceneParams]:
     """Compile a SceneDescription of any size into device tensors + static
@@ -293,13 +296,21 @@ def build_scene(
     ``VMEM_TABLE_MAX_TRIS`` triangles + spheres + discs, else
     ``"pallas-hbm"``). ``payload_split`` (HBM mode only): round the
     payload to bf16 as the JAX package's ``pay8`` does; None turns it on
-    above ``HBM_SPLIT_MIN_TRIS`` padded triangle rows."""
+    above ``HBM_SPLIT_MIN_TRIS`` padded triangle rows.
+
+    ``anti_alias_scale`` (the camera jitter's std-dev in pixels),
+    ``roulette_start_depth`` and ``rng_seed`` go into the params as the
+    JAX package's ``build_scene`` takes them. The scene BVH keeps one
+    primitive per leaf (``bvh.builder.MAX_LEAF_SIZE``), the reference's
+    build."""
     if device is None:
         device = cuda_device()
     leaves, params = compile_scene(
         scene, image_width=image_width, image_height=image_height,
         window=window, samples_per_pixel=samples_per_pixel,
         intersector=intersector, max_path_length=max_path_length,
+        anti_alias_scale=anti_alias_scale,
+        roulette_start_depth=roulette_start_depth, rng_seed=rng_seed,
         payload_split=payload_split)
     return _from_leaves(leaves, device), params
 
@@ -327,6 +338,9 @@ def compile_scene(
     samples_per_pixel: int,
     intersector: str = "auto",
     max_path_length: int = MAX_PATH_LENGTH,
+    anti_alias_scale: float = ANTI_ALIAS_SCALE,
+    roulette_start_depth: int = ROULETTE_START_DEPTH,
+    rng_seed: int = RNG_SEED,
     payload_split: bool | None = None,
 ) -> tuple[dict[str, np.ndarray], SceneParams]:
     """The host half of :func:`build_scene` (same arguments): the scene's
@@ -447,11 +461,11 @@ def compile_scene(
         image_width=image_width,
         image_height=image_height,
         fov_radians=float(scene.camera.horizontal_fov),
-        anti_alias_scale=ANTI_ALIAS_SCALE,
+        anti_alias_scale=float(anti_alias_scale),
         max_path_length=int(max_path_length),
-        roulette_start_depth=ROULETTE_START_DEPTH,
+        roulette_start_depth=int(roulette_start_depth),
         samples_per_pixel=int(samples_per_pixel),
-        rng_seed=RNG_SEED,
+        rng_seed=int(rng_seed),
         window_w=win.w,
         window_h=win.h,
         window_c=win.c,
