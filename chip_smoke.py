@@ -206,10 +206,34 @@ Phases (any failed check raises, so the exit code is non-zero):
      image, then path-traced at 256^2 spp 8, max_path_length 5 under the
      NIF sky (K3 in record mode, K2); (g)
      ``--progressive`` at 256^2 spp 32, and one ``utils/profiling.trace``
-     around a 256^2 frame (the trace's size and its CUDA kernel events).
+     around a 256^2 frame (the trace's size and its CUDA kernel events);
+  14. the per-sample wavefront and NIF training
+     (``per_sample_and_training``): ``path_trace_sample``'s kernel route
+     against its plain route on Cornell + monkey 64x64 spp 2 (K5), stress24
+     in HBM mode 32x32 spp 2 with the f32 and the bf16 payload (K6) and
+     spheres + NIF 48x32 spp 2 (K2, the env term with the XLA env
+     function's angles), every sample's fields bit for bit and the NIF-lit
+     image within ``envk.within_high_frequency``; ``render(mode=
+     "path-trace", streaming=False)`` of the Cornell + monkey at 1440^2 spp
+     4 (spp is the one cut) in chunks of 65,536: a warm-up of one chunk
+     under the NIF (K2's own output on its escapes against
+     ``env_mlp_ref`` beside the torch.matmul chain,
+     ``envk.within_yardstick``) and three timed frames, finite, no
+     material error, the mean within 15% of ``render_streaming``'s at spp
+     4, K5's launches and the host syncs counted, K5 alone over the first
+     frame's own calls (CUDA events) and the rest the host's;
+     ``render_path_sharded`` on 3 shards of the card, a 64x64 window kernel
+     vs plain bit for bit and the 1440^2 spp 4 frame under the NIF timed
+     (K2 on a shard's 691,200 rays gated as above); ``train_nif`` at 6 x
+     320, E = 12, batch 4,096 on ``synth_hdri`` at 512x1024: 20 steps on
+     the card and on the CPU from the same seed, the loss curves within
+     1e-4 of each other, then 300 steps timed (steps/s, the loss at least
+     halved), then the trained NIF saved (no h5py), loaded and rendered
+     (spheres 512^2 spp 16: K1's record mode, K2, the bank).
 Before the last two lines: a JSON object with each kernel's launches on
-its main path, its largest deviation from its plain version, its times
-and its bound (the least time the card could take for the same work:
+its main path (and ``launches_per_sample``: in each of phase 14's
+runs), its largest deviation from its plain version, its times and its
+bound (the least time the card could take for the same work:
 f32 instructions at the instruction rate, half the 67 TFLOP/s that count an FMA
 as two; the previous basis beside it as ``bound_ms_flop_basis``); then
 the card's nvidia-smi line. The last line is the JSON status object.
@@ -380,6 +404,52 @@ def k45_counting(launch) -> dict:
     return cnt
 
 
+@contextlib.contextmanager
+def plain_walks():
+    """The plain route: the closest-hit wrappers' CUDA calls (K5, K6)
+    replaced by the plain versions on the same device (for replays
+    only)."""
+    from ipu_ray_lib_tpu_torch.ops import intersect_hbm as ih
+    from ipu_ray_lib_tpu_torch.ops import intersect_kernel as ik
+
+    saved = ik.dense_walk_cuda, ih.super_walk_cuda
+    ik.dense_walk_cuda = ik.dense_walk_ref
+    ih.super_walk_cuda = ih.super_walk_ref
+    try:
+        yield
+    finally:
+        ik.dense_walk_cuda, ih.super_walk_cuda = saved
+
+
+def env_chain(dirs, env, exact_uv: bool = False, chunk: int = 1 << 21):
+    """Library yardstick for the env MLP (never called by the port): the
+    same network as a chain of bf16 torch.matmul with f32 bias, features
+    from the plain torch math (``exact_uv``: the XLA env function's
+    angles, as ``envk.env_mlp(..., exact_uv=True)`` takes them), in chunks
+    of ``chunk`` directions (to bound its f32 temporaries). It sums on the
+    same tensor cores as the kernel, so its deviation from the plain
+    version shows how far a tensor-core sum order moves the result
+    (``envk.within_yardstick``)."""
+    from ipu_ray_lib_tpu_torch.nif.model import (decode_rgb, equirect_uvn,
+                                                 fourier_features)
+
+    def one(d):
+        un, vn = equirect_uvn(d, env.rotation, exact_uv=exact_uv)
+        feats = fourier_features(un, vn, env.config.embedding_dimension)
+        x = feats
+        for l, (_, _, relu, concat) in enumerate(env.layers):
+            w, b = env.layer(l)
+            if concat:
+                x = torch.cat([x, feats], dim=1)
+            x = torch.matmul(x.to(torch.bfloat16), w).to(torch.float32) + b
+            if relu:
+                x = torch.clamp_min(x, 0.0)
+        return decode_rgb(x, env.max, env.mean, env.config.log_tone_map)
+
+    return torch.cat([one(dirs[i:i + chunk])
+                      for i in range(0, dirs.shape[0], chunk)])
+
+
 # Phase 12, the sharded and progressive paths: a mesh of SHARDS shards of
 # one card; the two-rank check at TWO_RANK_SIZE^2 spp TWO_RANK_SPP.
 SHARDS = 3
@@ -398,8 +468,8 @@ def bits_equal(a, b) -> bool:
     return bool(np.array_equal(a, b))
 
 
-def sharded_and_progressive(dev, scene, params, env, plain_walks,
-                            full=FULL, spp=SPP) -> dict:
+def sharded_and_progressive(dev, scene, params, env, full=FULL,
+                            spp=SPP) -> dict:
     """Phase 12: the sharded path trace (``render_streaming_sharded``) and
     shadow trace (``render_shadow_sharded``) on a mesh of SHARDS shards of
     ``dev``, the progressive path trace and the f16 readback, each
@@ -981,6 +1051,416 @@ def application(dev) -> dict:
     return out
 
 
+# Phase 14: the per-sample wavefront (render/path.py, ``render(streaming=
+# False)``, ``render_path_sharded``) and NIF training (nif/train.py).
+PS_SPP = 4            # the full-width per-sample frame's spp (cut from 64)
+PS_MEAN_REL = 0.15    # its mean against render_streaming's at that spp
+PS_WINDOW = 64        # the kernel-vs-plain window of the sharded route
+TRAIN_ARCH = (12, 6, 320)      # E, layers, width: the reference family's
+TRAIN_STEPS, TRAIN_BATCH = 300, 4096
+TRAIN_HDRI = (512, 1024)
+# The card's first TRAIN_CURVE_STEPS losses against the plain CPU run of
+# the same steps (the same initial weights and batches; f32 products
+# summed in other orders), the first step and the whole curve (measured
+# on an H100: the first bit for bit, the curve within 2.78e-5, the weights
+# after it within 3.7e-4 of a largest 0.88; tests/test_torch_nif_train.py
+# holds the CPU's 50-step curve against optax's at the same 1e-4):
+TRAIN_CURVE_STEPS = 20
+TRAIN_FIRST_LOSS_REL = 1e-4
+TRAIN_CURVE_REL = 1e-4
+TRAINED_SIZE, TRAINED_SPP = 512, 16
+
+
+def per_sample_and_training(dev, scene, params, full=FULL) -> dict:
+    """Phase 14: (a) ``path_trace_sample``'s kernel route against its plain
+    route (the closest-hit walks swapped for their plain versions on the
+    card; the env MLP for ``env_mlp_ref``): Cornell + monkey 64x64 (K5),
+    stress24 in HBM mode with the f32 and the bf16 payload (K6), spheres +
+    NIF 48x32 (K2), every field bit for bit and the NIF-lit image within
+    ``envk.within_high_frequency``; (b) ``render(streaming=False)`` of
+    ``scene`` (Cornell + monkey) at full^2 spp PS_SPP in chunks of 65,536:
+    a warm-up of one chunk under the NIF, then three timed frames, K5's
+    launches and the host syncs, the frame split into K5 (CUDA events over
+    the first frame's own calls) and the rest; (c) ``render_path_sharded``
+    on SHARDS shards of the card, kernel vs plain on a PS_WINDOW^2 window
+    and the full^2 spp PS_SPP frame under the NIF timed; in (b)'s warm-up
+    and (c)'s frame, K2's own output on the first call's escapes against
+    ``env_mlp_ref`` beside the torch.matmul chain (``envk.within_yardstick``);
+    (d) ``train_nif`` at 6 x 320, E = 12 on ``synth_hdri``:
+    TRAIN_CURVE_STEPS steps on the card against the CPU's, 300 steps timed,
+    then the trained NIF saved, loaded and rendered through K1's record
+    mode, K2 and the bank. Raises on any failed check; returns the numbers
+    it logged."""
+    import tempfile
+
+    from ipu_ray_lib_tpu_torch.nif.model import load_nif_env
+    from ipu_ray_lib_tpu_torch.nif.synth import synth_hdri
+    from ipu_ray_lib_tpu_torch.nif.train import save_nif_assets, train_nif
+    from ipu_ray_lib_tpu_torch.ops import env as envk
+    from ipu_ray_lib_tpu_torch.ops import intersect_hbm as ih
+    from ipu_ray_lib_tpu_torch.ops import intersect_kernel as ik
+    from ipu_ray_lib_tpu_torch.ops import megakernel as mk
+    from ipu_ray_lib_tpu_torch.ops.camera import (generate_camera_rays,
+                                                  pixel_grid)
+    from ipu_ray_lib_tpu_torch.parallel import (make_ray_mesh,
+                                                render_path_sharded,
+                                                shard_rays)
+    from ipu_ray_lib_tpu_torch.render import renderer as rmod
+    from ipu_ray_lib_tpu_torch.render.path import path_trace_sample
+    from ipu_ray_lib_tpu_torch.render.renderer import DEFAULT_CHUNK, render
+    from ipu_ray_lib_tpu_torch.render.streaming import render_streaming
+    from ipu_ray_lib_tpu_torch.scene.build import build_scene
+    from ipu_ray_lib_tpu_torch.scene.builtin import (make_cornell_box_scene,
+                                                     make_primitive_scene,
+                                                     make_stress_scene)
+    from ipu_ray_lib_tpu_torch.utils import threefry as tf
+
+    t_phase = time.perf_counter()
+    out = {"launches": {}, "k2_gates": {},
+           "max_abs_err": {"k5": 0.0, "k6": 0.0, "env": 0.0}}
+    monkey = os.path.join(ROOT, "assets", "monkey_bust.glb")
+
+    def reset():
+        for m in (ik, ih, envk, mk):
+            m.reset_launches()
+
+    def counts() -> dict:
+        return {"k5": ik.launches, "k6": ih.launches, "env": envk.launches,
+                "k1": mk.launches, "k3": mk.hbm_launches,
+                "bank": mk.bank_launches}
+
+    def need(name, got, keys):
+        """The kernels ``keys`` each launched at least once in ``got``."""
+        missing = [k for k in keys if got[k] < 1]
+        if missing:
+            raise AssertionError(f"{name}: {missing} never launched")
+
+    # -- (a) path_trace_sample: kernel route vs plain route --
+    def sample_routes(name, key_err, sc, p, size_wh, spp, env=None):
+        w, h = size_wh
+        rows, cols = pixel_grid(w, h, 0, 0, dev)
+        base = tf.PRNGKey(p.rng_seed)
+        res = {"kernel": [], "plain": []}
+        reset()
+        for s in range(spp):
+            skey = tf.fold_in(base, s)
+            o, d = generate_camera_rays(rows, cols, p.image_width,
+                                        p.image_height, p.fov_radians,
+                                        p.anti_alias_scale,
+                                        tf.fold_in(skey, 0xC0FFEE))
+            run = lambda: path_trace_sample(
+                sc, o, d, skey, p.max_path_length, p.roulette_start_depth,
+                intersector=p.intersector)
+            r = run()
+            e = None if env is None else envk.env_mlp(r.esc_dir, env,
+                                                      exact_uv=True)
+            res["kernel"].append((r, e))
+        got = counts()
+        torch.cuda.synchronize()
+        for s in range(spp):
+            skey = tf.fold_in(base, s)
+            o, d = generate_camera_rays(rows, cols, p.image_width,
+                                        p.image_height, p.fov_radians,
+                                        p.anti_alias_scale,
+                                        tf.fold_in(skey, 0xC0FFEE))
+            with plain_walks():
+                r = path_trace_sample(sc, o, d, skey, p.max_path_length,
+                                      p.roulette_start_depth,
+                                      intersector=p.intersector)
+            e = (None if env is None
+                 else envk.env_mlp_ref(r.esc_dir, env, exact_uv=True))
+            res["plain"].append((r, e))
+        bad, e_max, img = 0, 0.0, {}
+        for route in ("kernel", "plain"):
+            acc = 0.0
+            for r, e in res[route]:
+                rgb = r.rgb
+                if e is not None:
+                    rgb = rgb + torch.where(r.escaped[:, None],
+                                            r.esc_throughput * e, 0.0)
+                acc = acc + rgb
+            img[route] = (acc / spp).cpu().numpy()
+        for (rk, _), (rp, _) in zip(res["kernel"], res["plain"]):
+            for f in rk._fields:
+                a, b = getattr(rk, f), getattr(rp, f)
+                bad += int((a != b).sum())
+                if a.is_floating_point():
+                    e_max = max(e_max, float((a - b).abs().max()))
+        out["max_abs_err"][key_err] = max(out["max_abs_err"][key_err], e_max)
+        n_esc = sum(int(r.escaped.sum()) for r, _ in res["kernel"])
+        line = (f"[per-sample {name}] {w}x{h} spp {spp}: launches {got}; "
+                f"{bad} elements of the samples' fields differ from the "
+                f"plain route; escapes {n_esc}")
+        out_of = []
+        if env is not None:
+            dv = envk.deviation(img["kernel"], img["plain"])
+            out_of = envk.within_high_frequency(dv)
+            out["max_abs_err"]["env"] = max(
+                out["max_abs_err"]["env"],
+                float(np.abs(img["kernel"] - img["plain"]).max()))
+            line += (f"; the NIF-lit image vs plain: within 1e-5 "
+                     f"{dv['within_1e5']:.6f}, within 1e-2 "
+                     f"{dv['within_1e2']:.6f}, max rel {dv['max_rel']:.4g}")
+        elif not np.array_equal(img["kernel"], img["plain"]):
+            bad += 1
+        log(line)
+        out["launches"][f"a_{name}"] = got
+        if bad or out_of or not np.isfinite(img["kernel"]).all():
+            raise AssertionError(f"per-sample {name}: the kernel route "
+                                 f"disagrees with the plain route ({bad}, "
+                                 f"{out_of})")
+        return got
+
+    small = lambda desc, size, **kw: build_scene(
+        desc, device=dev, image_width=size[0], image_height=size[1],
+        samples_per_pixel=2, **kw)
+    sc, p = small(make_cornell_box_scene(monkey, box_only=False), (64, 64))
+    need("Cornell + monkey", sample_routes("cornell+monkey", "k5", sc, p,
+                                           (64, 64), 2), ["k5"])
+    for split in (False, True):
+        sc, p = small(make_stress_scene(24), (32, 32),
+                      intersector="pallas-hbm", payload_split=split)
+        need("stress24", sample_routes(
+            f"stress24 {'bf16' if split else 'f32'} payload", "k6", sc, p,
+            (32, 32), 2), ["k6"])
+    env = load_nif_env(NIF_DIR, device=dev)
+    sc, p = small(make_primitive_scene(), (48, 32))
+    need("spheres + NIF", sample_routes("spheres+NIF", "env", sc, p,
+                                        (48, 32), 2, env=env), ["env"])
+
+    # -- K2 as the main path calls it --
+    @contextlib.contextmanager
+    def recording_env():
+        """The env MLP's calls from ``env_term`` (render/renderer.py, the
+        env term of every per-sample path) recorded as (dirs, rgb) for the
+        length of the block."""
+        k2_calls, saved_env = [], rmod.env_mlp
+
+        def rec_env(dirs, env_, exact_uv=False):
+            rgb = saved_env(dirs, env_, exact_uv)
+            k2_calls.append((dirs, rgb))
+            return rgb
+
+        rmod.env_mlp = rec_env
+        try:
+            yield k2_calls
+        finally:
+            rmod.env_mlp = saved_env
+
+    def k2_gate(name, k2_calls):
+        """K2 (``exact_uv``) on the escaped rows of the first call that a
+        main-path run made, its own output against ``env_mlp_ref`` beside
+        the torch.matmul chain: the gate of ``envk.within_yardstick``."""
+        dirs, got = k2_calls[0]
+        esc = dirs.abs().sum(dim=1) > 0   # escape directions are unit
+        dirs, got = dirs[esc], got[esc]
+        want = envk.env_mlp_ref(dirs, env, exact_uv=True)
+        want_np = want.cpu().numpy()
+        dk = envk.deviation(got.cpu().numpy(), want_np)
+        dl = envk.deviation(env_chain(dirs, env, exact_uv=True).cpu().numpy(),
+                            want_np)
+        bad = envk.within_yardstick(dk, dl)
+        e_max = float((got - want).abs().max())
+        out["max_abs_err"]["env"] = max(out["max_abs_err"]["env"], e_max)
+        out["k2_gates"][name] = dict(rows=int(esc.numel()),
+                                     escapes=int(esc.sum()), kernel=dk,
+                                     chain=dl, max_abs_err=e_max)
+        log(f"[per-sample K2] {name}: {int(esc.numel())} rows, "
+            f"{int(esc.sum())} escapes; kernel (exact_uv) vs plain "
+            f"{json.dumps(dk)}, max |diff| {e_max:.3g}; torch.matmul chain "
+            f"vs plain {json.dumps(dl)}; gate failures {bad}")
+        if bad or not bool(torch.isfinite(got).all()):
+            raise AssertionError(f"per-sample K2 {name}: outside its "
+                                 f"tolerance: {bad}")
+
+    # -- (b) render(streaming=False) at full width --
+    pf = dataclasses.replace(params, samples_per_pixel=PS_SPP)
+    n_paths = full * full * PS_SPP
+    frame = lambda st=None: render(scene, pf, mode="path-trace",
+                                   chunk_size=DEFAULT_CHUNK, streaming=False,
+                                   stats=st)
+    # The warm-up: one chunk of the frame (its centred window of
+    # DEFAULT_CHUNK pixels at spp 1) under the NIF, K2's input recorded.
+    side = int(DEFAULT_CHUNK ** 0.5)
+    c0 = (full - side) // 2
+    p_chunk = dataclasses.replace(params, samples_per_pixel=1, window_w=side,
+                                  window_h=side, window_c=c0, window_r=c0)
+    reset()
+    with recording_env() as k2_calls:
+        (_, t_warm) = timed(lambda: render(
+            scene, p_chunk, mode="path-trace", chunk_size=DEFAULT_CHUNK,
+            streaming=False, env=env))
+    got_c = counts()
+    out["launches"]["b_chunk_nif"] = got_c
+    need("per-sample chunk under the NIF", got_c, ["k5", "env"])
+    k2_gate(f"render(streaming=False), a chunk of {side * side}", k2_calls)
+    del k2_calls
+    # Three timed frames; the first also keeps K5's calls (inputs only),
+    # to time K5 alone:
+    calls, times, st = [], [], {}
+    saved = ik.dense_walk_cuda
+
+    def rec(sc_, *a):
+        calls.append(a)
+        return saved(sc_, *a)
+
+    reset()
+    for i in range(3):
+        st = {}
+        ik.dense_walk_cuda = rec if i == 0 else saved
+        try:
+            o_b, t = timed(lambda: frame(st))
+        finally:
+            ik.dense_walk_cuda = saved
+        times.append(t)
+    got = {k: v // 3 for k, v in counts().items()}
+    need("per-sample frame", got, ["k5"])
+    k5_ms, _ = event_ms(lambda: [ik.walk_cuda(scene, *a, hbm=False)
+                                 for a in calls])
+    # and behind a spin kernel, the card's time (the host's launch rate
+    # hidden):
+    k5_card_ms, _ = event_ms(lambda: [ik.walk_cuda(scene, *a, hbm=False)
+                                      for a in calls], hold_ms=300.0)
+    del calls
+    (srgb, _), _ = timed(lambda: render_streaming(scene, pf))
+    mean_rel = abs(float(o_b.rgb.mean()) / float(srgb.mean()) - 1.0)
+    fm = median(times) * 1e3
+    out["frame"] = dict(
+        warmup_chunk_s=t_warm, frames_s=times,
+        paths_per_s=n_paths / min(times), launches=got, syncs=st["syncs"],
+        bounces=st["bounces"], errors=st["errors"], k5_ms=k5_ms,
+        k5_card_ms=k5_card_ms, frame_ms=fm,
+        host_share=1 - median(k5_card_ms) / fm, mean=float(o_b.rgb.mean()),
+        streaming_mean=float(srgb.mean()), mean_rel=mean_rel)
+    out["launches"]["b_frame"] = got
+    log(f"[per-sample frame] Cornell + monkey {full}^2 spp {PS_SPP}, chunks "
+        f"of {DEFAULT_CHUNK}: warm-up (one chunk, spp 1, under the NIF) "
+        f"{t_warm:.3f} s, frames {', '.join(f'{t:.3f}' for t in times)} s "
+        f"(the first keeps K5's inputs), best "
+        f"{n_paths / min(times) / 1e6:.2f} M paths/s; launches per frame "
+        f"{got}; host syncs {st['syncs']}, bounces {st['bounces']}, material "
+        f"errors {st['errors']}; K5 alone over the frame's calls "
+        f"{', '.join(f'{t:.2f}' for t in k5_ms)} ms (behind a spin kernel "
+        f"{', '.join(f'{t:.2f}' for t in k5_card_ms)} ms), host share (frame "
+        f"minus K5) {1 - median(k5_card_ms) / fm:.3f}; mean "
+        f"{float(o_b.rgb.mean()):.6f} "
+        f"vs render_streaming's {float(srgb.mean()):.6f} (rel "
+        f"{mean_rel:.4f})")
+    if (st["errors"] or not np.isfinite(o_b.rgb).all()
+            or o_b.rgb.shape != (full, full, 3) or mean_rel > PS_MEAN_REL):
+        raise AssertionError("the per-sample frame failed its checks")
+
+    # -- (c) render_path_sharded on SHARDS shards of the card --
+    rmesh = make_ray_mesh([dev] * SHARDS)
+
+    def grid(n, c0):
+        """The n x n window at (c0, c0), padded to whole shards."""
+        rows, cols = pixel_grid(n, n, c0, c0, "cpu")
+        pad = shard_rays(n * n, rmesh) - n * n
+        return (torch.nn.functional.pad(rows, (0, pad)),
+                torch.nn.functional.pad(cols, (0, pad)))
+
+    rows, cols = grid(PS_WINDOW, (full - PS_WINDOW) // 2)
+    key = tf.PRNGKey(params.rng_seed)
+    pw = dataclasses.replace(params, samples_per_pixel=2)
+    reset()
+    a_k = render_path_sharded(scene, pw, rows, cols, key, rmesh)
+    got_w = counts()
+    with plain_walks():
+        a_p = render_path_sharded(scene, pw, rows, cols, key, rmesh)
+    out["launches"]["c_window"] = got_w
+    need("sharded window", got_w, ["k5"])
+    ok_w = bits_equal(a_k.numpy(), a_p.numpy())
+    # The full frame under the NIF (trace_torch.py --nif-hdri --devices N):
+    rows, cols = grid(full, 0)
+    reset()
+    s_st = {}
+    with recording_env() as k2_calls:
+        s_rgb, t_sh = timed(lambda: render_path_sharded(
+            scene, pf, rows, cols, key, rmesh, env=env, stats=s_st))
+    got_s = counts()
+    out["launches"]["c_frame_nif"] = got_s
+    need("sharded frame", got_s, ["k5", "env"])
+    k2_gate(f"render_path_sharded, a shard of {rows.shape[0] // SHARDS}",
+            k2_calls)
+    del k2_calls
+    out["sharded"] = dict(window_bits_equal=ok_w, window_launches=got_w,
+                          frame_s=t_sh, frame_launches=got_s,
+                          syncs=s_st["syncs"],
+                          mean=float(s_rgb.mean()))
+    log(f"[per-sample sharded] {SHARDS} shards: {PS_WINDOW}^2 window spp 2 "
+        f"kernel vs plain bit for bit {ok_w} (launches {got_w}); {full}^2 "
+        f"spp {PS_SPP} under the NIF: {t_sh:.3f} s = "
+        f"{n_paths / t_sh / 1e6:.2f} M paths/s, launches {got_s}, host syncs "
+        f"{s_st['syncs']}, mean {float(s_rgb.mean()):.6f}")
+    if not ok_w or not torch.isfinite(s_rgb).all():
+        raise AssertionError("render_path_sharded failed its checks")
+
+    # -- (d) NIF training at the reference family's width --
+    img = synth_hdri(*TRAIN_HDRI, seed=11)
+    E, L, W = TRAIN_ARCH
+    # TRAIN_CURVE_STEPS steps on the card and on the CPU from the same
+    # seed: the card's run also starts cuBLAS and autograd (its time is
+    # the cold start), so that the timed run is the steady state.
+    curve, cpu_curve = [], []
+    (m_card, _), t_cold = timed(lambda: train_nif(
+        img, E, L, W, steps=TRAIN_CURVE_STEPS, batch_size=TRAIN_BATCH,
+        device=dev, losses=curve))
+    (m_cpu, _), t_cpu = timed(lambda: train_nif(
+        img, E, L, W, steps=TRAIN_CURVE_STEPS, batch_size=TRAIN_BATCH,
+        device="cpu", losses=cpu_curve))
+    curve_rel = np.abs(np.asarray(curve) / np.asarray(cpu_curve) - 1.0)
+    top = max(float(k.detach().abs().max()) for k in m_cpu.kernels)
+    w_diff = max(float((a.detach().cpu() - b.detach()).abs().max())
+                 for a, b in zip(m_card.parameters(), m_cpu.parameters()))
+    losses = []
+    (model, meta), t_train = timed(lambda: train_nif(
+        img, E, L, W, steps=TRAIN_STEPS, batch_size=TRAIN_BATCH,
+        device=dev, losses=losses))
+    tail = float(np.mean(losses[-10:]))
+    with tempfile.TemporaryDirectory() as tmp:
+        save_nif_assets(model, meta, tmp)
+        tenv = load_nif_env(tmp, device=dev)
+    sc, p = build_scene(make_primitive_scene(), device=dev,
+                        image_width=TRAINED_SIZE, image_height=TRAINED_SIZE,
+                        samples_per_pixel=TRAINED_SPP)
+    reset()
+    (trgb, tdone), t_r = timed(lambda: render_streaming(sc, p, env=tenv))
+    got_t = counts()
+    out["training"] = dict(
+        steps=TRAIN_STEPS, seconds=t_train, steps_per_s=TRAIN_STEPS / t_train,
+        cold_steps=TRAIN_CURVE_STEPS, cold_s=t_cold, cpu_s=t_cpu,
+        curve=curve, cpu_curve=cpu_curve,
+        first_loss_rel=float(curve_rel[0]),
+        curve_max_rel=float(curve_rel.max()),
+        weights_max_abs_diff=w_diff, weights_max_abs=top,
+        first_loss=losses[0], last10_loss=tail,
+        render_s=t_r, render_launches=got_t, render_mean=float(trgb.mean()))
+    out["launches"]["d_render"] = got_t
+    log(f"[NIF training] {L} x {W}, E = {E}, batch {TRAIN_BATCH}, "
+        f"synth_hdri {TRAIN_HDRI[0]}x{TRAIN_HDRI[1]}: {TRAIN_STEPS} steps in "
+        f"{t_train:.3f} s = {TRAIN_STEPS / t_train:.1f} steps/s (the cold "
+        f"{TRAIN_CURVE_STEPS} steps before it {t_cold:.3f} s); loss "
+        f"{losses[0]:.6g} -> {tail:.6g} (mean of the last 10); the card's "
+        f"first {TRAIN_CURVE_STEPS} losses vs the CPU's (its run "
+        f"{t_cpu:.3f} s): first step rel {curve_rel[0]:.3g}, largest rel "
+        f"{curve_rel.max():.3g} (at step {int(curve_rel.argmax())}), the "
+        f"weights after them within {w_diff:.3g} (largest weight "
+        f"{top:.3g}); saved, loaded and rendered (spheres {TRAINED_SIZE}^2 "
+        f"spp {TRAINED_SPP}): {t_r:.3f} s, launches {got_t}, done {tdone}, "
+        f"mean {float(trgb.mean()):.6f}")
+    need("trained NIF render", got_t, ["k1", "env", "bank"])
+    if (not np.isfinite(losses).all() or tail > 0.5 * losses[0]
+            or curve_rel[0] > TRAIN_FIRST_LOSS_REL
+            or curve_rel.max() > TRAIN_CURVE_REL
+            or not np.isfinite(trgb).all()
+            or tdone != TRAINED_SIZE * TRAINED_SIZE * TRAINED_SPP):
+        raise AssertionError("NIF training failed its checks")
+    out["seconds"] = time.perf_counter() - t_phase
+    log(f"[per-sample] {json.dumps(out)}")
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
@@ -1255,31 +1735,12 @@ def main() -> int:
                          image_height=64, samples_per_pixel=4)
     kernel_vs_plain("spheres+NIF 64x64", n6, p6, 4, env=env, key="k1_rec")
 
-    # Library yardstick for the env MLP (never called by the port): the
-    # same network as a chain of bf16 torch.matmul with f32 bias, features
-    # from the plain torch math, in chunks of 2M directions (to bound its
-    # f32 temporaries). It sums on the same tensor cores as the kernel, so
-    # its deviation from the plain version shows how far a tensor-core sum
-    # order moves the result (envk.within_yardstick).
-    from ipu_ray_lib_tpu_torch.nif.model import (decode_rgb, equirect_uvn,
-                                                 fourier_features)
+    # Library yardstick for the env MLP (env_chain, never called by the
+    # port): how far a tensor-core sum order moves the result.
+    from ipu_ray_lib_tpu_torch.nif.model import equirect_uvn
 
-    def library_chunk(d):
-        un, vn = equirect_uvn(d, env.rotation)
-        feats = fourier_features(un, vn, env.config.embedding_dimension)
-        x = feats
-        for l, (_, _, relu, concat) in enumerate(env.layers):
-            w, b = env.layer(l)
-            if concat:
-                x = torch.cat([x, feats], dim=1)
-            x = torch.matmul(x.to(torch.bfloat16), w).to(torch.float32) + b
-            if relu:
-                x = torch.clamp_min(x, 0.0)
-        return decode_rgb(x, env.max, env.mean, env.config.log_tone_map)
-
-    def library_mlp(d, chunk=1 << 21):
-        return torch.cat([library_chunk(d[i:i + chunk])
-                          for i in range(0, d.shape[0], chunk)])
+    def library_mlp(d):
+        return env_chain(d, env)
 
     def env_worst(name, dirs, got, want, lib, k=6):
         """Where the kernel lies furthest from the plain version: the
@@ -1771,18 +2232,6 @@ def main() -> int:
         nd = torch.where((nd * n).sum(1, keepdim=True) < 0, -nd, nd)
         p = p + n * 1e-2 * (1.0 + p.abs().amax(1, keepdim=True))
         return p.contiguous(), nd.contiguous()
-
-    @contextlib.contextmanager
-    def plain_walks():
-        """The plain route: the wrappers' CUDA calls replaced by the plain
-        versions on the same device (for replays only)."""
-        saved = ik.dense_walk_cuda, ih.super_walk_cuda
-        ik.dense_walk_cuda = ik.dense_walk_ref
-        ih.super_walk_cuda = ih.super_walk_ref
-        try:
-            yield
-        finally:
-            ik.dense_walk_cuda, ih.super_walk_cuda = saved
 
     @contextlib.contextmanager
     def recording(mod, name, calls):
@@ -2651,11 +3100,22 @@ def main() -> int:
     # ---- 12. sharded and progressive: render_streaming_sharded and
     # render_shadow_sharded on SHARDS shards of the card, the progressive
     # path trace, the f16 readback, two ranks on the card ----
-    sharded_and_progressive(dev, scene, params, env, plain_walks)
+    sharded_and_progressive(dev, scene, params, env)
 
     phase("13")
     # ---- 13. the application: trace_torch.py with the README's commands
     app = application(dev)
+
+    phase("14")
+    # ---- 14. the per-sample wavefront (render(streaming=False),
+    # render_path_sharded) through K5, K6 and K2, and NIF training ----
+    ps = per_sample_and_training(dev, scene, params)
+    for k in ("k5", "k6", "env"):
+        err[k] = max(err[k], ps["max_abs_err"][k])
+
+    def ps_launches(k):
+        """Kernel ``k``'s launches in each of phase 14's runs."""
+        return {run: n[k] for run, n in ps["launches"].items()}
 
     def intersect_bound(sc, need, rays, list_bytes):
         """K5/K6's bound over one frame's calls: the (lane, block) pairs
@@ -2737,7 +3197,8 @@ def main() -> int:
               f"{mega}:2362", "k1_rec", launches["k1_rec"], median(rec_ms),
               f"flagship launch, spheres+NIF {NIF_SIZE}^2 spp {NIF_SPP}",
               p_rec_cut * 1e3, median(k_rec_cut),
-              f"its slot pool (R={R7}, J={J7}) at spp {CUT}"),
+              f"its slot pool (R={R7}, J={J7}) at spp {CUT}",
+              launches_per_sample=ps_launches("k1")),
         entry("env_mlp", "env_mlp.cu", f"{mega}:2304", "env",
               launches["env"], median(mlp_ms),
               f"the flagship's {n_esc} escaped paths", t_env_plain * 1e3,
@@ -2748,6 +3209,7 @@ def main() -> int:
               plain_ms_small=t_ep * 1e3,
               small_shape=f"{ENV_DIRS} seeded directions",
               kernel_ms_turns=env_turn_ms, library_ms_turns=lib_ms,
+              launches_per_sample=ps_launches("env"),
               tolerance="envk.within_yardstick: no further from the plain "
                         "version than the torch.matmul chain, plus slack",
               deviation={"escapes": {"kernel": env_dev_esc[0],
@@ -2757,7 +3219,8 @@ def main() -> int:
         entry("bank", "megakernel.cu", f"{mega}:2409", "bank",
               launches["bank"], median(bank_ms),
               f"the flagship's records, {NIF_SIZE}^2 spp {NIF_SPP}",
-              t_bank_p * 1e3, median(bank_ms), "the same records"),
+              t_bank_p * 1e3, median(bank_ms), "the same records",
+              launches_per_sample=ps_launches("bank")),
         entry("megakernel_path_trace[hbm]", "megakernel.cu", f"{mega}:1056",
               "k3", k3_launches, median(k3_ms),
               f"stress grid 512 (522,242 triangles) at {FULL}^2 spp {SPP}",
@@ -2799,7 +3262,9 @@ def main() -> int:
               ms_card=median(k5_card_ms),
               speculative_blocks=k5_spec,
               frame_ms=median(b_times) * 1e3,
-              iterations=b_iters),
+              iterations=b_iters, launches_per_sample=ps_launches("k5"),
+              per_sample_frame_k5_ms=ps["frame"]["k5_card_ms"],
+              per_sample_frame_ms=ps["frame"]["frame_ms"]),
         entry("hbm_intersect", "intersect.cu",
               "ipu_ray_lib_tpu/ops/pallas/intersect_hbm.py:47", "k6",
               k6_launches, median(k6_ms),
@@ -2812,7 +3277,8 @@ def main() -> int:
               distribution={k: v for k, v in k6_dist.items()
                             if k != "speculative_blocks"},
               frame_ms_all_aovs=median(a_all) * 1e3,
-              frame_ms_normals=median(a_nrm) * 1e3),
+              frame_ms_normals=median(a_nrm) * 1e3,
+              launches_per_sample=ps_launches("k6")),
     ]}))
     log(identity)
     print(json.dumps({"ok": True, "device": {

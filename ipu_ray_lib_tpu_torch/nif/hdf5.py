@@ -1,9 +1,10 @@
-"""Keras-HDF5 NIF weights, read with numpy and the standard library.
+"""Keras-HDF5 NIF weights, read and written with numpy and the standard
+library.
 
-Port of ``ipu_ray_lib_tpu/nif/hdf5.py`` ``load_keras_h5`` without h5py
-(the CUDA machine has none). The reader covers the small, fixed subset of
-HDF5 that the NIF weight files use, and raises ``ValueError`` on anything
-outside it rather than guess:
+Port of ``ipu_ray_lib_tpu/nif/hdf5.py`` (``load_keras_h5``,
+``save_keras_h5``) without h5py (the CUDA machine has none). The reader
+covers the small, fixed subset of HDF5 that the NIF weight files use, and
+raises ``ValueError`` on anything outside it rather than guess:
 
 * superblock version 0 or 1, any offset/length size of 4 or 8 bytes;
 * old-style groups: symbol-table message -> version 1 B-tree (group
@@ -17,8 +18,15 @@ outside it rather than guess:
 The file format contract (the Keras ``model_config`` JSON attribute, a
 Functional model whose Dense layers keep their weights at
 ``/model_weights/<name>/<name>/kernel:0`` and ``bias:0``) is the
-reference's (ref src/keras/Hdf5Model.cpp). Writing ``.h5`` files waits
-for NIF training in the port.
+reference's (ref src/keras/Hdf5Model.cpp).
+
+The writer emits that subset and nothing else: superblock version 0 with
+8-byte offsets and lengths, one old-style group per path component
+(version 1 object header, a version 1 B-tree leaf over symbol-table
+nodes, a local heap of the member names), contiguous little-endian
+datasets, and the root's three string attributes (``model_config``,
+``keras_version``, ``backend``, as the JAX package writes them) in one
+global heap collection. HDF5's own library reads it too (h5py).
 """
 
 from __future__ import annotations
@@ -339,3 +347,191 @@ def load_keras_h5(path: str) -> NifWeights:
             name=name, activation="none" if act == "linear" else act,
             kernel=kernel, bias=bias, dtype=str(kernel.dtype)))
     return weights
+
+
+# ---- the writer ----
+_UNDEF = (1 << 64) - 1
+_LEAF_K, _INTERNAL_K = 4, 16   # symbol-table node and B-tree node widths
+_ENTRY = 40                    # symbol-table entry with 8-byte offsets
+_SNOD_BYTES = 8 + 2 * _LEAF_K * _ENTRY
+_TREE_BYTES = 24 + (2 * _INTERNAL_K + 1) * 8 + 2 * _INTERNAL_K * 8
+_HEAP_FREE_NULL = 1            # the local heap's "no free block"
+_GCOL_MIN = 4096
+_FLOAT_TYPES = {  # dtype: (size, precision, exponent at, size, mantissa, bias)
+    np.dtype("<f2"): (2, 16, 10, 5, 10, 15),
+    np.dtype("<f4"): (4, 32, 23, 8, 23, 127),
+}
+
+
+def _pad8(b: bytes) -> bytes:
+    return b + b"\0" * (-len(b) % 8)
+
+
+def _u(v: int, n: int) -> bytes:
+    return int(v).to_bytes(n, "little")
+
+
+def _message(mtype: int, data: bytes) -> bytes:
+    data = _pad8(data)
+    return _u(mtype, 2) + _u(len(data), 2) + b"\0" * 4 + data
+
+
+def _object_header(messages: list) -> bytes:
+    body = b"".join(messages)
+    return (bytes([1, 0]) + _u(len(messages), 2) + _u(1, 4) + _u(len(body), 4)
+            + b"\0" * 4 + body)
+
+
+def _float_type(dt: np.dtype) -> bytes:
+    size, prec, eloc, esize, msize, bias = _FLOAT_TYPES[dt]
+    return (bytes([0x11, 0x20, prec - 1, 0]) + _u(size, 4) + _u(0, 2)
+            + _u(prec, 2) + bytes([eloc, esize, 0, msize]) + _u(bias, 4))
+
+
+def _vlen_str_type() -> bytes:
+    # class 9 (variable length), a UTF-8 string of 1-byte characters:
+    return (bytes([0x19, 0x01, 0x01, 0]) + _u(16, 4)
+            + bytes([0x10, 0, 0, 0]) + _u(1, 4) + _u(0, 2) + _u(8, 2))
+
+
+def _dataspace(shape: tuple) -> bytes:
+    return (bytes([1, len(shape), 0, 0]) + b"\0" * 4
+            + b"".join(_u(d, 8) for d in shape))
+
+
+class _Writer:
+    """A bump allocator over the file's bytes; addresses are offsets from
+    the start of the file (base address 0)."""
+
+    def __init__(self):
+        self.buf = bytearray(96)  # the superblock, written last
+
+    def put(self, data: bytes) -> int:
+        addr = len(self.buf)
+        self.buf += _pad8(bytes(data))
+        return addr
+
+    def reserve(self, n: int) -> int:
+        return self.put(b"\0" * n)
+
+    def patch(self, addr: int, data: bytes) -> None:
+        self.buf[addr:addr + len(data)] = data
+
+
+def _entry(name_off: int, header: int, stab=None) -> bytes:
+    """A symbol-table entry; ``stab`` (B-tree, heap) caches a group's."""
+    if stab is None:
+        return _u(name_off, 8) + _u(header, 8) + b"\0" * 24
+    return (_u(name_off, 8) + _u(header, 8) + _u(1, 4) + b"\0" * 4
+            + _u(stab[0], 8) + _u(stab[1], 8))
+
+
+def _write_group(w: _Writer, members: dict, attrs: list) -> tuple:
+    """An old-style group of ``members`` ({name: (header address, stab or
+    None)}) with the attribute messages ``attrs``: returns (object header
+    address, (B-tree address, local heap address))."""
+    names = sorted(members, key=lambda n: n.encode())
+    seg, offs = bytearray(8), {}  # offset 0: the empty name
+    for n in names:
+        offs[n] = len(seg)
+        seg += _pad8(n.encode() + b"\0")
+    data = w.put(bytes(seg))
+    heap = w.put(b"HEAP" + bytes(4) + _u(len(seg), 8)
+                 + _u(_HEAP_FREE_NULL, 8) + _u(data, 8))
+    per = 2 * _LEAF_K
+    groups = [names[i:i + per] for i in range(0, len(names), per)] or [[]]
+    if len(groups) > 2 * _INTERNAL_K:
+        raise ValueError(f"{len(names)} members: more than one B-tree node")
+    snods = []
+    for g in groups:
+        node = b"SNOD" + bytes([1, 0]) + _u(len(g), 2) + b"".join(
+            _entry(offs[n], *members[n]) for n in g)
+        snods.append(w.put(node + b"\0" * (_SNOD_BYTES - len(node))))
+    tree = (b"TREE" + bytes([0, 0]) + _u(len(snods), 2) + _u(_UNDEF, 8)
+            + _u(_UNDEF, 8) + _u(0, 8))
+    for g, s in zip(groups, snods):
+        tree += _u(s, 8) + _u(offs[g[-1]] if g else 0, 8)
+    btree = w.put(tree + b"\0" * (_TREE_BYTES - len(tree)))
+    header = w.put(_object_header(
+        [_message(_MSG_SYMBOL_TABLE, _u(btree, 8) + _u(heap, 8))] + attrs))
+    return header, (btree, heap)
+
+
+def _write_dataset(w: _Writer, a: np.ndarray) -> int:
+    dt = a.dtype.newbyteorder("<")
+    if dt not in _FLOAT_TYPES:
+        raise ValueError(f"dtype {a.dtype} (supported: float16, float32)")
+    raw = np.ascontiguousarray(a, dt).tobytes()
+    addr = w.put(raw)
+    return w.put(_object_header([
+        _message(_MSG_DATASPACE, _dataspace(a.shape)),
+        _message(_MSG_DATATYPE, _float_type(dt)),
+        _message(_MSG_LAYOUT, bytes([3, 1]) + _u(addr, 8) + _u(len(raw), 8)),
+    ]))
+
+
+def _write_h5(path: str, tree: dict, attrs: dict) -> None:
+    """Write ``tree`` (nested {name: dict (a group) or ndarray}) with the
+    string ``attrs`` on the root group."""
+    w = _Writer()
+    strings = [v.encode("utf-8") for v in attrs.values()]
+    objs = b"".join(_u(i + 1, 2) + _u(1, 2) + b"\0" * 4 + _u(len(s), 8)
+                    + _pad8(s) for i, s in enumerate(strings))
+    size = max(_GCOL_MIN, 16 + len(objs) + 16)
+    free = size - 16 - len(objs)
+    gcol = w.put(b"GCOL" + bytes([1, 0, 0, 0]) + _u(size, 8) + objs
+                 + _u(0, 2) + _u(0, 2) + b"\0" * 4 + _u(free, 8)
+                 + b"\0" * (free - 16))
+    attr_msgs = []
+    for i, (name, s) in enumerate(zip(attrs, strings)):
+        nm, ty, sp = name.encode() + b"\0", _vlen_str_type(), _dataspace(())
+        attr_msgs.append(_message(_MSG_ATTRIBUTE, bytes([1, 0])
+                                  + _u(len(nm), 2) + _u(len(ty), 2)
+                                  + _u(len(sp), 2) + _pad8(nm) + _pad8(ty)
+                                  + _pad8(sp) + _u(len(s), 4) + _u(gcol, 8)
+                                  + _u(i + 1, 4)))
+
+    def node(t: dict, attr=()) -> tuple:
+        members = {}
+        for name, v in t.items():
+            if isinstance(v, dict):
+                members[name] = node(v)
+            else:
+                members[name] = (_write_dataset(w, np.asarray(v)), None)
+        return _write_group(w, members, list(attr))
+
+    root, stab = node(tree, attr_msgs)
+    sb = (b"\x89HDF\r\n\x1a\n" + bytes([0, 0, 0, 0, 0, 8, 8, 0])
+          + _u(_LEAF_K, 2) + _u(_INTERNAL_K, 2) + _u(0, 4) + _u(0, 8)
+          + _u(_UNDEF, 8) + _u(len(w.buf), 8) + _u(_UNDEF, 8)
+          + _entry(0, root, stab))
+    w.patch(0, sb)
+    with open(path, "wb") as f:
+        f.write(bytes(w.buf))
+
+
+def save_keras_h5(path: str, weights: NifWeights,
+                  embedding_dimension: int) -> None:
+    """Write weights in the reference-compatible Keras H5 layout (the JAX
+    package's ``save_keras_h5``, hdf5.py:80-114: its ``model_config``,
+    ``keras_version`` and ``backend`` attributes and
+    ``/model_weights/<name>/<name>/{kernel:0,bias:0}``), without h5py."""
+    in_dim = int(weights.layers[0].kernel.shape[0]) if weights.layers else 0
+    layers_cfg = [{"class_name": "InputLayer",
+                   "config": {"name": "input_1",
+                              "batch_input_shape": [None, in_dim]}}]
+    for l in weights.layers:
+        layers_cfg.append({"class_name": "Dense", "config": {
+            "name": l.name,
+            "activation": ("linear" if l.activation in ("none", "linear")
+                           else l.activation),
+            "dtype": l.dtype, "units": int(l.kernel.shape[1]),
+            "use_bias": l.bias is not None}})
+    config = {"class_name": "Functional", "config": {"layers": layers_cfg}}
+    tree = {"model_weights": {
+        l.name: {l.name: {"kernel:0": l.kernel,
+                          **({} if l.bias is None else {"bias:0": l.bias})}}
+        for l in weights.layers}}
+    _write_h5(path, tree, {"model_config": json.dumps(config),
+                           "keras_version": "2.x-ipu_ray_lib_tpu",
+                           "backend": "jax"})

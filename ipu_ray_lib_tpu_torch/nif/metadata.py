@@ -1,5 +1,5 @@
-"""NIF metadata parsing (a jax-free copy of
-``ipu_ray_lib_tpu/nif/metadata.py`` ``NifMetadata.load``).
+"""NIF metadata parsing and writing (a jax-free copy of
+``ipu_ray_lib_tpu/nif/metadata.py`` ``NifMetadata``).
 
 Reads the ``nif_metadata.txt`` JSON emitted by the NIF training tool
 (format contract of ref src/neural_networks/NifMetaData.cpp): embedding
@@ -55,3 +55,26 @@ class NifMetadata:
             mean=mean,
             hidden_size=hidden,
         )
+
+    def save(self, path: str, train_command=None) -> None:
+        """Write the JSON that :meth:`load` reads (eps unfolded from the
+        mean again when log tone-mapped)."""
+        mean = self.mean + (np.float32(self.eps) if self.log_tone_map else 0)
+        doc = {
+            "embedding_dimension": int(self.embedding_dimension),
+            "embedding_sigma": 2.0,
+            "encode_params": {
+                "eps": float(self.eps),
+                "log_tone_map": bool(self.log_tone_map),
+                "max": float(self.max),
+                "mean": [float(x) for x in mean],
+                "transfer_function": "log" if self.log_tone_map else "linear",
+            },
+            "keras_model": "",
+            "name": self.name,
+            "original_image_shape": list(self.image_shape),
+            "train_command": train_command or [
+                "train_nif.py", "--layer-size", str(self.hidden_size)],
+        }
+        with open(path, "w") as f:
+            json.dump(doc, f, indent=2)

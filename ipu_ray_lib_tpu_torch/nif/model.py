@@ -15,6 +15,13 @@ renderer's env term is:
   input widths (``NifModel.from_weights``);
 * decode ``x*max + mean``, ``exp`` when log tone-mapped, BGR -> RGB.
 
+:class:`NifModel` is the network in f32 as an ``nn.Module`` (the JAX
+``NifModel.apply`` with ``compute_dtype="float32"``, nif/model.py:120-146):
+Fourier features of uv [N, 2] (sin and cos correctly rounded), the
+Dense stack with f32 products, decode. NIF training (nif/train.py)
+differentiates through it; ``nif/train.py:save_nif_assets`` writes it
+for ``load_nif_env``.
+
 Two definitions are the port's own, and the kernel (``ops/cuda/
 env_mlp.cu``) and the plain version (``ops/env.py``) share them so that
 they agree bit for bit: each dense output is one f32 sum over the inputs
@@ -92,13 +99,23 @@ def acos_poly(x: torch.Tensor) -> torch.Tensor:
     return atan2_poly(s, x)
 
 
-def equirect_uvn(dirs: torch.Tensor, rotation) -> tuple[torch.Tensor,
-                                                        torch.Tensor]:
+def equirect_uvn(dirs: torch.Tensor, rotation,
+                 exact_uv: bool = False) -> tuple[torch.Tensor, torch.Tensor]:
     """(un, vn) [N] f32 of directions [N, 3] (:2314-2321): the normalised
-    equirect coordinates 2*(uv - 1) that the features scale."""
+    equirect coordinates 2*(uv - 1) that the features scale. ``exact_uv``:
+    theta and phi are the correctly rounded f32 values of arccos and atan2
+    (from float64), as the JAX package's XLA env function takes them
+    (``direction_to_equirect_uv``, nif/model.py:36-42), instead of the
+    megakernel's polynomials."""
     dy = torch.clamp(dirs[:, 1], -1.0, 1.0)
-    theta = acos_poly(dy)
-    phi = atan2_poly(dirs[:, 2], dirs[:, 0]) + rotation
+    if exact_uv:
+        theta = _f32_of_f64(torch.arccos, dy)
+        phi = torch.atan2(dirs[:, 2].to(torch.float64),
+                          dirs[:, 0].to(torch.float64)).to(torch.float32)
+    else:
+        theta = acos_poly(dy)
+        phi = atan2_poly(dirs[:, 2], dirs[:, 0])
+    phi = phi + rotation
     phi = torch.where(phi < 0.0, phi + _TWO_PI, phi)
     phi = torch.where(phi > _TWO_PI, phi - _TWO_PI, phi)
     un = 2.0 * (theta * _INV_PI - 1.0)
@@ -109,8 +126,8 @@ def equirect_uvn(dirs: torch.Tensor, rotation) -> tuple[torch.Tensor,
 def fourier_features(un: torch.Tensor, vn: torch.Tensor,
                      embedding_dimension: int) -> torch.Tensor:
     """[N, 4E] f32: sin(u 2^e), sin(v 2^e), cos(u 2^e), cos(v 2^e)."""
-    coeff = torch.tensor([float(2 ** e) for e in range(embedding_dimension)],
-                         dtype=torch.float32, device=un.device)
+    coeff = (2 ** torch.arange(embedding_dimension, device=un.device)
+             ).to(torch.float32)
     pu = un[:, None] * coeff
     pv = vn[:, None] * coeff
     return torch.cat([_f32_of_f64(torch.sin, pu), _f32_of_f64(torch.sin, pv),
@@ -240,6 +257,71 @@ class NifEnv(nn.Module):
         from ..ops.env import env_mlp
 
         return env_mlp(dirs, self)
+
+
+class NifModel(nn.Module):
+    """The NIF network in f32 (port of the JAX ``NifModel`` at
+    ``compute_dtype="float32"``): ``kernels`` [cin, cout] and ``biases``
+    [cout] are parameters; ``max`` and ``mean`` (BGR) are the decode's
+    buffers. ``raw(uv)`` is the network's output before the decode, which
+    training fits; ``forward(uv)`` decodes it (BGR)."""
+
+    def __init__(self, config: NifConfig, kernels, biases, max_=1.0,
+                 mean=(0.0, 0.0, 0.0), device=None):
+        super().__init__()
+        self.config = config
+        f32 = lambda a: torch.as_tensor(np.asarray(a, np.float32),
+                                        device=device)
+        self.kernels = nn.ParameterList([nn.Parameter(f32(k))
+                                         for k in kernels])
+        self.biases = nn.ParameterList([nn.Parameter(f32(b)) for b in biases])
+        self.register_buffer("max", f32(np.float32(max_)))
+        self.register_buffer("mean", f32(np.asarray(mean, np.float32)))
+
+    @property
+    def device(self) -> torch.device:
+        return self.kernels[0].device
+
+    def features(self, uv: torch.Tensor) -> torch.Tensor:
+        """Fourier features [N, 4E] of uv [N, 2] (``encode_input``):
+        uvn = 2*(uv - 1), then sin and cos of uvn * 2^e."""
+        uvn = 2.0 * (uv - 1.0)
+        return fourier_features(uvn[:, 0], uvn[:, 1],
+                                self.config.embedding_dimension)
+
+    def raw(self, uv: torch.Tensor) -> torch.Tensor:
+        """The Dense stack's output [N, 3] before the decode."""
+        feats = self.features(uv)
+        x = feats
+        for i, (k, b) in enumerate(zip(self.kernels, self.biases)):
+            if self.config.concat_before[i]:
+                x = torch.cat([x, feats], dim=1)
+            x = x @ k + b
+            if self.config.activations[i] == "relu":
+                x = torch.clamp_min(x, 0.0)
+        return x
+
+    def forward(self, uv: torch.Tensor) -> torch.Tensor:
+        """Decoded BGR radiance [N, 3] of uv [N, 2]."""
+        x = self.raw(uv) * self.max + self.mean
+        return torch.exp(x) if self.config.log_tone_map else x
+
+    @torch.no_grad()
+    def reconstruct_image(self, height: int | None = None,
+                          width: int | None = None, meta=None,
+                          batch: int = 1 << 16) -> np.ndarray:
+        """The decoded image grid [H, W, 3] (BGR) at uv = (row/H, col/W):
+        the standalone inference mode of ref NifModel.cpp:339-352."""
+        if meta is not None:
+            height = height or meta.image_shape[0]
+            width = width or meta.image_shape[1]
+        rr, cc = np.meshgrid(np.arange(height), np.arange(width),
+                             indexing="ij")
+        uv = np.stack([rr / height, cc / width], axis=-1).reshape(-1, 2)
+        uv = torch.from_numpy(uv.astype(np.float32)).to(self.device)
+        out = torch.cat([self(uv[s:s + batch])
+                         for s in range(0, uv.shape[0], batch)])
+        return out.cpu().numpy().reshape(height, width, 3)
 
 
 def from_jax_params(config, env_params: dict) -> NifEnv:

@@ -6,11 +6,13 @@
   mapped through constants the host computes in double and rounds to f32
   once, and the origin is the camera origin already offset along -z by
   ``RAY_EPSILON``.
-* :func:`generate_camera_rays` — the shadow trace's form (ops/camera.py
-  of the JAX package, :16-63, without jitter: the shadow trace calls it
-  with ``anti_alias_scale = 0`` and no key): origin exactly 0, direction
-  ``(x / w) - 0.5`` then ``2 * xn * aspect * tan(fov / 2)`` in f32, in
-  that order, then divided by its length.
+* :func:`generate_camera_rays` — the form of the JAX package's
+  ops/camera.py (:16-63), which the shadow trace calls without jitter and
+  the per-sample path trace (render/path.py) with a threefry key: the
+  pixel position plus ``anti_alias_scale`` times a pair of
+  ``jax.random.normal`` draws (utils/threefry.py), origin exactly 0,
+  direction ``(x / w) - 0.5`` then ``2 * xn * aspect * tan(fov / 2)`` in
+  f32, in that order, then divided by its length.
 """
 
 from __future__ import annotations
@@ -20,6 +22,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from ..utils import threefry
 from ..utils.constants import RAY_EPSILON
 from .vec3 import fma, normalize3, sqrt
 
@@ -64,9 +67,17 @@ def pixel_grid(window_w: int, window_h: int, window_c: int, window_r: int,
 
 def generate_camera_rays(rows: torch.Tensor, cols: torch.Tensor,
                          image_width: int, image_height: int,
-                         fov_radians: float):
+                         fov_radians: float, anti_alias_scale: float = 0.0,
+                         key: torch.Tensor | None = None):
     """(origins [R, 3] zeros, directions [R, 3]) through pixel (rows,
-    cols), unjittered."""
+    cols), jittered by ``anti_alias_scale`` times ``normal(key, (2, R))``
+    when a threefry ``key`` is given and the scale is positive (rows by
+    the first draw, columns by the second; each jitter fused into its sum,
+    as XLA compiles it)."""
+    if key is not None and anti_alias_scale > 0.0:
+        g = threefry.normal(key, (2,) + tuple(rows.shape), rows.device)
+        aa = float(np.float32(anti_alias_scale))
+        rows, cols = fma(g[0], aa, rows), fma(g[1], aa, cols)
     dirs = pixel_to_ray_dir(cols, rows, image_width, image_height,
                             tan_half_fov(fov_radians))
     return torch.zeros_like(dirs), dirs

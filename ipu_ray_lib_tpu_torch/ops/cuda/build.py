@@ -83,7 +83,7 @@ _SIGNATURES = {
     "megakernel_launch": [_P] * 12 + [_I] * 11 + [_U] + [_I] * 4 + [_P]
                          + [_I] + [_F] * 5 + [_P],
     "bank_launch": [_P] * 3 + [_I] * 3 + [_P],
-    "env_mlp_launch": [_P, _P, _I, _P, _I, _P, _P, _P, _P] + [_I] * 5
+    "env_mlp_launch": [_P, _P, _I, _P, _I, _P, _P, _P, _P] + [_I] * 6
                       + [_P, _P],
     "env_mlp_smem_bytes": [_I, _I],
     "shadow_launch": [_P] * 13 + [_I] * 5 + [_F] * 3 + [_P],
@@ -288,11 +288,13 @@ def launch_bank(rec, done, accum, *, spp: int) -> None:
     _raise_on(err, "bank")
 
 
-def launch_env_mlp(dirs, out, env, packed) -> None:
+def launch_env_mlp(dirs, out, env, packed, exact_uv: bool = False) -> None:
     """Env MLP of ``dirs`` [N, 3] f32 into ``out`` [N, 3] f32 (RGB): the
     f32 biases and constants of a
     :class:`~ipu_ray_lib_tpu_torch.nif.model.NifEnv`, its weights as
-    ``packed`` by :func:`~ipu_ray_lib_tpu_torch.ops.env.pack_mma`."""
+    ``packed`` by :func:`~ipu_ray_lib_tpu_torch.ops.env.pack_mma`;
+    ``exact_uv``: the equirect angles from the double-precision arccos and
+    atan2 (ops/env.py ``env_mlp``)."""
     n = dirs.shape[0]
     L = env.num_layers
     wq, stages, layers = packed["wq"], packed["stages"], packed["layers"]
@@ -317,7 +319,7 @@ def launch_env_mlp(dirs, out, env, packed) -> None:
             dirs.data_ptr(), out.data_ptr(), n, wq.data_ptr(), wq.numel() // 4,
             env.b.data_ptr(), layers.data_ptr(), stages.data_ptr(),
             host.ctypes.data, host.shape[0], L, E, ldx,
-            int(env.config.log_tone_map),
+            int(env.config.log_tone_map), int(exact_uv),
             env.econst.data_ptr(), _stream(dirs.device))
     _raise_on(err, "env_mlp")
 

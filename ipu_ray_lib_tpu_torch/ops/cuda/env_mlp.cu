@@ -155,7 +155,7 @@ env_mlp_kernel(const float* __restrict__ dirs, float* __restrict__ out, int n,
                const uint4* __restrict__ wq, const float* __restrict__ b,
                const int* __restrict__ ltab, const int* __restrict__ stages,
                int n_stages, int L, int E, int ldx, int log_tm,
-               const float* __restrict__ econst) {
+               int exact_uv, const float* __restrict__ econst) {
   extern __shared__ __align__(128) unsigned char smem[];
   unsigned char* ring = smem;
   __nv_bfloat16* xa = reinterpret_cast<__nv_bfloat16*>(smem + STAGES * STAGE_BYTES);
@@ -186,9 +186,14 @@ env_mlp_kernel(const float* __restrict__ dirs, float* __restrict__ out, int n,
     }
     const float two_pi = __int_as_float(0x40c90fdb);
     const float cy = jmin(jmax(dy, -1.0f), 1.0f);
+    // exact_uv: the angles of the JAX package's XLA env function
+    // (nif/model.py:36-42), correctly rounded from double precision.
     const float theta =
-        atan2_poly(sqrtf(jmax(__fadd_rn(1.0f, -__fmul_rn(cy, cy)), 0.0f)), cy);
-    float phi = __fadd_rn(atan2_poly(dz, dx), econst[0]);
+        exact_uv ? (float)acos((double)cy)
+                 : atan2_poly(sqrtf(jmax(__fadd_rn(1.0f, -__fmul_rn(cy, cy)), 0.0f)), cy);
+    float phi = __fadd_rn(
+        exact_uv ? (float)atan2((double)dz, (double)dx) : atan2_poly(dz, dx),
+        econst[0]);
     if (phi < 0.0f) phi = __fadd_rn(phi, two_pi);
     if (phi > two_pi) phi = __fadd_rn(phi, -two_pi);
     uvn[2 * tid] = __fmul_rn(2.0f, __fadd_rn(__fmul_rn(theta, __int_as_float(0x3ea2f983)), -1.0f));
@@ -320,7 +325,7 @@ extern "C" int env_mlp_launch(const float* dirs, float* out, int n,
                               const void* wq, int wq16, const float* b,
                               const int* ltab, const int* stages,
                               const int* stages_host, int n_stages, int L,
-                              int E, int ldx, int log_tm,
+                              int E, int ldx, int log_tm, int exact_uv,
                               const float* econst, void* stream) {
   if (L > MAX_LAYERS || n <= 0 || n_stages <= 0 || (ldx % 16) != 8 ||
       (E % 4) != 0)
@@ -339,6 +344,6 @@ extern "C" int env_mlp_launch(const float* dirs, float* out, int n,
   const int blocks = (n + TILE - 1) / TILE;
   env_mlp_kernel<<<blocks, THREADS, smem, static_cast<cudaStream_t>(stream)>>>(
       dirs, out, n, static_cast<const uint4*>(wq), b, ltab, stages, n_stages,
-      L, E, ldx, log_tm, econst);
+      L, E, ldx, log_tm, exact_uv, econst);
   return (int)cudaGetLastError();
 }

@@ -47,12 +47,15 @@ def _check(dirs: torch.Tensor, env) -> None:
         raise ValueError(f"dirs on {dirs.device}, env on {env.device}")
 
 
-def env_mlp_ref(dirs: torch.Tensor, env) -> torch.Tensor:
+def env_mlp_ref(dirs: torch.Tensor, env,
+                exact_uv: bool = False) -> torch.Tensor:
     """Plain-torch env radiance: dirs [N, 3] f32 -> RGB [N, 3] f32, in the
-    kernel's order, on any device."""
+    kernel's order, on any device (``exact_uv``: see
+    :func:`~ipu_ray_lib_tpu_torch.nif.model.equirect_uvn`)."""
     _check(dirs, env)
     cfg = env.config
-    un, vn = equirect_uvn(dirs, env.rotation)
+    un, vn = (equirect_uvn(dirs, env.rotation, exact_uv=True) if exact_uv
+              else equirect_uvn(dirs, env.rotation))
     feats = fourier_features(un, vn, cfg.embedding_dimension)
     x = feats
     for l, (_, _, relu, concat) in enumerate(env.layers):
@@ -208,21 +211,23 @@ def within_high_frequency(dev: dict) -> list[str]:
     return bad
 
 
-def env_mlp(dirs: torch.Tensor, env) -> torch.Tensor:
+def env_mlp(dirs: torch.Tensor, env, exact_uv: bool = False) -> torch.Tensor:
     """Env radiance of escape directions: dirs [N, 3] f32 -> RGB [N, 3].
 
     CUDA tensors launch the kernel (built at first use; a failed build or
-    launch raises); CPU tensors run :func:`env_mlp_ref`."""
+    launch raises); CPU tensors run :func:`env_mlp_ref`. ``exact_uv``: the
+    equirect angles of the JAX package's XLA env function (the per-sample
+    path tracer's env term) instead of the megakernel's polynomials."""
     global launches
     _check(dirs, env)
     if dirs.device.type == "cpu":
-        return env_mlp_ref(dirs, env)
+        return env_mlp_ref(dirs, env, exact_uv)
     if dirs.device.type != "cuda":
         raise ValueError(f"unsupported device {dirs.device}")
     from .cuda.build import launch_env_mlp
 
     out = torch.empty_like(dirs)
     if dirs.shape[0]:
-        launch_env_mlp(dirs.contiguous(), out, env, _packed(env))
+        launch_env_mlp(dirs.contiguous(), out, env, _packed(env), exact_uv)
         launches += 1
     return out

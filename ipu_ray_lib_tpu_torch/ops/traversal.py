@@ -12,7 +12,7 @@ spheres and discs. The shadow trace (render/shadow.py) and the XLA-loop
 path tracer (render/streaming.py) call these.
 
 The threaded-BVH traversal (``"bvh"``) and the MXU dense triangle
-intersector (``"dense"``) are not ported (ROADMAP queue 1 item 15): they
+intersector (``"dense"``) are not ported (ROADMAP queue 1 item 8): they
 raise.
 
 The arithmetic after the kernel is the JAX functions' as XLA compiles
@@ -52,7 +52,7 @@ def _check_method(method: str) -> bool:
     if method in ("bvh", "dense"):
         raise NotImplementedError(
             f"intersector {method!r} is not ported (ROADMAP queue 1 item "
-            "15); use 'pallas' or 'pallas-hbm'")
+            "8); use 'pallas' or 'pallas-hbm'")
     if method not in METHODS:
         raise ValueError(f"unknown intersector {method!r}")
     return method == "pallas-hbm"

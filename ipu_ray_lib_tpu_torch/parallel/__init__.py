@@ -3,6 +3,7 @@
 from .mesh import (
     RayMesh,
     make_ray_mesh,
+    render_path_sharded,
     render_shadow_sharded,
     render_streaming_sharded,
     shard_plan,

@@ -14,14 +14,17 @@ src/IpuScene.cpp:648-684). Here:
   (``shard_plan``), each rendered by the single-device integrators with
   its own seed: a jump-separated xoroshiro128** stream per shard
   (``utils/xoshiro.py``), folded to the kernels' u32 seed;
+* the per-sample path trace (``render_path_sharded``) cuts a ray batch
+  into equal slices instead, shard i keyed ``fold_in(key, i)`` from the
+  jax-free threefry (``utils/threefry.py``), as the JAX package keys its
+  shards by ``axis_index``;
 * the host reads the slices back and assembles the image.
 
 Under ``torch.distributed`` the mesh spans every process: each process
 contributes its own shards, in rank order, and renders only those. The
 slices are gathered to every process on the host over a gloo group (NCCL
 cannot put two processes on one card), so every process returns the same
-image. ``render_path_sharded`` of the JAX package is not ported: it draws
-from ``jax.random`` keys (ROADMAP queue 1 item 7).
+image.
 """
 
 from __future__ import annotations
@@ -35,10 +38,12 @@ import torch.distributed as dist
 
 from ..nif.model import NifEnv
 from ..ops.camera import generate_camera_rays
+from ..render.renderer import path_chunk
 from ..render.shadow import TraceResultSoA, shadow_trace
 from ..render.streaming import (MAX_K_PER_DISPATCH, _pixel_stream,
                                 trace_batch)
 from ..runtime.device import cuda_device
+from ..utils import threefry
 from ..utils.xoshiro import derive_replica_seeds
 
 _U32 = 0xFFFFFFFF
@@ -286,13 +291,7 @@ def render_shadow_sharded(scene, params, rows, cols,
     equal contiguous slices with ``params.intersector`` (the fused kernel K4
     on a ``pallas`` scene, the glue route on ``pallas-hbm``). Returns one
     TraceResultSoA of CPU tensors in shard order."""
-    rows = torch.from_numpy(np.array(rows, np.float32))
-    cols = torch.from_numpy(np.array(cols, np.float32))
-    n = rows.shape[0]
-    if n % len(mesh):
-        raise ValueError(f"{n} rays do not divide over {len(mesh)} shards "
-                         "(pad them with shard_rays)")
-    per = n // len(mesh)
+    rows, cols, per = _equal_slices(rows, cols, mesh)
     scenes = _replicas(scene, mesh)
     out = {}
     for i in mesh.local:
@@ -306,3 +305,44 @@ def render_shadow_sharded(scene, params, rows, cols,
     parts = _gather(mesh, {i: TraceResultSoA(*(t.cpu() for t in r))
                            for i, r in out.items()})
     return TraceResultSoA(*(torch.cat(f) for f in zip(*parts)))
+
+
+def _equal_slices(rows, cols, mesh: RayMesh):
+    """(rows, cols) as CPU f32 tensors and the length of each shard's
+    slice; raises unless they divide evenly over the mesh."""
+    rows = torch.from_numpy(np.array(rows, np.float32))
+    cols = torch.from_numpy(np.array(cols, np.float32))
+    n = rows.shape[0]
+    if n % len(mesh):
+        raise ValueError(f"{n} rays do not divide over {len(mesh)} shards "
+                         "(pad them with shard_rays)")
+    return rows, cols, n // len(mesh)
+
+
+def render_path_sharded(scene, params, rows, cols, key: torch.Tensor,
+                        mesh: RayMesh, env=None, spp: int | None = None,
+                        stats: dict | None = None) -> torch.Tensor:
+    """Per-sample path trace of camera rays through pixels (rows, cols)
+    [n] sharded over ``mesh`` (port of ``render_path_sharded``,
+    mesh.py:51-104): shard i traces the i-th of n/len(mesh) equal
+    contiguous slices, ``spp`` samples (default
+    ``params.samples_per_pixel``) under ``fold_in(key, i)`` (``key`` a
+    threefry key, utils/threefry.py), lit by ``env`` as
+    ``render(streaming=False)`` lights them. Returns the spp-averaged rgb
+    [n, 3], a CPU f32 tensor in shard order, the same in every process.
+    ``stats`` gains this process's ``bounces`` and ``syncs``."""
+    rows, cols, per = _equal_slices(rows, cols, mesh)
+    scenes = _replicas(scene, mesh)
+    envs = _replicas(env, mesh) if isinstance(env, NifEnv) else {}
+    key = torch.as_tensor(key, dtype=torch.int64).cpu()
+    out = {}
+    for i in mesh.local:
+        d = mesh[i]
+        rgb, _ = path_chunk(
+            scenes[d], params, rows[i * per:(i + 1) * per].to(d),
+            cols[i * per:(i + 1) * per].to(d),
+            threefry.fold_in(key, i), env=envs.get(d, env), spp=spp,
+            stats=stats)
+        out[i] = rgb
+    parts = _gather(mesh, {i: r.cpu() for i, r in out.items()})
+    return torch.cat(parts)

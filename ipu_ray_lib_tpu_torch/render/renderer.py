@@ -20,7 +20,15 @@ In path-trace mode ``render`` runs :func:`render_streaming` once; with a
 progress callback it renders decorrelated batches of at most 16 samples
 (batch ``bi`` seeded ``rng_seed + 0x9E3779B9*bi``) and passes the running
 average to the callback after each (the JAX package's progressive mode,
-renderer.py:181-210).
+renderer.py:181-210). With ``streaming=False`` it runs the per-sample
+wavefront instead (renderer.py:216-340, ``_path_chunk`` :95-146): the
+tile-ordered stream in chunks as the shadow trace takes it, chunk ci
+keyed ``fold_in(PRNGKey(rng_seed), ci)``, sample s ``fold_in(key, s)``
+and its camera jitter ``fold_in(skey, 0xC0FFEE)`` (utils/threefry.py),
+each sample one :func:`~.path.path_trace_sample` plus the env term on its
+escapes, the chunk's samples summed and scaled by 1/spp. Rays flagged
+with an unknown material are counted (padding lanes included, as in the
+JAX package) and logged.
 
 ``readback_f16`` (the JAX package's ``RAY_READBACK_F16``) rounds the float
 AOVs to f16 on the device before they are read back: finite values are
@@ -36,7 +44,12 @@ import numpy as np
 import torch
 
 from ..bvh.builder import INVALID_GEOM_ID
+from ..nif.model import NifEnv
 from ..ops.camera import generate_camera_rays
+from ..ops.env import env_mlp
+from ..utils import threefry
+from ..utils.log import logger
+from .path import path_trace_sample
 from .shadow import shadow_trace
 from .streaming import _pixel_stream, render_streaming
 
@@ -100,14 +113,104 @@ def _tile_coords(g0: int, n: int, w: int, window_c: int, window_r: int,
     return rows.to(torch.float32), cols.to(torch.float32)
 
 
+def env_term(env, dirs: torch.Tensor) -> torch.Tensor:
+    """The environment's radiance [R, 3] of directions [R, 3] as the JAX
+    package's per-sample path trace takes it: a NifEnv with the equirect
+    angles of the XLA env function (the env MLP kernel on the card), any
+    other env as the callable it is."""
+    if isinstance(env, NifEnv):
+        return env_mlp(dirs, env, exact_uv=True)
+    return env(dirs)
+
+
+def path_chunk(scene, params, rows: torch.Tensor, cols: torch.Tensor,
+               key: torch.Tensor, env=None, spp: int | None = None,
+               stats: dict | None = None):
+    """``spp`` samples (default ``params.samples_per_pixel``) of the pixels
+    (rows, cols) [R] under the threefry ``key`` (port of ``_path_chunk``
+    and of ``render_path_sharded``'s per-shard body): (rgb [R, 3], the
+    spp average, error [R] bool). ``env`` lights the escaped rays
+    (:func:`env_term`). ``stats`` gains the samples' ``bounces`` and
+    ``syncs``."""
+    spp = params.samples_per_pixel if spp is None else int(spp)
+    acc = err = None
+    for s in range(spp):
+        skey = threefry.fold_in(key, s)
+        o, d = generate_camera_rays(
+            rows, cols, params.image_width, params.image_height,
+            params.fov_radians, params.anti_alias_scale,
+            threefry.fold_in(skey, 0xC0FFEE))
+        res = path_trace_sample(scene, o, d, skey, params.max_path_length,
+                                params.roulette_start_depth,
+                                intersector=params.intersector, stats=stats)
+        rgb = res.rgb
+        if env is not None:
+            rgb = rgb + torch.where(res.escaped[:, None],
+                                    res.esc_throughput
+                                    * env_term(env, res.esc_dir), 0.0)
+        acc = rgb if acc is None else acc + rgb
+        err = res.error if err is None else err | res.error
+    return acc * float(np.float32(1.0 / spp)), err
+
+
+def _render_path(scene, params, chunk_size, progress_callback, env,
+                 readback_f16, stats) -> np.ndarray:
+    """The per-sample wavefront over the window: rgb [H, W, 3] f32."""
+    h, w = params.window_h, params.window_w
+    dev = scene.device
+    total = w * h
+    rows_np, cols_np, order = _pixel_stream(params)
+    device_coords = w % TILE == 0 and h % TILE == 0
+    n_chunks = -(-total // chunk_size)
+    padded = n_chunks * chunk_size
+    if not device_coords:
+        rows_np = np.pad(rows_np, (0, padded - total))
+        cols_np = np.pad(cols_np, (0, padded - total))
+    rgb = torch.empty((padded, 3), dtype=torch.float32, device=dev)
+    n_err = torch.zeros((), dtype=torch.int64, device=dev)
+    base_key = threefry.PRNGKey(params.rng_seed)
+    for ci in range(n_chunks):
+        g0 = ci * chunk_size
+        if device_coords:
+            rows, cols = _tile_coords(g0, chunk_size, w, params.window_c,
+                                      params.window_r, total, dev)
+        else:
+            rows = torch.from_numpy(rows_np[g0:g0 + chunk_size]).to(dev)
+            cols = torch.from_numpy(cols_np[g0:g0 + chunk_size]).to(dev)
+        c_rgb, err = path_chunk(scene, params, rows, cols,
+                                threefry.fold_in(base_key, ci), env=env,
+                                stats=stats)
+        rgb[g0:g0 + chunk_size] = c_rgb
+        n_err += err.sum()
+        if progress_callback is not None:
+            progress_callback(ci, _prep_f(c_rgb, readback_f16).cpu()
+                              .numpy().astype(np.float32))
+    n_errors = int(n_err)
+    if stats is not None:
+        stats["errors"] = stats.get("errors", 0) + n_errors
+    if n_errors:
+        # In-band error marker, like the reference's HitRecord::ERROR NaN
+        # flagging (TraceCodelets.cpp:240-244):
+        logger().warning("%d rays flagged material errors during path trace",
+                         n_errors)
+    inverse = np.empty(total, np.int64)
+    inverse[order] = np.arange(total)
+    a = _prep_f(rgb[:total].index_select(0, torch.from_numpy(inverse).to(dev)),
+                readback_f16)
+    return a.cpu().numpy().astype(np.float32).reshape(h, w, 3)
+
+
 def render(scene, params, mode: str = "shadow-trace",
            chunk_size: int = DEFAULT_CHUNK,
            progress_callback: Optional[Callable[[int, np.ndarray], None]] = None,
            aovs: Optional[tuple] = None, env=None,
-           fused: bool = True, readback_f16: bool = False) -> RenderOutput:
+           fused: bool = True, readback_f16: bool = False,
+           streaming: bool = True, stats: dict | None = None) -> RenderOutput:
     """Render the scene's crop window on the scene's device. ``mode`` is
     'shadow-trace' or 'path-trace' (``env``: an environment light for the
-    path trace, as :func:`render_streaming` takes it).
+    path trace, as :func:`render_streaming` takes it; ``streaming=False``:
+    the per-sample wavefront, see the module note, whose ``stats`` dict
+    gains ``bounces``, ``syncs`` and ``errors``).
 
     ``fused`` (shadow trace): the fused shadow kernel on a VMEM-mode scene;
     False, or a ``pallas-hbm`` scene, takes the glue route through the
@@ -117,8 +220,15 @@ def render(scene, params, mode: str = "shadow-trace",
     others come back filled. ``progress_callback(index, rgb)`` fires as
     each shadow-trace chunk completes, with the chunk's rgb [n, 3] in
     stream order, or after each path-trace batch, with the running average
-    [H, W, 3]. ``readback_f16``: see the module note."""
+    [H, W, 3] (the per-sample wavefront: after each chunk, with its rgb in
+    stream order). ``readback_f16``: see the module note."""
     h, w = params.window_h, params.window_w
+    if mode == "path-trace" and not streaming:
+        rgb = _render_path(scene, params, chunk_size, progress_callback, env,
+                           readback_f16, stats)
+        return RenderOutput(rgb=rgb, **{
+            k: _filled(k, h * w).reshape((h, w) + _AOVS[k][0])
+            for k in _AOVS if k != "rgb"})
     if mode == "path-trace":
         kw = dict(chunk_slots=chunk_size, env=env, readback_f16=readback_f16)
         if progress_callback is None:

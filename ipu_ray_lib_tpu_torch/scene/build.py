@@ -100,6 +100,10 @@ class TorchScene:
     # (ops/tables.py padded_boxes): the per-lane cull of K4 and K5, which
     # walk VMEM-mode scenes. None in HBM mode (K3 and K6 do not read it).
     pbox: torch.Tensor | None = None  # [nb, 8] f32
+    # The scene BVH's root box: its min corner and its f16 extent widened
+    # to f32, [2, 3]; the per-sample path tracer's ray sort reads it
+    # (render/path.py). None for tables built without the scene BVH.
+    root_box: torch.Tensor | None = None
 
     @property
     def device(self) -> torch.device:
@@ -212,6 +216,9 @@ def _from_leaves(leaves: dict, device, payload_split: bool | None = None,
         leaves["mat_emission"])
     t = {k: torch.from_numpy(np.array(leaves[k])).to(device)
          for k in _TABLES}
+    if leaves.get("root_box") is not None:
+        t["root_box"] = torch.from_numpy(
+            np.array(leaves["root_box"], np.float32)).to(device)
     return TorchScene(ap=torch.from_numpy(ap).to(device),
                       pbox=(padded_boxes(t["p"], t["baabb"]) if vmem_mode
                             else None),
@@ -238,8 +245,17 @@ def from_jax_arrays(leaves: dict[str, np.ndarray], device) -> TorchScene:
     missing = [k for k in _CARRIED if leaves.get(k) is None]
     if missing:
         raise KeyError(f"from_jax_arrays: missing leaves {missing}")
-    return _from_leaves({k: np.asarray(leaves[k]) for k in _CARRIED}, device,
+    carried = {k: np.asarray(leaves[k]) for k in _CARRIED}
+    if leaves.get("bvh_min") is not None:
+        carried["root_box"] = root_box(np.asarray(leaves["bvh_min"]),
+                                       np.asarray(leaves["bvh_ext"]))
+    return _from_leaves(carried, device,
                         leaves.get("pay8") is not None, vmem_mode)
+
+
+def root_box(mins: np.ndarray, exts: np.ndarray) -> np.ndarray:
+    """[2, 3] f32: the root node's min corner and its f16 extent as f32."""
+    return np.stack([mins[0], exts[0].astype(np.float32)]).astype(np.float32)
 
 
 def unpack_super_slabs(pn8: np.ndarray, pay8=None):
@@ -444,6 +460,7 @@ def compile_scene(
         payload_split if payload_split is not None
         else blocked.p.shape[0] > HBM_SPLIT_MIN_TRIS)
     leaves["vmem_mode"] = intersector == "pallas"
+    leaves["root_box"] = root_box(bvh.mins, bvh.exts)
     leaves.update(
         spheres=_pad_rows(scene.spheres), discs=_pad_rows(scene.discs),
         mat_id=_pad_rows(mat_id), mat_albedo=_pad_rows(mat_albedo),

@@ -465,7 +465,7 @@ def test_path_intersect_matches_jax(glue_scene):
 def test_unported_methods_raise(box, method):
     _, ts, _ = box
     ones = torch.ones(4, 3)
-    with pytest.raises(NotImplementedError, match="queue 1 item 15"):
+    with pytest.raises(NotImplementedError, match="queue 1 item 8"):
         TTR.scene_occluded(ts, ones, ones, torch.zeros(4), torch.ones(4),
                            method)
 

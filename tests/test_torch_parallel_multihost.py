@@ -41,14 +41,16 @@ def _free_port() -> int:
         return s.getsockname()[1]
 
 
-def run_workers(tmp_path, world=2, shards=4):
-    """The workers' (rgb, done, local shards), by rank."""
+def run_workers(tmp_path, world=2, shards=4, extra=()):
+    """The workers' (rgb, done, local shards), by rank; ``extra``: more
+    worker arguments."""
     port = _free_port()
     outs = [str(tmp_path / f"rank{r}.npz") for r in range(world)]
     env = {k: v for k, v in os.environ.items() if k != "XLA_FLAGS"}
     procs = [subprocess.Popen(
         [sys.executable, os.path.join(HERE, "torch_multihost_worker.py"),
-         str(port), str(r), str(world), outs[r], "--shards", str(shards)],
+         str(port), str(r), str(world), outs[r], "--shards", str(shards),
+         *extra],
         env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT)
         for r in range(world)]
     try:

@@ -409,7 +409,7 @@ def test_shadow_trace_raises_in_hbm_mode():
     name the ROADMAP item that holds them."""
     ts, _ = _hbm_box()
     for name in ("bvh", "dense"):
-        with pytest.raises(NotImplementedError, match="queue 1 item 15"):
+        with pytest.raises(NotImplementedError, match="queue 1 item 8"):
             shadow_trace(ts, None, torch.ones(4, 3), intersector=name)
 
 

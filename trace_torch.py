@@ -24,8 +24,10 @@ CPU's own render.
 
 ``--devices N`` (N > 1) shards a path trace over min(N, cards) cards
 (``parallel/mesh.py``); on ``--device cpu`` over N shards of the CPU.
-With ``--nif-hdri`` a path trace is not sharded: ``--devices N > 1``
-raises, and the default (every card) renders on one card.
+With ``--nif-hdri`` a sharded path trace is the per-sample wavefront
+(``render_path_sharded``, as trace.py takes it): the window's pixels in
+scanline order, padded to a multiple of the shards, keyed by
+``PRNGKey(--seed)``.
 """
 
 from __future__ import annotations
@@ -213,17 +215,6 @@ def run(argv=None) -> dict:
                                             use_cpu=args.device == "cpu"))
     dev, n_shards = devices[0], len(devices)
     sharded = n_shards > 1 and args.render_mode == "path-trace"
-    if sharded and args.nif_hdri:
-        # trace.py takes render_path_sharded here, which draws from
-        # jax.random keys and is not ported (ROADMAP queue 1 item 7).
-        if args.devices > 1:
-            raise NotImplementedError(
-                "--devices > 1 with --nif-hdri takes render_path_sharded in "
-                "trace.py, which is not ported (ROADMAP queue 1 item 7); "
-                "render it on one device (--devices 1)")
-        log.warning("--nif-hdri: rendering on one of the %d devices (sharded "
-                    "NIF rendering is ROADMAP queue 1 item 7)", n_shards)
-        devices, n_shards, sharded = devices[:1], 1, False
 
     from ipu_ray_lib_tpu_torch.cpu.reference import (camera_rays,
                                                      oracle_shadow_trace)
@@ -357,13 +348,28 @@ def run(argv=None) -> dict:
     if sharded:
         # Data-parallel over a mesh (replicated scene, sharded rays), with
         # trace.py's arguments (its _render_sharded: chunk_slots default):
+        from ipu_ray_lib_tpu_torch.ops.camera import pixel_grid
         from ipu_ray_lib_tpu_torch.parallel.mesh import (
-            make_ray_mesh, render_streaming_sharded)
+            make_ray_mesh, render_path_sharded, render_streaming_sharded,
+            shard_rays)
+        from ipu_ray_lib_tpu_torch.utils.threefry import PRNGKey
 
-        rgb, _done = render_streaming_sharded(
-            tscene, params, make_ray_mesh(devices), env=env,
-            progress_callback=cb)
+        mesh = make_ray_mesh(devices)
         n = params.window_w * params.window_h
+        if env is None:
+            rgb, _done = render_streaming_sharded(tscene, params, mesh,
+                                                  progress_callback=cb)
+        else:
+            # trace.py's _render_sharded under an env: the per-sample
+            # wavefront over the scanline pixel grid.
+            rows, cols = pixel_grid(params.window_w, params.window_h,
+                                    params.window_c, params.window_r, "cpu")
+            pad = shard_rays(n, mesh) - n
+            rgb = render_path_sharded(
+                tscene, params, torch.nn.functional.pad(rows, (0, pad)),
+                torch.nn.functional.pad(cols, (0, pad)),
+                PRNGKey(params.rng_seed), mesh, env=env)
+            rgb = rgb[:n].numpy().reshape(params.window_h, params.window_w, 3)
         out = RenderOutput(rgb=rgb, **{
             k: _filled(k, n).reshape((params.window_h, params.window_w)
                                      + _AOVS[k][0])
