@@ -29,7 +29,11 @@ version:
   f16 readback, and two processes sharing the card.
 * the application: ``trace_torch.py`` (the port's ``trace.py``) with the
   README's commands: the CLI's flow, the importers, the scene cache, the
-  f64 oracle and the EXR output.
+  f64 oracle and the EXR output;
+* the ``"bvh"`` and ``"dense"`` intersectors (the threaded-BVH walk K7,
+  ``ops/cuda/bvh.cu``; the dense closest hit K8, ``ops/cuda/dense.cu``)
+  through the shadow trace, the XLA-loop integrator, the per-sample
+  wavefront and the CLI.
 
 Run from the repository root:
 
@@ -230,6 +234,30 @@ Phases (any failed check raises, so the exit code is non-zero):
      1e-4 of each other, then 300 steps timed (steps/s, the loss at least
      halved), then the trained NIF saved (no h5py), loaded and rendered
      (spheres 512^2 spp 16: K1's record mode, K2, the bank).
+  15. the "bvh" and "dense" intersectors (``intersectors``): (a) K7
+     (closest and any hit) and K8 against their plain versions, every
+     output bit for bit, on the calls of a Cornell + monkey 64x64 shadow
+     trace (camera rays and their shadow rays), on one 65,536-ray chunk of
+     the 1440^2 frame, and (K7) on stress24; the plain versions and the
+     kernels timed on the chunk, and K8's library yardstick (six f32
+     torch.matmul per block of 512 rows, the test, min and argmin); (b)
+     ``render(mode="shadow-trace")`` of Cornell + monkey at 1440^2 through
+     each: a warm-up and 3 frames, the launches per frame, K7/K8 alone
+     over a frame's calls (CUDA events, and behind a spin kernel), the
+     pixels that differ from phase 6b's K4 frame per AOV (counted, not
+     gated: visit order and the dense test resolve ties otherwise); K7's
+     counting launch over the frame's calls (node visits, leaf tests: its
+     bound); (c) the grid-512 heightfield built for "bvh" (build seconds)
+     and shadow-traced at 1440^2, K7 against its plain version on its
+     first chunk, "dense" without its tables refused; (d) path B through
+     each, ``render_streaming`` of Cornell + monkey at 1440^2 spp 4 on the
+     XLA-loop integrator: frames, iterations, the kernel's share, done,
+     finite, the mean within 15% of the megakernel's at spp 4; (e)
+     ``render(streaming=False)`` at 64x64 spp 2 through each, kernel route
+     against plain route bit for bit; (f) ``trace_torch.run`` with the
+     README's second command and ``--intersector bvh`` / ``dense``: the
+     card's image equal to the CPU twin's (MSE 0), the oracle's MSE
+     printed. Each path's launches counted from 0 around it.
 Before the last two lines: a JSON object with each kernel's launches on
 its main path (and ``launches_per_sample``: in each of phase 14's
 runs), its largest deviation from its plain version, its times and its
@@ -1105,7 +1133,7 @@ def per_sample_and_training(dev, scene, params, full=FULL) -> dict:
     from ipu_ray_lib_tpu_torch.parallel import (make_ray_mesh,
                                                 render_path_sharded,
                                                 shard_rays)
-    from ipu_ray_lib_tpu_torch.render import renderer as rmod
+    from ipu_ray_lib_tpu_torch.render import streaming as rmod
     from ipu_ray_lib_tpu_torch.render.path import path_trace_sample
     from ipu_ray_lib_tpu_torch.render.renderer import DEFAULT_CHUNK, render
     from ipu_ray_lib_tpu_torch.render.streaming import render_streaming
@@ -1231,7 +1259,7 @@ def per_sample_and_training(dev, scene, params, full=FULL) -> dict:
     # -- K2 as the main path calls it --
     @contextlib.contextmanager
     def recording_env():
-        """The env MLP's calls from ``env_term`` (render/renderer.py, the
+        """The env MLP's calls from ``env_term`` (render/streaming.py, the
         env term of every per-sample path) recorded as (dirs, rgb) for the
         length of the block."""
         k2_calls, saved_env = [], rmod.env_mlp
@@ -1461,6 +1489,479 @@ def per_sample_and_training(dev, scene, params, full=FULL) -> dict:
     return out
 
 
+# Phase 15: the "bvh" and "dense" intersectors (K7, ops/cuda/bvh.cu; K8,
+# ops/cuda/dense.cu) on every route that takes them.
+# f32 instructions of one step of K7 (bvh.cu; compares, min/max and
+# selects not counted, as above): the slab test, per axis lo + ext, 2 sub,
+# 2 mul and the scale (15 + 3); and of one leaf test, the watertight
+# triangle (9 sub; px/py 6 FMA; e 3 mul + 3 FMA; 2 x (2 add, 2 mul) for
+# dx0, dy0; de 2 mul + 2 FMA + 1 mul; det 2 add; 3 mul; t_scaled 1 mul + 2
+# FMA; 2 mul (t_far * det); 1 div, 1 mul; delta z/x/y 1 mul + 2 x (1 add,
+# 1 mul); delta_e 5; delta_t 2 mul + 2 FMA + 2 mul), which bounds the
+# sphere's and the disc's (fewer):
+BVH_STEP_INSTR = 18
+BVH_LEAF_INSTR = 58
+# One (ray, triangle row) pair of K8 (dense.cu): 6 dots of 3 (a product
+# and 2 FMAs), t 2 (sub, div), b1/b2 4, et 2 (add, div), eps 3 (add, FMA,
+# mul), b1 + b2 and 1 + eps 2:
+DENSE_PAIR_INSTR = 31
+BVH_NODE_BYTES = 32
+# The phase's sizes: the kernels against their plain versions on the
+# 64^2 frame's calls and one 65,536-ray chunk of the 1440^2 frame; the
+# shadow frames (warm-up + 3 each); path B at PATH_B_SPP, 2 frames each;
+# the per-sample routes at 64^2 spp 2.
+P15_SMALL = 64
+P15_FRAMES = 3
+P15_PATH_FRAMES = 2
+
+
+def p15_entry(p15, key, max_err) -> dict:
+    """K7's or K8's line of the kernels JSON from phase 15: its launches
+    and times on the 1440^2 shadow frame (``launches_paths``: on each of
+    the phase's paths), the plain version and the kernel on one chunk."""
+    m = "bvh" if key == "k7" else "dense"
+    fr = p15["shadow"][m]
+    ch = p15["chunk"]
+    return {
+        "name": "bvh_walk" if key == "k7" else "dense_closest_tri",
+        "route": "cuda",
+        "source": f"ipu_ray_lib_tpu_torch/ops/cuda/{m}.cu",
+        "replaces": ("ipu_ray_lib_tpu/ops/traversal.py:102" if key == "k7"
+                     else "ipu_ray_lib_tpu/ops/dense.py:169"),
+        "replaces_note": "a jnp lax loop, not a Pallas kernel",
+        "launches": fr["launches"][key], "max_abs_err": max_err,
+        "ms": median(fr["kernel_ms"]), "ms_card": median(fr["kernel_card_ms"]),
+        "plain_ms": ch["plain_ms"][key],
+        "bound_ms": fr["bound"][0], "bound_by": fr["bound"][1],
+        "library_ms": ch["library_ms"] if key == "k8" else None,
+        "ms_shape": f"one Cornell + monkey {FULL}^2 shadow frame: "
+                    f"{fr['n_calls']} launches",
+        "plain_shape": f"one {ch['rays']}-ray chunk of that frame",
+        "kernel_ms_at_plain_shape": ch["kernel_ms"][key],
+        "library_shape": (f"one {ch['rays']}-ray chunk of that frame"
+                          if key == "k8" else None),
+        "launches_paths": {k: v[key] for k, v in p15["launches"].items()
+                           if k.endswith(m)},
+        "frame_ms": median(fr["frames_s"]) * 1e3,
+        "path_b": p15["path_b"][m],
+        **({"counters": fr["counts"], "grid512": p15["grid512"]}
+           if key == "k7" else {"pairs": fr["pairs"]}),
+    }
+
+
+@contextlib.contextmanager
+def recording(mod, name):
+    """``mod.name`` (a kernel's wrapper) records the arguments of its calls
+    for the length of the block."""
+    calls, saved = [], getattr(mod, name)
+
+    def rec(*a):
+        calls.append(a)
+        return saved(*a)
+
+    setattr(mod, name, rec)
+    try:
+        yield calls
+    finally:
+        setattr(mod, name, saved)
+
+
+def yardstick_dense(rows, o, d, t_min, t_max):
+    """Library yardstick for K8 (never called by the port): the JAX
+    package's form, six f32 ``torch.matmul`` per block of 512 rows (TF32
+    off), the elementwise test, ``min`` and ``argmin`` (utils/constants'
+    WATERTIGHT_EPS_SCALE, the 1e-3 clamp)."""
+    from ipu_ray_lib_tpu_torch.ops.dense import DENSE_COLS, TRI_BLOCK
+    from ipu_ray_lib_tpu_torch.utils.constants import WATERTIGHT_EPS_SCALE
+
+    best_t, best_i = t_max.clone(), torch.full_like(t_max, -1,
+                                                    dtype=torch.int32)
+    o_mag = o.abs().amax(dim=1, keepdim=True)
+    for b0 in range(0, rows.shape[0], TRI_BLOCK):
+        blk = rows[b0:b0 + TRI_BLOCK]
+        tn, g1, g2 = (blk[:, DENSE_COLS[k]].t() for k in ("tn", "g1", "g2"))
+        col = lambda k: blk[:, DENSE_COLS[k]][None]  # noqa: E731
+        dn, on = torch.matmul(d, tn), torch.matmul(o, tn)
+        t = (col("tnp0") - on) / dn
+        b1 = torch.matmul(o, g1) + t * torch.matmul(d, g1) - col("g1p0")
+        b2 = torch.matmul(o, g2) + t * torch.matmul(d, g2) - col("g2p0")
+        et = (col("tnp0").abs() + on.abs()) / torch.where(dn == 0, 1.0,
+                                                          dn).abs()
+        eps = torch.clamp_max(float(WATERTIGHT_EPS_SCALE) * (
+            col("tS") + col("tG") * (o_mag + et)), 1e-3)
+        ok = ((dn != 0) & (b1 >= -eps) & (b2 >= -eps) & (b1 + b2 <= 1 + eps)
+              & (t > t_min[:, None]) & (t < best_t[:, None]))
+        t = torch.where(ok, t, float("inf"))
+        lb, li = t.min(dim=1)
+        better = lb < best_t
+        best_t = torch.where(better, lb, best_t)
+        best_i = torch.where(better, (li + b0).to(torch.int32), best_i)
+    return best_t, best_i
+
+
+def intersectors(dev, k4_frame, mega_mean, full=FULL) -> dict:
+    """Phase 15: the ``"bvh"`` and ``"dense"`` intersectors, K7 and K8.
+
+    (a) each kernel against its plain version, bit for bit, on the calls
+    of a Cornell + monkey 64^2 shadow trace (camera rays and their shadow
+    rays; K7 closest and any hit, K8), on one 65,536-ray chunk of the
+    1440^2 frame, and on stress24 (K7);
+    (b) ``render(mode="shadow-trace")`` of Cornell + monkey at 1440^2
+    through each: a warm-up and 3 timed frames, K7/K8 alone over a
+    frame's calls (CUDA events), the pixels that differ from phase 6b's K4
+    frame counted (ties resolve otherwise; not gated); K7's counting launch
+    over the frame's calls (its node visits and leaf tests: its bound);
+    K8's library yardstick on the chunk;
+    (c) the grid-512 heightfield (522,242 triangles) built for "bvh"
+    (build seconds) and shadow-traced at 1440^2; "dense" on it, its tables
+    skipped, raises;
+    (d) ``render_streaming`` of Cornell + monkey at 1440^2 spp PATH_B_SPP
+    on the XLA-loop integrator through each: frames, iterations, the
+    kernel's share; the mean within PS_MEAN_REL of the megakernel's
+    (``mega_mean``);
+    (e) ``render(streaming=False)`` at 64^2 spp 2 through each, the kernel
+    route against the plain route, bit for bit;
+    (f) ``trace_torch.run`` with the README's second command and
+    ``--intersector bvh`` / ``dense``: the card's image against the CPU
+    twin at MSE 0, the oracle's MSE printed.
+    Each path's launches are counted from 0 around it."""
+    import dataclasses as dc
+    import tempfile
+
+    import trace_torch
+    from ipu_ray_lib_tpu_torch.ops import bvh as kb
+    from ipu_ray_lib_tpu_torch.ops import dense as kd
+    from ipu_ray_lib_tpu_torch.ops import intersect_hbm as ih
+    from ipu_ray_lib_tpu_torch.ops import intersect_kernel as ik
+    from ipu_ray_lib_tpu_torch.ops import megakernel as mk
+    from ipu_ray_lib_tpu_torch.ops import shadow as sh
+    from ipu_ray_lib_tpu_torch.ops.camera import generate_camera_rays
+    from ipu_ray_lib_tpu_torch.ops.cuda import build as cb
+    from ipu_ray_lib_tpu_torch.render.renderer import (DEFAULT_CHUNK,
+                                                       _tile_coords, render)
+    from ipu_ray_lib_tpu_torch.render.streaming import render_streaming
+    from ipu_ray_lib_tpu_torch.scene.build import build_scene
+    from ipu_ray_lib_tpu_torch.scene.builtin import (make_cornell_box_scene,
+                                                     make_stress_scene)
+
+    t_phase = time.perf_counter()
+    monkey = os.path.join(ROOT, "assets", "monkey_bust.glb")
+    out = {"launches": {}, "max_abs_err": {"k7": 0.0, "k8": 0.0}}
+    plain = {"k7": kb.bvh_walk_ref, "k8": kd.dense_closest_tri_ref}
+    kern = {"k7": kb.bvh_walk_cuda, "k8": kd.dense_closest_tri_cuda}
+
+    def reset():
+        for m in (kb, kd, ik, ih, sh, mk):
+            m.reset_launches()
+
+    def counts() -> dict:
+        return {"k7": kb.launches, "k8": kd.launches, "k4": sh.launches,
+                "k5": ik.launches, "k6": ih.launches, "k1": mk.launches}
+
+    def hold(name, key, calls):
+        """Each recorded call of kernel ``key`` run by the kernel and by
+        the plain version on the same inputs: every output bit for bit."""
+        for a in calls:
+            got = kern[key](*a)
+            torch.cuda.synchronize()
+            want = plain[key](*a)
+            for g, w in zip(got, want):
+                if w is None:
+                    continue
+                if not bits_equal(g.cpu().numpy(), w.cpu().numpy()):
+                    raise AssertionError(f"{name}: {key} disagrees with its "
+                                         "plain version")
+                if g.is_floating_point():
+                    fin = torch.isfinite(w)
+                    e = float((g[fin] - w[fin]).abs().max()) if fin.any() \
+                        else 0.0
+                    out["max_abs_err"][key] = max(out["max_abs_err"][key], e)
+        log(f"[p15 {name}] {key}: {len(calls)} calls of "
+            f"{[a[2].shape[0] for a in calls][:4]}... rays, kernel vs plain "
+            "bit for bit")
+
+    def shadow_calls(sc, p, **kw):
+        """A shadow-trace render with K7's and K8's calls recorded."""
+        with recording(kb, "bvh_walk_cuda") as c7, \
+                recording(kd, "dense_closest_tri_cuda") as c8:
+            res = render(sc, p, **kw)
+        return res, {"k7": c7, "k8": c8}
+
+    # ---- (a) kernel vs plain ----
+    cs, cp = build_scene(make_cornell_box_scene(monkey, box_only=False),
+                         device=dev, image_width=full, image_height=full,
+                         intersector="dense")
+    params = {m: dc.replace(cp, intersector=m) for m in ("bvh", "dense")}
+    small = {m: dc.replace(p, image_width=P15_SMALL, image_height=P15_SMALL,
+                           window_w=P15_SMALL, window_h=P15_SMALL)
+             for m, p in params.items()}
+    for m, key in (("bvh", "k7"), ("dense", "k8")):
+        _, calls = shadow_calls(cs, small[m], chunk_size=P15_SMALL ** 2)
+        hold(f"Cornell + monkey {P15_SMALL}^2 shadow trace, {m}", key,
+             calls[key])
+    rows, cols = _tile_coords(0, DEFAULT_CHUNK, full, 0, 0, full * full, dev)
+    _, d0 = generate_camera_rays(rows, cols, full, full, cp.fov_radians)
+    n0 = d0.shape[0]
+    zeros, inf = (torch.zeros(n0, device=dev),
+                  torch.full((n0,), float("inf"), device=dev))
+    o0 = torch.zeros_like(d0)
+    chunk7 = (cs, o0, d0, zeros, inf, False, True)
+    chunk8 = (cs.dense_rows, o0, d0, zeros, inf)
+    hold(f"one {n0}-ray chunk of the {full}^2 frame", "k7", [chunk7])
+    hold(f"one {n0}-ray chunk of the {full}^2 frame", "k8", [chunk8])
+    s24, p24 = build_scene(make_stress_scene(24), device=dev,
+                           image_width=P15_SMALL, image_height=P15_SMALL,
+                           intersector="bvh")
+    _, calls = shadow_calls(s24, p24, chunk_size=P15_SMALL ** 2)
+    hold(f"stress24 {P15_SMALL}^2 shadow trace", "k7", calls["k7"])
+    # the plain versions' and the kernels' times on the chunk:
+    t_plain = {}
+    for key, a in (("k7", chunk7), ("k8", chunk8)):
+        _, t_plain[key] = timed(lambda: plain[key](*a))
+    k_chunk = {key: median(event_ms(lambda: kern[key](*a))[0])
+               for key, a in (("k7", chunk7), ("k8", chunk8))}
+    torch.backends.cuda.matmul.allow_tf32 = False
+    lib_chunk = median(event_ms(lambda: yardstick_dense(*chunk8))[0])
+    yt, yi = yardstick_dense(*chunk8)
+    kt, ki = kern["k8"](*chunk8)
+    out["yardstick_agree"] = float((yi == ki).float().mean())
+    out["chunk"] = dict(rays=n0, kernel_ms=k_chunk, library_ms=lib_chunk,
+                        plain_ms={k: v * 1e3 for k, v in t_plain.items()})
+    log(f"[p15 chunk] {n0} rays: K7 {k_chunk['k7']:.3f} ms (plain "
+        f"{t_plain['k7'] * 1e3:.1f} ms), K8 {k_chunk['k8']:.3f} ms (plain "
+        f"{t_plain['k8'] * 1e3:.1f} ms, torch.matmul yardstick "
+        f"{lib_chunk:.3f} ms, its rows equal K8's on "
+        f"{out['yardstick_agree']:.4f} of the rays)")
+
+    # ---- (b) the shadow trace at full width ----
+    n_frame = full * full
+    frames = {}
+    for m, key in (("bvh", "k7"), ("dense", "k8")):
+        p = params[m]
+        res, t_warm = timed(lambda: render(cs, p))
+        times = []
+        for _ in range(P15_FRAMES):
+            reset()
+            res, t = timed(lambda: render(cs, p))
+            times.append(t)
+            got = counts()
+        (_, calls), _ = timed(lambda: shadow_calls(cs, p))
+        k_ms, _ = event_ms(lambda: [kern[key](*a) for a in calls[key]])
+        card_ms, _ = event_ms(lambda: [kern[key](*a) for a in calls[key]],
+                              hold_ms=300.0)
+        hit = res.geom_id >= 0
+        finite = all(bool(np.isfinite(getattr(res, f)[hit]).all())
+                     for f in ("rgb", "t", "normal", "hit_p"))
+        diff = {f: int((getattr(res, f) != getattr(k4_frame, f)).reshape(
+            n_frame, -1).any(axis=1).sum()) for f in
+            ("rgb", "t", "geom_id", "prim_id", "normal", "hit_p")}
+        frames[m] = dict(warmup_s=t_warm, frames_s=times, launches=got,
+                         kernel_ms=k_ms, kernel_card_ms=card_ms,
+                         hits=res.hit_count, differ_from_k4=diff,
+                         n_calls=len(calls[key]))
+        out["launches"][f"b_{m}"] = got
+        log(f"[p15 shadow {m}] Cornell + monkey {full}^2: warm-up "
+            f"{t_warm:.3f} s, frames {', '.join(f'{t:.4f}' for t in times)} "
+            f"s; launches per frame {got}; {key.upper()} alone over the "
+            f"frame's {len(calls[key])} calls "
+            f"{', '.join(f'{t:.2f}' for t in k_ms)} ms (behind a spin kernel "
+            f"{', '.join(f'{t:.2f}' for t in card_ms)} ms); hits "
+            f"{res.hit_count} (K4 frame {k4_frame.hit_count}); pixels that "
+            f"differ from the K4 frame per AOV {diff}")
+        if (not finite or got[key] < 1 or got["k4"] or got["k5"]
+                or not 0 < res.hit_count < n_frame):
+            raise AssertionError(f"(b) {m}: non-finite AOVs, no hits or the "
+                                 "wrong kernels")
+        # The bound over the frame's calls, for its real rays only (each
+        # chunk's closest hit, then its any hit; the last chunk's padding
+        # rays are not the frame's): each ray's inputs read once and its
+        # outputs written once, as the call needs them (camera rays: no
+        # origin; closest hit: t, geom, prim (K8: t, row); K7's any hit:
+        # its flag), the tables once; K7's operations from its counting
+        # launch over the real rays (node visits, leaf tests), K8's from
+        # the pairs (padded rows x real rays).
+        chunk = calls[key][0][2].shape[0]
+        if len(calls[key]) != 2 * -(-n_frame // chunk) or (
+                key == "k7" and any(a[5] != (i % 2 == 1)
+                                    for i, a in enumerate(calls[key]))):
+            raise AssertionError(f"(b) {m}: not one closest and one any hit "
+                                 "per chunk")
+        real = [min(chunk, n_frame - (i // 2) * chunk)
+                for i in range(len(calls[key]))]
+        rays = sum(real)
+        words = 0
+        for i, n_ in enumerate(real):
+            camera = i % 2 == 0
+            out_words = (3 if camera else 1) if key == "k7" else 2
+            words += n_ * ((5 if camera else 8) + out_words)
+        if key == "k7":
+            c = torch.zeros(len(cb.BVH_COUNTERS), dtype=torch.int64,
+                            device=dev)
+            for (sc_, o_, d_, lo_, hi_, any_, zo_), n_ in zip(calls[key],
+                                                              real):
+                i_ = torch.empty(n_, dtype=torch.int32, device=dev)
+                cb.launch_bvh(sc_, o_[:n_], d_[:n_], lo_[:n_], hi_[:n_],
+                              torch.empty(n_, device=dev), i_, i_.clone(),
+                              any_hit=any_, zero_origin=zo_, counters=c)
+            cnt = dict(zip(cb.BVH_COUNTERS, c.tolist()))
+            ops = (cnt["node_visits"] * BVH_STEP_INSTR
+                   + cnt["leaf_tests"] * BVH_LEAF_INSTR)
+            tables = (cs.bvh_nodes.numel() + cs.verts.numel()
+                      + cs.tri_v.numel()) * 4
+            frames[m]["counts"] = cnt
+        else:
+            frames[m]["pairs"] = rays * cs.dense_rows.shape[0]
+            ops = frames[m]["pairs"] * DENSE_PAIR_INSTR
+            tables = cs.dense_rows.numel() * 4
+        nbytes = words * 4 + tables
+        frames[m].update(rays=rays, bytes=nbytes, ops=ops,
+                         bound_parts={"operations": ops / PEAK_F32_INSTR
+                                      * 1e3,
+                                      "bytes": nbytes / PEAK_BYTES * 1e3})
+        frames[m]["bound"] = max((v, k) for k, v in
+                                 frames[m]["bound_parts"].items())
+        log(f"[p15 bound {key.upper()}] {rays} real rays of "
+            f"{sum(a[2].shape[0] for a in calls[key])} traced, "
+            f"{frames[m].get('counts') or frames[m]['pairs']}, {nbytes} "
+            f"bytes: {frames[m]['bound'][0]:.4f} ms "
+            f"({frames[m]['bound'][1]}; operations "
+            f"{frames[m]['bound_parts']['operations']:.4f} ms, bytes "
+            f"{frames[m]['bound_parts']['bytes']:.4f} ms)")
+        del calls
+    out["shadow"] = frames
+
+    # ---- (c) "bvh" at any size: the grid-512 heightfield ----
+    (bs, bp), t_build = timed(lambda: build_scene(
+        make_stress_scene(MAIN_GRID), device=dev, image_width=full,
+        image_height=full, intersector="bvh"))
+    res, t_warm = timed(lambda: render(bs, bp))
+    times = []
+    for _ in range(P15_FRAMES):
+        reset()
+        res, t = timed(lambda: render(bs, bp))
+        times.append(t)
+        got_c = counts()
+    out["launches"]["c_bvh"] = got_c
+    (_, calls), _ = timed(lambda: shadow_calls(bs, bp))
+    k_ms_c, _ = event_ms(lambda: [kb.bvh_walk_cuda(*a) for a in calls["k7"]])
+    hold(f"grid {MAIN_GRID} {full}^2, chunk 0", "k7", calls["k7"][:2])
+    hit = res.geom_id >= 0
+    try:
+        render(bs, dc.replace(bp, intersector="dense"))
+        refused = False
+    except RuntimeError as e:
+        refused = "DENSE_TABLE_MAX_TRIS" in str(e)
+    out["grid512"] = dict(build_s=t_build, nodes=bp.num_bvh_nodes,
+                          warmup_s=t_warm, frames_s=times, k7_ms=k_ms_c,
+                          hits=res.hit_count, dense_refused=refused)
+    log(f"[p15 grid {MAIN_GRID}] build {t_build:.2f} s ({bp.num_bvh_nodes} "
+        f"nodes); {full}^2 shadow trace through bvh: warm-up {t_warm:.3f} "
+        f"s, frames {', '.join(f'{t:.4f}' for t in times)} s; launches "
+        f"{got_c}; K7 alone over the frame's {len(calls['k7'])} calls "
+        f"{', '.join(f'{t:.2f}' for t in k_ms_c)} ms; hits {res.hit_count};"
+        f" 'dense' without its tables refused: {refused}")
+    if (not refused or got_c["k7"] < 1 or not hit.any()
+            or not all(bool(np.isfinite(getattr(res, f)[hit]).all())
+                       for f in ("t", "normal", "hit_p"))):
+        raise AssertionError("(c) the grid-512 scene through bvh failed")
+    del bs, calls
+
+    # ---- (d) path B (the XLA loop) through each ----
+    paths = {}
+    for m, key in (("bvh", "k7"), ("dense", "k8")):
+        pb = dc.replace(params[m], samples_per_pixel=PATH_B_SPP)
+        times, st = [], {}
+        for i in range(P15_PATH_FRAMES):
+            reset()
+            st = {}
+            with recording(kb, "bvh_walk_cuda") as c7, \
+                    recording(kd, "dense_closest_tri_cuda") as c8:
+                (rgb, done), t = timed(lambda: render_streaming(cs, pb,
+                                                                stats=st))
+            times.append(t)
+            got = counts()
+            calls = {"k7": c7, "k8": c8}[key] if i == 0 else calls
+        # the loop's calls (bounce rays from non-zero origins, offset
+        # t_min, dead lanes at t_max = -1) against the plain version, then
+        # the kernel alone over all of them behind a spin kernel: the
+        # card's time, not the host's launch rate
+        hold(f"path B {m}", key, calls[:2])
+        k_ms, _ = event_ms(lambda: [kern[key](*a) for a in calls], reps=2,
+                           hold_ms=300.0)
+        mean_rel = abs(float(rgb.mean()) / mega_mean - 1.0)
+        share = median(k_ms) / (median(times) * 1e3)
+        paths[m] = dict(frames_s=times, iterations=st["iters"],
+                        launches=got, kernel_card_ms=k_ms,
+                        kernel_share=share, mean=float(rgb.mean()),
+                        mean_rel=mean_rel, done=done)
+        out["launches"][f"d_{m}"] = got
+        log(f"[p15 path B {m}] Cornell + monkey {full}^2 spp {PATH_B_SPP}, "
+            f"no env: frames {', '.join(f'{t:.3f}' for t in times)} s, "
+            f"{st['iters']} iterations, launches {got}; {key.upper()} alone "
+            f"over the frame's {len(calls)} calls behind a spin kernel "
+            f"{', '.join(f'{t:.1f}' for t in k_ms)} ms (share "
+            f"{share:.4f}); done {done}; mean "
+            f"{float(rgb.mean()):.6f} vs the megakernel's {mega_mean:.6f} "
+            f"(rel {mean_rel:.4f})")
+        if (done != n_frame * PATH_B_SPP or not np.isfinite(rgb).all()
+                or mean_rel > PS_MEAN_REL or got[key] < 1 or got["k1"]
+                or got["k5"]):
+            raise AssertionError(f"(d) path B through {m} failed")
+        del calls
+    out["path_b"] = paths
+
+    # ---- (e) the per-sample wavefront: kernel route vs plain route ----
+    for m, key in (("bvh", "k7"), ("dense", "k8")):
+        p = dc.replace(small[m], samples_per_pixel=2)
+        reset()
+        ker = render(cs, p, mode="path-trace", streaming=False,
+                     chunk_size=P15_SMALL ** 2)
+        got = counts()
+        mod, name = (kb, "bvh_walk_cuda") if key == "k7" else \
+            (kd, "dense_closest_tri_cuda")
+        saved = getattr(mod, name)
+        setattr(mod, name, plain[key])
+        try:
+            pln = render(cs, p, mode="path-trace", streaming=False,
+                         chunk_size=P15_SMALL ** 2)
+        finally:
+            setattr(mod, name, saved)
+        same = bits_equal(ker.rgb, pln.rgb)
+        out["launches"][f"e_{m}"] = got
+        log(f"[p15 per-sample {m}] {P15_SMALL}^2 spp 2: kernel route vs "
+            f"plain route bit for bit {same}; launches {got}; mean "
+            f"{float(ker.rgb.mean()):.6f}")
+        if not same or got[key] < 1:
+            raise AssertionError(f"(e) per-sample route through {m} failed")
+
+    # ---- (f) trace_torch.py with --intersector bvh / dense ----
+    tmp = tempfile.TemporaryDirectory()
+    out["cli"] = {}
+    try:
+        for m, key in (("bvh", "k7"), ("dense", "k8")):
+            reset()
+            rec, t = timed(lambda: trace_torch.run([
+                "--scene", "box-simple", "--render-mode", "shadow-trace",
+                "--visualise", "normal", "--intersector", m, "-o",
+                os.path.join(tmp.name, m), "--log-level", "warn"]))
+            got = counts()
+            out["cli"][m] = dict(seconds=t, mse=rec["mse"], launches=got,
+                                 parts=rec["seconds"])
+            out["launches"][f"f_{m}"] = got
+            log(f"[p15 cli {m}] --scene box-simple --render-mode "
+                f"shadow-trace --visualise normal --intersector {m}: {t:.2f} "
+                f"s ({', '.join(f'{k} {v:.2f}' for k, v in rec['seconds'].items())}"
+                f"); MSE vs the CPU twin {rec['mse']['cpu']}, vs the oracle "
+                f"{rec['mse']['oracle']:.4g}; launches {got}")
+            if rec["mse"]["cpu"] != 0 or got[key] < 1:
+                raise AssertionError(f"(f) the CLI through {m} failed")
+    finally:
+        tmp.cleanup()
+    out["seconds"] = time.perf_counter() - t_phase
+    log(f"[p15] {json.dumps(out, default=str)}")
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
@@ -1517,7 +2018,7 @@ def main() -> int:
 
     mesh = os.path.join(ROOT, "assets", "monkey_bust.glb")
     err = {"k1": 0.0, "k1_rec": 0.0, "env": 0.0, "bank": 0.0, "k3": 0.0,
-           "k4": 0.0, "k5": 0.0, "k6": 0.0}
+           "k4": 0.0, "k5": 0.0, "k6": 0.0, "k7": 0.0, "k8": 0.0}
 
     def stream(params, chunk=1 << 17):
         rows_np, cols_np, _ = _pixel_stream(params)
@@ -3113,6 +3614,13 @@ def main() -> int:
     for k in ("k5", "k6", "env"):
         err[k] = max(err[k], ps["max_abs_err"][k])
 
+    phase("15")
+    # ---- 15. the "bvh" and "dense" intersectors: K7 and K8 on the shadow
+    # trace, the XLA loop, the per-sample wavefront and the CLI ----
+    p15 = intersectors(dev, sout, ps["frame"]["streaming_mean"])
+    for k in ("k7", "k8"):
+        err[k] = max(err[k], p15["max_abs_err"][k])
+
     def ps_launches(k):
         """Kernel ``k``'s launches in each of phase 14's runs."""
         return {run: n[k] for run, n in ps["launches"].items()}
@@ -3279,6 +3787,7 @@ def main() -> int:
               frame_ms_all_aovs=median(a_all) * 1e3,
               frame_ms_normals=median(a_nrm) * 1e3,
               launches_per_sample=ps_launches("k6")),
+        *(p15_entry(p15, key, err[key]) for key in ("k7", "k8")),
     ]}))
     log(identity)
     print(json.dumps({"ok": True, "device": {

@@ -11,8 +11,10 @@ comparison between renderers whose RNG streams differ):
   1. build the Cornell scene (with the monkey plinth if available),
   2. shadow-trace AOV parity (normals / hitpoints / ids) vs the f64 oracle,
   3. path-trace two independent seeds and compare colour histograms,
-  4. the same render through two independent intersectors (the VMEM-mode
-     walk and the HBM-mode walk) must agree per pixel,
+  4. the same render through independent intersectors must agree per
+     pixel: the VMEM-mode walk against the HBM-mode walk, and the
+     megakernel (pallas) against the XLA-loop integrator over the dense
+     intersector (K8),
   5. Collada scene load + render smoke.
 
 Usage: python examples/verify_all_torch.py [--size 96] [--spp 16]
@@ -105,16 +107,20 @@ def main(argv=None):
     # super-groups, supers and blocks): images must agree per pixel, not
     # just in distribution (the check that caught the payload-leakage
     # radiometry bug, PROGRESS.md finding 30).
+    # The megakernel against the XLA-loop integrator over the dense
+    # intersector: the same RNG streams and estimator through another
+    # integrator and another closest hit (the JAX example's step).
     imgs = {}
-    for its in ("pallas", "pallas-hbm"):
+    for its in ("pallas", "pallas-hbm", "dense"):
         ti, pi = build_scene(scene, device=dev, image_width=size,
                              image_height=size, samples_per_pixel=spp,
                              intersector=its)
         imgs[its], _done = render_streaming(ti, pi, spp=spp)
-    dmax = np.abs(imgs["pallas"] - imgs["pallas-hbm"]).max(axis=-1)
-    print(f"## Cross-intersector (pallas vs pallas-hbm): mean "
-          f"{imgs['pallas'].mean():.5f} vs {imgs['pallas-hbm'].mean():.5f}, "
-          f"q99 pixel diff {np.quantile(dmax, 0.99):.2e}")
+    for other in ("pallas-hbm", "dense"):
+        dmax = np.abs(imgs["pallas"] - imgs[other]).max(axis=-1)
+        print(f"## Cross-intersector (pallas vs {other}): mean "
+              f"{imgs['pallas'].mean():.5f} vs {imgs[other].mean():.5f}, "
+              f"q99 pixel diff {np.quantile(dmax, 0.99):.2e}")
 
     # ---- 4. Collada import + render smoke --------------------------------
     if os.path.exists("assets/hdri_test.dae"):

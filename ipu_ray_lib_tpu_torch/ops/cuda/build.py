@@ -33,7 +33,8 @@ import torch
 from ...runtime.config import log_compile
 
 _HERE = os.path.dirname(os.path.abspath(__file__))
-_SOURCES = ("megakernel.cu", "env_mlp.cu", "shadow.cu", "intersect.cu")
+_SOURCES = ("megakernel.cu", "env_mlp.cu", "shadow.cu", "intersect.cu",
+            "bvh.cu", "dense.cu")
 _HEADERS = ("rows.cuh",)  # included by shadow.cu and intersect.cu
 BUILD_DIR = os.path.join(_HERE, "..", "..", "_build")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
@@ -89,7 +90,11 @@ _SIGNATURES = {
     "shadow_launch": [_P] * 13 + [_I] * 5 + [_F] * 3 + [_P],
     "shadow_smem_bytes": [_I],
     "intersect_launch": [_P] * 18 + [_I] * 8 + [_P],
+    "bvh_launch": [_P] * 16 + [_I] * 9 + [_P],
+    "dense_launch": [_P] * 7 + [_I] * 2 + [_P],
 }
+# The counters of a counting launch of K7: node visits, leaf tests.
+BVH_COUNTERS = ("node_visits", "leaf_tests")
 
 
 def _nvcc() -> str:
@@ -458,3 +463,83 @@ def launch_intersect(scene, counts, order, dists, rays, out_t, out_i, out_n,
             int(hbm and scene.payload_split), W, n_waves, int(hbm),
             K5_SPREAD, _stream(dev))
     _raise_on(err, "intersect")
+
+
+def launch_bvh(scene, origin, direction, t_min, t_max, out_t, out_g, out_p,
+               *, any_hit: bool, zero_origin: bool = False,
+               counters=None) -> None:
+    """Launch the threaded-BVH walk (K7, bvh.cu) on the current stream, one
+    thread per ray: ``origin``/``direction`` [R, 3] f32, ``t_min``/``t_max``
+    [R] f32; ``out_t`` [R] f32, ``out_g`` and ``out_p`` [R] i32 are written
+    (the best t, geometry and primitive id; with ``any_hit`` only
+    ``out_g``, 1 where occluded). ``zero_origin``: the rays start at
+    (0, 0, 0) and the disc test folds the origin away. ``counters``
+    ([BVH_COUNTERS] int64, zeroed) makes it a counting launch."""
+    f32, i32 = torch.float32, torch.int32
+    R = direction.shape[0]
+    nodes = scene.bvh_nodes
+    _check("bvh_nodes", nodes, i32, (nodes.shape[0], 8))
+    geo = {k: getattr(scene, k) for k in (
+        "geom_type", "geom_index", "mesh_first_tri", "tri_v", "verts",
+        "spheres", "discs")}
+    for k in ("geom_type", "geom_index", "mesh_first_tri", "tri_v"):
+        _check(k, geo[k], i32)
+    for k in ("verts", "spheres", "discs"):
+        _check(k, geo[k], f32)
+    _check("tri_v", geo["tri_v"], i32, (geo["tri_v"].shape[0], 3))
+    _check("spheres", geo["spheres"], f32, (geo["spheres"].shape[0], 4))
+    _check("discs", geo["discs"], f32, (geo["discs"].shape[0], 7))
+    _check("origin", origin, f32, (R, 3))
+    _check("direction", direction, f32, (R, 3))
+    _check("t_min", t_min, f32, (R,))
+    _check("t_max", t_max, f32, (R,))
+    _check("out_t", out_t, f32, (R,))
+    _check("out_g", out_g, i32, (R,))
+    _check("out_p", out_p, i32, (R,))
+    _same_device(nodes, *geo.values(), origin, direction, t_min, t_max,
+                 out_t, out_g, out_p)
+    if counters is not None:
+        _check("counters", counters, torch.int64, (len(BVH_COUNTERS),))
+        _same_device(direction, counters)
+    lib = load()
+    with torch.cuda.device(direction.device):
+        err = lib.bvh_launch(
+            nodes.data_ptr(), *(geo[k].data_ptr() for k in (
+                "geom_type", "geom_index", "mesh_first_tri", "tri_v", "verts",
+                "spheres", "discs")),
+            origin.data_ptr(), direction.data_ptr(), t_min.data_ptr(),
+            t_max.data_ptr(), out_t.data_ptr(), out_g.data_ptr(),
+            out_p.data_ptr(), None if counters is None else counters.data_ptr(),
+            R, nodes.shape[0], geo["geom_type"].shape[0],
+            geo["mesh_first_tri"].shape[0], geo["tri_v"].shape[0],
+            geo["spheres"].shape[0], geo["discs"].shape[0], int(any_hit),
+            int(zero_origin), _stream(direction.device))
+    _raise_on(err, "bvh")
+
+
+def launch_dense(rows, origin, direction, t_min, t_max, out_t,
+                 out_i) -> None:
+    """Launch the dense triangle closest hit (K8, dense.cu) on the current
+    stream, one thread per ray: ``rows`` [T, 16] f32 (ops/dense.py
+    DENSE_COLS, T a multiple of 512), ``origin``/``direction`` [R, 3],
+    ``t_min``/``t_max`` [R]; ``out_t`` [R] f32 (t_max where nothing is
+    hit) and ``out_i`` [R] i32 (the row, or -1) are written."""
+    f32 = torch.float32
+    R, T = direction.shape[0], rows.shape[0]
+    _check("dense_rows", rows, f32, (T, 16))
+    if T % 512:
+        raise ValueError(f"{T} dense rows are not whole blocks of 512")
+    _check("origin", origin, f32, (R, 3))
+    _check("direction", direction, f32, (R, 3))
+    _check("t_min", t_min, f32, (R,))
+    _check("t_max", t_max, f32, (R,))
+    _check("out_t", out_t, f32, (R,))
+    _check("out_i", out_i, torch.int32, (R,))
+    _same_device(rows, origin, direction, t_min, t_max, out_t, out_i)
+    lib = load()
+    with torch.cuda.device(direction.device):
+        err = lib.dense_launch(
+            rows.data_ptr(), origin.data_ptr(), direction.data_ptr(),
+            t_min.data_ptr(), t_max.data_ptr(), out_t.data_ptr(),
+            out_i.data_ptr(), R, T, _stream(direction.device))
+    _raise_on(err, "dense")

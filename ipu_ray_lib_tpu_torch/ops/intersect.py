@@ -12,6 +12,11 @@
   (:898-956) and :func:`barycentrics`, the same chain re-run for the
   winning row in the deferred payload pass (:1974-2018).
 * :func:`analytic_hit` — spheres and discs (:2133-2191).
+* The JAX package's primitive tests of ``ipu_ray_lib_tpu/ops/intersect.py``
+  (:func:`intersect_box_slab`, :func:`make_ray_shear`,
+  :func:`intersect_triangle_watertight`, :func:`intersect_sphere`,
+  :func:`intersect_disc`), on [R, 3] rows: the threaded-BVH walk's leaf
+  tests (ops/bvh.py) and ``hit_normal`` (ops/traversal.py).
 
 Every expression keeps the kernel's operation order. The approximate
 reciprocal of the dense test is what the reference evaluates off the TPU
@@ -21,14 +26,20 @@ step.
 
 from __future__ import annotations
 
+from typing import NamedTuple
+
 import numpy as np
 import torch
+
+from .vec3 import fma, rowdot
+from .vec3 import sqrt as vsqrt
 
 INF = float("inf")
 BIG = 1e37                       # float32(1e37) is exactly this value's f32
 SLAB_SCALE = float(np.float32(1.0 + 6e-7))
 SLAB_LO = float(np.float32(1.0 - 6e-7))
 _EPS_CLAMP = float(np.float32(1e-3))
+_MACH_EPS = float(np.float32(np.finfo(np.float32).eps * 0.5))
 
 
 def recip_approx(x: torch.Tensor) -> torch.Tensor:
@@ -140,3 +151,157 @@ def analytic_hit(ap: torch.Tensor, o, d, best_t: torch.Tensor):
     idx = torch.arange(ap.shape[0], device=ap.device)[:, None]
     bi = torch.amin(torch.where(t_ap <= bt, idx, ap.shape[0]), dim=0)
     return bt, bi
+
+
+# ---- The JAX package's primitive tests (ipu_ray_lib_tpu/ops/intersect.py:
+# 43-217), batched over rays: the plain versions the threaded-BVH walk
+# (ops/bvh.py, kernel K7) and ``hit_normal`` (ops/traversal.py) run. Each
+# keeps the JAX function's operation order as XLA compiles it under ``jit``
+# on the CPU: a product feeding a sum or difference is one fused
+# multiply-add (ops/vec3.py ``fma``) where XLA contracts it, and the
+# selects are written as ``where(a > b, a, b)`` so a NaN resolves as the
+# JAX ``where`` forms do. ----
+
+def _gamma(n: int) -> float:
+    ni = np.float32(np.finfo(np.float32).eps * 0.5) * n
+    return float(np.float32(ni / (1.0 - ni)))
+
+
+BOX_SLAB_SCALE = float(np.float32(1.0 + 2.0 * _gamma(3)))
+GAMMA2, GAMMA3, GAMMA5 = _gamma(2), _gamma(3), _gamma(5)
+
+
+def intersect_box_slab(origin, inv_dir, box_lo, box_hi, t0, t1):
+    """Ray/AABB slab test (origin, inv_dir, box_lo, box_hi [R, 3]; t0, t1
+    [R]): (hit, t0', t1'), t1' narrowed by exits widened by
+    ``1 + 2 gamma(3)``."""
+    for a in range(3):
+        tmin = (box_lo[:, a] - origin[:, a]) * inv_dir[:, a]
+        tmax = (box_hi[:, a] - origin[:, a]) * inv_dir[:, a]
+        swap = tmin > tmax
+        tmin, tmax = torch.where(swap, tmax, tmin), torch.where(swap, tmin, tmax)
+        tmax = tmax * BOX_SLAB_SCALE
+        t0 = torch.where(tmin > t0, tmin, t0)
+        t1 = torch.where(tmax < t1, tmax, t1)
+    return t0 <= t1, t0, t1
+
+
+class RayShear(NamedTuple):
+    """The permute + shear transform of each ray."""
+
+    origin: torch.Tensor  # [R, 3]
+    perm: torch.Tensor    # [R, 3] int64 (ix, iy, iz)
+    sx: torch.Tensor      # [R]
+    sy: torch.Tensor
+    sz: torch.Tensor
+
+
+def make_ray_shear(origin, direction) -> RayShear:
+    """The shear of each ray: z is the axis of its largest |d| (the first
+    on ties), x and y the next two in cyclic order."""
+    ad = torch.abs(direction)
+    iz = torch.where((ad[:, 1] > ad[:, 0]) & (ad[:, 1] >= ad[:, 2]), 1,
+                     torch.where((ad[:, 2] > ad[:, 0]) & (ad[:, 2] > ad[:, 1]),
+                                 2, 0))
+    ix = torch.where(iz == 2, 0, iz + 1)
+    iy = torch.where(ix == 2, 0, ix + 1)
+    perm = torch.stack([ix, iy, iz], -1)
+    dp = torch.gather(direction, 1, perm)
+    inv_dz = 1.0 / dp[:, 2]
+    return RayShear(origin=origin, perm=perm, sx=-dp[:, 0] * inv_dz,
+                    sy=-dp[:, 1] * inv_dz, sz=inv_dz)
+
+
+class TriangleHit(NamedTuple):
+    t: torch.Tensor   # [R], 0 on a miss
+    b0: torch.Tensor
+    b1: torch.Tensor
+    b2: torch.Tensor
+
+
+def _amax3(a, b, c):
+    a, b, c = torch.abs(a), torch.abs(b), torch.abs(c)
+    return torch.maximum(torch.maximum(a, b), c)
+
+
+def intersect_triangle_watertight(shear: RayShear, p0, p1, p2,
+                                  t_far: float = INF) -> TriangleHit:
+    """The watertight ray/triangle test (PBRT) with f32 error bounds, its
+    edge-function signs widened by their own rounding bound and its
+    ``t <= delta_t`` rejection (p0, p1, p2 [R, 3])."""
+    pt = [torch.gather(p - shear.origin, 1, shear.perm) for p in (p0, p1, p2)]
+    sx, sy, sz = shear.sx, shear.sy, shear.sz
+    px = [fma(sx, q[:, 2], q[:, 0]) for q in pt]
+    py = [fma(sy, q[:, 2], q[:, 1]) for q in pt]
+    e0 = fma(px[1], py[2], -(py[1] * px[2]))
+    e1 = fma(px[2], py[0], -(py[2] * px[0]))
+    e2 = fma(px[0], py[1], -(py[0] * px[1]))
+
+    max_xt = _amax3(*px)
+    max_yt = _amax3(*py)
+    max_zt0 = _amax3(*(q[:, 2] for q in pt))
+    dx0 = GAMMA5 * (max_xt + max_zt0)
+    dy0 = GAMMA5 * (max_yt + max_zt0)
+    de = 2.0 * fma(dx0, max_yt, fma(GAMMA2 * max_xt, max_yt, dy0 * max_xt))
+    mixed = (((e0 < -de) | (e1 < -de) | (e2 < -de))
+             & ((e0 > de) | (e1 > de) | (e2 > de)))
+    det = e0 + e1 + e2
+
+    pz = [q[:, 2] * sz for q in pt]
+    t_scaled = fma(e2, pz[2], fma(e0, pz[0], e1 * pz[1]))
+    bad_neg = (det < 0) & ((t_scaled >= 0) | (t_scaled < t_far * det))
+    bad_pos = (det > 0) & ((t_scaled <= 0) | (t_scaled > t_far * det))
+
+    inv_det = 1.0 / det
+    b0, b1, b2 = e0 * inv_det, e1 * inv_det, e2 * inv_det
+    t = t_scaled * inv_det
+
+    max_z = _amax3(*pz)
+    delta_z = GAMMA3 * max_z
+    delta_x = GAMMA5 * (max_xt + max_z)
+    delta_y = GAMMA5 * (max_yt + max_z)
+    delta_e = 2.0 * fma(delta_x, max_yt,
+                        fma(GAMMA2 * max_xt, max_yt, delta_y * max_xt))
+    max_e = _amax3(e0, e1, e2)
+    delta_t = 3.0 * fma(delta_z, max_e,
+                        fma(GAMMA3 * max_e, max_z, delta_e * max_z)) \
+        * torch.abs(inv_det)
+    miss = mixed | (det == 0) | bad_neg | bad_pos | (t <= delta_t)
+    return TriangleHit(t=torch.where(miss, 0.0, t), b0=b0, b1=b1, b2=b2)
+
+
+def intersect_sphere(origin, direction, t_min, centre, radius):
+    """Geometric ray/sphere test (origin, direction, centre [R, 3];
+    t_min, radius [R]): t, 0 on a miss. The square of the radius is
+    taken here, as the BVH walk's leaf test takes it in the same fused
+    computation: XLA then contracts ``r * r - l2``."""
+    radius2 = radius * radius
+    f = centre - origin
+    rd2 = 1.0 / rowdot(direction, direction)
+    tca = rowdot(f, direction) * rd2
+    lv = fma(-direction, tca[:, None], f)
+    l2 = rowdot(lv, lv)
+    td = vsqrt(torch.clamp_min(fma(radius, radius, -l2), 0.0)) * rd2
+    t0, t1 = tca - td, tca + td
+    t = torch.where(t0 < t_min, t1, t0)
+    miss = (tca < 0.0) | (l2 > radius2) | (t < t_min)
+    return torch.where(miss, 0.0, t)
+
+
+def intersect_disc(origin, direction, normal, centre, radius2,
+                   zero_origin: bool = False):
+    """Ray/disc test with the reference's plane offset |c . n| (origin,
+    direction, normal, centre [R, 3]; radius2 [R]): t, 0 on a miss.
+    ``zero_origin``: rays from (0, 0, 0), whose origin XLA folds away, so
+    the hit point fuses into its difference with the centre."""
+    angle = rowdot(normal, direction)
+    d_off = torch.abs(rowdot(centre, normal))
+    if zero_origin:
+        t = -d_off / angle
+        dd = fma(direction, t[:, None], -centre)
+    else:
+        t = -(rowdot(normal, origin) + d_off) / angle
+        dd = fma(direction, t[:, None], origin) - centre
+    d2 = rowdot(dd, dd)
+    ok = (angle != 0.0) & (t > _MACH_EPS) & (d2 < radius2)
+    return torch.where(ok, t, 0.0)

@@ -3,9 +3,9 @@
 Port of ``ipu_ray_lib_tpu/render/path.py`` (``path_trace_sample``, :70):
 all rays advance together, one bounce per step of a host loop with
 masked lanes. Per bounce: the self-intersection offset, the closest hit
-through the scene's triangle kernel (K5 in VMEM mode, K6 in HBM mode;
-ops/traversal.py ``scene_intersect_with_normal``) and the analytic
-spheres and discs, the emission, the BxDF sampling of every material
+through the scene's triangle kernel (K5 in VMEM mode, K6 in HBM mode; K7
+for ``"bvh"``, K8 for ``"dense"``; ops/traversal.py
+``scene_intersect_with_normal``) and the analytic spheres and discs, the emission, the BxDF sampling of every material
 type with a masked select (ops/bxdf_loop.py), and Russian roulette
 strictly after ``roulette_start_depth``. Escaped rays keep their
 direction and throughput, so that an environment light is applied
@@ -85,7 +85,7 @@ def path_trace_sample(scene, origins: torch.Tensor, dirs: torch.Tensor,
                       stats: dict | None = None) -> SampleResult:
     """One sample of every ray (origins, dirs [R, 3] f32 on the scene's
     device) under the threefry ``key``, through ``intersector``
-    (``"pallas"`` or ``"pallas-hbm"``). ``stats`` (a dict) gains
+    (one of ``scene/build.py:INTERSECTORS``). ``stats`` (a dict) gains
     ``bounces`` and ``syncs``: the bounces run and the host reads of
     ``any(active)``."""
     R = origins.shape[0]

@@ -44,14 +44,12 @@ import numpy as np
 import torch
 
 from ..bvh.builder import INVALID_GEOM_ID
-from ..nif.model import NifEnv
 from ..ops.camera import generate_camera_rays
-from ..ops.env import env_mlp
 from ..utils import threefry
 from ..utils.log import logger
 from .path import path_trace_sample
 from .shadow import shadow_trace
-from .streaming import _pixel_stream, render_streaming
+from .streaming import _pixel_stream, env_term, render_streaming
 
 DEFAULT_CHUNK = 1 << 16
 TILE = 32  # pixel tile edge of the ray order (render/streaming.py)
@@ -111,16 +109,6 @@ def _tile_coords(g0: int, n: int, w: int, window_c: int, window_r: int,
     rows = torch.where(valid, window_r + tr * TILE + within // TILE, 0)
     cols = torch.where(valid, window_c + tc * TILE + within % TILE, 0)
     return rows.to(torch.float32), cols.to(torch.float32)
-
-
-def env_term(env, dirs: torch.Tensor) -> torch.Tensor:
-    """The environment's radiance [R, 3] of directions [R, 3] as the JAX
-    package's per-sample path trace takes it: a NifEnv with the equirect
-    angles of the XLA env function (the env MLP kernel on the card), any
-    other env as the callable it is."""
-    if isinstance(env, NifEnv):
-        return env_mlp(dirs, env, exact_uv=True)
-    return env(dirs)
 
 
 def path_chunk(scene, params, rows: torch.Tensor, cols: torch.Tensor,

@@ -8,8 +8,10 @@ the full AOV set. Two routes, chosen as the JAX package chooses them
 * the fused shadow kernel K4 (ops/shadow.py), when ``fused`` and the
   scene is in VMEM mode (``intersector="pallas"``);
 * otherwise the glue route (:66-100): a closest hit with normals
-  (ops/traversal.py, kernel K5 or K6), the shadow ray pushed off the
-  surface, an any-hit query through the same kernel, and the shading.
+  (ops/traversal.py, kernel K5 or K6; K7 for ``"bvh"``, K8 for
+  ``"dense"``), the shadow ray pushed off the surface, an any-hit query
+  through the same kernel (K7's any-hit walk for ``"bvh"``), and the
+  shading.
 
 Both end in the same shading (ops/shadow.py ``shade``). The JAX package
 chooses the route with the ``RAY_SHADOW_FUSED`` environment variable; here

@@ -21,7 +21,9 @@ The walk follows ``params.intersector`` (``"pallas"``: K1's VMEM-mode
 walk; ``"pallas-hbm"``: K3's HBM-mode walk, ops/megakernel.py). The mode
 changes nothing here: the reference's HBM mode alters only its TPU bundle
 count (streaming.py:724-725); the pool, the pixel stream, the batches and
-the seeds are the same.
+the seeds are the same. The ``"bvh"`` and ``"dense"`` intersectors run
+the XLA-loop integrator below, with or without an environment, as the
+reference routes them (``_use_megakernel``, :575-582).
 
 A NIF environment light (``env``) is evaluated once per dispatch over
 every escaped path (ops/megakernel.py), so the reference's env flush
@@ -32,9 +34,12 @@ Any other environment, a callable ``env(dirs [R, 3]) -> rgb [R, 3]``,
 runs the XLA-loop integrator instead, as the reference routes opaque env
 functions (``_use_megakernel``, :575-582): a host loop over iterations,
 each one segment of every active slot through the closest-hit kernel
-(K5, or K6 in HBM mode; ops/traversal.py ``pallas_path_intersect``), the
-BxDF sampling in plain torch (ops/bxdf_loop.py) and the regeneration of
-finished slots. Its slot pool is not rounded to 256.
+(K5, or K6 in HBM mode; ops/traversal.py ``pallas_path_intersect``; for
+``"bvh"`` and ``"dense"`` K7 or K8 through ``scene_intersect_with_normal``
+and the material gathered by geometry id), the BxDF sampling in plain
+torch (ops/bxdf_loop.py) and the regeneration of finished slots. Its
+slot pool is not rounded to 256. A NIF lights this loop's escapes with
+the XLA env function's angles (:func:`env_term`, the env MLP kernel K2).
 """
 
 from __future__ import annotations
@@ -46,9 +51,10 @@ from ..nif.model import NifEnv
 from ..ops.bxdf_loop import (dielectric, evaluate_roulette, offset_ray_origin,
                              reflect, sample_diffuse)
 from ..ops.camera import pixel_to_ray_dir, tan_half_fov
+from ..ops.env import env_mlp
 from ..ops.megakernel import megakernel_path_trace
 from ..ops.rng import normal2, uniform01
-from ..ops.traversal import pallas_path_intersect
+from ..ops.traversal import pallas_path_intersect, scene_intersect_with_normal
 from ..ops.vec3 import fma
 
 SPP_BATCH = 64
@@ -97,6 +103,33 @@ def slot_pool(n_pix: int, chunk_slots: int) -> tuple[int, int]:
     return R, -(-n_pix // R)
 
 
+def env_term(env, dirs: torch.Tensor) -> torch.Tensor:
+    """The environment's radiance [R, 3] of directions [R, 3] as the JAX
+    package's XLA-loop integrator and per-sample path trace take it: a
+    NifEnv with the equirect angles of the XLA env function (the env MLP
+    kernel on the card), any other env as the callable it is."""
+    if isinstance(env, NifEnv):
+        return env_mlp(dirs, env, exact_uv=True)
+    return env(dirs)
+
+
+def _path_hit(scene, o, d, t_min, t_max, intersector: str) -> dict:
+    """The closest hit's t, found, normal and material per ray (as
+    ``pallas_path_intersect`` returns them), through ``intersector``:
+    ``"bvh"`` and ``"dense"`` gather the material by geometry id."""
+    if intersector in ("pallas", "pallas-hbm"):
+        return pallas_path_intersect(scene, o, d, t_min, t_max,
+                                     hbm=intersector == "pallas-hbm")
+    hit, normal = scene_intersect_with_normal(scene, o, d, t_min, t_max,
+                                              intersector)
+    g = torch.clamp(hit.geom_id, 0, scene.mat_id.shape[0] - 1).long()
+    mid = scene.mat_id[g].long()
+    return dict(t=hit.t, found=hit.found, normal=normal,
+                albedo=scene.mat_albedo[mid], mat_type=scene.mat_type[mid],
+                ior=scene.mat_ior[mid], emission=scene.mat_emission[mid],
+                emissive=scene.mat_emissive[mid] != 0)
+
+
 def _camera_ray(params, rows, cols, pix, path_id, seed):
     """Camera rays of the slots' pixels ``pix`` (port of ``_camera_ray``,
     streaming.py:59-78): jittered by a gaussian pair keyed (path id, seed,
@@ -126,7 +159,6 @@ def streaming_path_trace(scene, rows, cols, seed: int, n_valid: int, *,
     K = J * spp
     dev = scene.device
     f32 = torch.float32
-    hbm = params.intersector == "pallas-hbm"
     slot = torch.arange(R, dtype=torch.int64, device=dev)
     seed &= _U32
 
@@ -157,7 +189,7 @@ def streaming_path_trace(scene, rows, cols, seed: int, n_valid: int, *,
         pid = slot_pid(k)
         rng_b = (bounce + 7 + seed) & _U32
         t_max = torch.where(active, float("inf"), -1.0)
-        res = pallas_path_intersect(scene, o, d, t_min, t_max, hbm=hbm)
+        res = _path_hit(scene, o, d, t_min, t_max, params.intersector)
         found, hit_n = res["found"], res["normal"]
         live = active & found
         hit_p = fma(d, res["t"][:, None], o)
@@ -188,7 +220,8 @@ def streaming_path_trace(scene, rows, cols, seed: int, n_valid: int, *,
 
         escaped = active & ~found
         if env is not None:
-            color = color + torch.where(escaped[:, None], tp_in * env(d), 0.0)
+            color = color + torch.where(escaped[:, None],
+                                        tp_in * env_term(env, d), 0.0)
 
         bounce = bounce + 1
         over = live & (bounce >= params.max_path_length)
@@ -219,11 +252,19 @@ def streaming_path_trace(scene, rows, cols, seed: int, n_valid: int, *,
     return accum.permute(0, 2, 1), done, iters
 
 
-def uses_megakernel(slots: int, env) -> bool:
+def megakernel_route(intersector: str, env) -> bool:
+    """Whether the megakernel renders (the reference's ``_use_megakernel``):
+    the ``"pallas"`` and ``"pallas-hbm"`` intersectors with no env or a
+    NIF."""
+    return (intersector in ("pallas", "pallas-hbm")
+            and (env is None or isinstance(env, NifEnv)))
+
+
+def uses_megakernel(slots: int, env, intersector: str = "pallas") -> bool:
     """The megakernel route (K1/K3, with a NifEnv its record mode, env MLP
-    and bank) when the env is none or a NIF and the pool of ``slots``
-    tiles into 256; otherwise the XLA-loop integrator."""
-    return (env is None or isinstance(env, NifEnv)) and slots % 256 == 0
+    and bank) when :func:`megakernel_route` holds and the pool of
+    ``slots`` tiles into 256; otherwise the XLA-loop integrator."""
+    return megakernel_route(intersector, env) and slots % 256 == 0
 
 
 def trace_batch(scene, rows, cols, seed: int, n_valid: int, *, params,
@@ -237,7 +278,7 @@ def trace_batch(scene, rows, cols, seed: int, n_valid: int, *, params,
     R, J = slots, j_per_slot
     kw = dict(params=params, slots=R, j_per_slot=J, spp=spp,
               max_iters=J * spp * params.max_path_length + 16, env=env)
-    if uses_megakernel(R, env):
+    if uses_megakernel(R, env, params.intersector):
         return megakernel_path_trace(scene, rows, cols, seed, n_valid, **kw)
     accum, done, iters = streaming_path_trace(scene, rows, cols, seed,
                                               n_valid, **kw)
@@ -264,7 +305,7 @@ def render_streaming(scene, params, chunk_slots: int = 1 << 17, env=None,
     w, h = params.window_w, params.window_h
     n_pix = w * h
     rows_np, cols_np, order = _pixel_stream(params)
-    if env is None or isinstance(env, NifEnv):
+    if megakernel_route(params.intersector, env):
         R, J = slot_pool(n_pix, chunk_slots)
     else:
         R = min(chunk_slots, n_pix)

@@ -8,10 +8,16 @@ sphere/disc tables) is the JAX package's, in numpy; the result is a
 :class:`TorchScene` of tensors on the requested device and the same
 static :class:`SceneParams`.
 
-Two intersectors, as in the JAX package: ``"pallas"`` (the VMEM-mode
+Four intersectors, as in the JAX package: ``"pallas"`` (the VMEM-mode
 walk, kernel K1) and ``"pallas-hbm"`` (the HBM-mode walk, K3: super-group,
-super and block culls, f32 winner barycentrics in the payload). ``"auto"``
-resolves as the JAX package does on its accelerator.
+super and block culls, f32 winner barycentrics in the payload), which the
+megakernel runs; and ``"bvh"`` (the threaded-BVH walk, K7) and
+``"dense"`` (the brute-force triangle test, K8), which the XLA-loop
+integrator, the per-sample wavefront and the shadow trace's glue route
+run. ``"auto"`` resolves as the JAX package does on its accelerator, to
+one of the first two; the last two are reached by name only. Their
+leaves (the threaded BVH, the geometry ``hit_normal`` gathers and the
+dense tables) are uploaded for them alone.
 
 GeomID order matches the reference: meshes, then spheres, then discs.
 """
@@ -24,6 +30,8 @@ import numpy as np
 import torch
 
 from ..bvh.builder import INVALID_GEOM_ID, build_bvh
+from ..ops.dense import build_dense_tables, dense_leaves
+from ..ops.ids import GEOM_DISC, GEOM_MESH, GEOM_SPHERE, INTERSECTORS
 from ..ops.tables import (HBM_SPLIT_MIN_TRIS, SB, TB, build_blocked_tables,
                           padded_boxes)
 from ..runtime.device import cuda_device
@@ -33,7 +41,10 @@ from .types import CropWindow, SceneDescription
 # with more primitives, and mixed scenes with more triangles take the
 # scene BVH's leaf order (ipu_ray_lib_tpu/scene/build.py:246, :304-316):
 VMEM_TABLE_MAX_TRIS = 65536
-INTERSECTORS = ("pallas", "pallas-hbm")
+# The JAX package's rule for the dense tables: built up to this many
+# triangles, above it only when ``intersector="dense"`` is asked for
+# (ipu_ray_lib_tpu/scene/build.py:264-276).
+DENSE_TABLE_MAX_TRIS = 65536
 
 # Render settings: the reference's defaults, which its benchmark uses.
 ANTI_ALIAS_SCALE = 0.25
@@ -63,7 +74,7 @@ class SceneParams:
     window_c: int
     window_r: int
     path_trace: bool
-    intersector: str = "pallas"  # "pallas" (VMEM walk) or "pallas-hbm"
+    intersector: str = "pallas"  # one of INTERSECTORS
 
 
 @dataclass
@@ -104,6 +115,27 @@ class TorchScene:
     # to f32, [2, 3]; the per-sample path tracer's ray sort reads it
     # (render/path.py). None for tables built without the scene BVH.
     root_box: torch.Tensor | None = None
+    # The leaves of the "bvh" and "dense" intersectors (None unless the
+    # scene was built for one of them): the threaded BVH, one node of 8
+    # words per row (lo.xyz f32, the f16 extents x|y and z|0, meta, geom,
+    # miss; ops/bvh.py); the geometry the leaf tests and ``hit_normal``
+    # gather (the JAX package's SceneArrays leaves of those names); the
+    # dense tables, one triangle per row of 16 f32 (ops/dense.py
+    # DENSE_COLS) with the geometry and primitive id of each row, None
+    # above DENSE_TABLE_MAX_TRIS unless "dense" was asked for.
+    bvh_nodes: torch.Tensor | None = None     # [N, 8] i32
+    verts: torch.Tensor | None = None         # [V, 3] f32
+    normals: torch.Tensor | None = None       # [V, 3] f32
+    tri_v: torch.Tensor | None = None         # [T, 3] i32
+    mesh_first_tri: torch.Tensor | None = None  # [M] i32
+    mesh_has_normals: torch.Tensor | None = None  # [M] i32
+    geom_type: torch.Tensor | None = None     # [G] i32
+    geom_index: torch.Tensor | None = None    # [G] i32
+    spheres: torch.Tensor | None = None       # [S, 4] f32
+    discs: torch.Tensor | None = None         # [D, 7] f32
+    dense_rows: torch.Tensor | None = None    # [Tp, 16] f32
+    dense_geom: torch.Tensor | None = None    # [Tp] i32
+    dense_prim: torch.Tensor | None = None    # [Tp] i32
 
     @property
     def device(self) -> torch.device:
@@ -196,6 +228,28 @@ _TABLES = ("p", "nrm", "baabb", "saabb", "sgaabb", "tri_geom", "tri_prim",
            "sphere_geom", "disc_geom", "mat_id", "mat_albedo", "mat_type",
            "mat_ior", "mat_emission", "mat_emissive")
 _CARRIED = _TABLES + ("spheres", "discs")
+# The leaves of the "bvh" and "dense" intersectors, carried as they are
+# (spheres and discs also feed ap/apay):
+_GEOMETRY = ("verts", "normals", "tri_v", "mesh_first_tri",
+             "mesh_has_normals", "geom_type", "geom_index", "spheres",
+             "discs")
+BVH_DENSE_LEAVES = ("bvh_nodes",) + _GEOMETRY + ("dense_rows", "dense_geom",
+                                        "dense_prim")
+
+
+def pack_bvh_nodes(mins, exts, meta, geom, miss) -> np.ndarray:
+    """The threaded BVH as K7 reads it: [N, 8] i32 rows of lo.xyz (f32
+    bits), the f16 extents (x | y << 16, z), meta, geom, miss."""
+    n = len(mins)
+    out = np.zeros((n, 8), np.int32)
+    out[:, 0:3] = np.ascontiguousarray(mins, np.float32).view(np.int32)
+    e = np.zeros((n, 4), np.float16)
+    e[:, 0:3] = exts
+    out[:, 3:5] = e.view(np.int32)
+    out[:, 5] = meta
+    out[:, 6] = geom
+    out[:, 7] = miss
+    return out
 
 
 def _from_leaves(leaves: dict, device, payload_split: bool | None = None,
@@ -214,8 +268,10 @@ def _from_leaves(leaves: dict, device, payload_split: bool | None = None,
         leaves["disc_geom"], leaves["mat_id"], leaves["mat_albedo"],
         leaves["mat_ior"], leaves["mat_type"], leaves["mat_emissive"],
         leaves["mat_emission"])
+    keys = _TABLES + (BVH_DENSE_LEAVES if leaves.get("bvh_nodes") is not None
+                      else ())
     t = {k: torch.from_numpy(np.array(leaves[k])).to(device)
-         for k in _TABLES}
+         for k in keys if leaves.get(k) is not None}
     if leaves.get("root_box") is not None:
         t["root_box"] = torch.from_numpy(
             np.array(leaves["root_box"], np.float32)).to(device)
@@ -232,7 +288,11 @@ def from_jax_arrays(leaves: dict[str, np.ndarray], device) -> TorchScene:
     ``leaves`` maps leaf names to numpy arrays: the SceneArrays fields and
     the fields of its ``blocked`` tables flattened into one dict (as
     ``{**arrays._asdict(), **arrays.blocked._asdict()}`` after
-    ``np.asarray``). Only the leaves the megakernel path reads are kept.
+    ``np.asarray``). The leaves the megakernel path reads are kept, and
+    those of the "bvh" and "dense" routes wherever ``leaves`` holds them:
+    the BVH (``bvh_min``, ...) and the geometry, and the dense tables
+    from ``leaves["dense"]`` (the JAX ``DenseTables``; None or absent
+    where it skipped them).
     Above its VMEM ceiling the JAX package builds no ``p``/``nrm``; they
     are then unpacked from its ``pn8`` (and ``pay8``) super slabs, and the
     scene is an HBM-mode scene (no ``pbox``)."""
@@ -249,6 +309,15 @@ def from_jax_arrays(leaves: dict[str, np.ndarray], device) -> TorchScene:
     if leaves.get("bvh_min") is not None:
         carried["root_box"] = root_box(np.asarray(leaves["bvh_min"]),
                                        np.asarray(leaves["bvh_ext"]))
+    if leaves.get("bvh_miss") is not None:
+        carried["bvh_nodes"] = pack_bvh_nodes(
+            *(np.asarray(leaves[f"bvh_{k}"])
+              for k in ("min", "ext", "meta", "geom", "miss")))
+        carried.update({k: np.asarray(leaves[k]) for k in _GEOMETRY})
+    dt = leaves.get("dense")
+    if dt is not None:
+        carried.update(dense_leaves(
+            {k: np.asarray(v) for k, v in dt._asdict().items()}))
     return _from_leaves(carried, device,
                         leaves.get("pay8") is not None, vmem_mode)
 
@@ -308,9 +377,11 @@ def build_scene(
     pass ``"cpu"`` for the plain versions.
 
     ``intersector``: ``"pallas"`` (the VMEM-mode walk), ``"pallas-hbm"``
-    (the HBM-mode walk) or ``"auto"`` (``"pallas"`` up to
+    (the HBM-mode walk), ``"auto"`` (``"pallas"`` up to
     ``VMEM_TABLE_MAX_TRIS`` triangles + spheres + discs, else
-    ``"pallas-hbm"``). ``payload_split`` (HBM mode only): round the
+    ``"pallas-hbm"``), ``"bvh"`` (the threaded-BVH walk) or ``"dense"``
+    (every triangle; its tables above ``DENSE_TABLE_MAX_TRIS`` only when
+    asked for by name). ``payload_split`` (HBM mode only): round the
     payload to bf16 as the JAX package's ``pay8`` does; None turns it on
     above ``HBM_SPLIT_MIN_TRIS`` padded triangle rows.
 
@@ -332,14 +403,10 @@ def build_scene(
 
 
 def resolve_intersector(intersector: str, n_prims: int) -> str:
-    """The JAX package's choice on its accelerator (its build.py:246)."""
+    """The JAX package's choice on its accelerator (its build.py:246);
+    ``"bvh"`` and ``"dense"`` only by name."""
     if intersector == "auto":
         return "pallas" if n_prims <= VMEM_TABLE_MAX_TRIS else "pallas-hbm"
-    if intersector in ("dense", "bvh"):
-        raise ValueError(
-            f"intersector={intersector!r} is not ported: it belongs to the "
-            "XLA-loop integrator (ROADMAP queue 1); use 'pallas', "
-            "'pallas-hbm' or 'auto'")
     if intersector not in INTERSECTORS:
         raise ValueError(f"unknown intersector {intersector!r}")
     return intersector
@@ -461,6 +528,23 @@ def compile_scene(
         else blocked.p.shape[0] > HBM_SPLIT_MIN_TRIS)
     leaves["vmem_mode"] = intersector == "pallas"
     leaves["root_box"] = root_box(bvh.mins, bvh.exts)
+    if intersector in ("bvh", "dense"):
+        geom_type = np.array([GEOM_MESH] * num_meshes + [GEOM_SPHERE] * S
+                             + [GEOM_DISC] * D, np.int32)
+        geom_index = np.concatenate([np.arange(n, dtype=np.int32)
+                                     for n in (num_meshes, S, D)])
+        leaves.update(
+            bvh_nodes=pack_bvh_nodes(bvh.mins, bvh.exts, bvh.meta, bvh.geom,
+                                     bvh.miss),
+            tri_v=_pad_rows(tri_v), verts=_pad_rows(verts),
+            normals=_pad_rows(normals),
+            mesh_first_tri=_pad_rows(np.asarray(mesh_first_tri, np.int32)),
+            mesh_has_normals=_pad_rows(np.array(
+                [1 if m.has_normals else 0 for m in scene.meshes], np.int32)),
+            geom_type=_pad_rows(geom_type), geom_index=_pad_rows(geom_index))
+        if len(tri_v) <= DENSE_TABLE_MAX_TRIS or intersector == "dense":
+            leaves.update(dense_leaves(build_dense_tables(
+                tri_v, verts, tri_geom_ids, tri_prim_ids)))
     leaves.update(
         spheres=_pad_rows(scene.spheres), discs=_pad_rows(scene.discs),
         mat_id=_pad_rows(mat_id), mat_albedo=_pad_rows(mat_albedo),

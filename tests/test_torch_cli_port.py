@@ -2,8 +2,10 @@
 compile-only mode and compiled-scene cache.
 
 * Bad arguments exit with an error (argparse's, exit code 2): a bad
-  ``--crop``, a path trace with ``--visualise normal``, ``--intersector
-  dense`` (``resolve_intersector``'s message).
+  ``--crop``, a path trace with ``--visualise normal``; ``--intersector
+  dense`` and ``bvh`` are accepted (the threaded-BVH walk and the dense
+  closest hit; tests/test_torch_intersector_routes.py holds their
+  images).
 * ``--devices 2 --nif-hdri`` shards the per-sample path trace
   (``render_path_sharded``), as trace.py does: its EXR holds
   tests/test_torch_env.py's split tolerance against trace.py's (measured
@@ -51,10 +53,19 @@ def port(tmp_path, *argv, out="o"):
 @pytest.mark.parametrize("argv, message", [
     (["--crop", "8by8"], "Badly formatted --crop"),
     (["--visualise", "normal"], "visualise=rgb"),
-    (["--intersector", "dense"], "not ported"),
-    (["--intersector", "bvh"], "not ported"),
+    (["--intersector", "dense"], None),
+    (["--intersector", "bvh"], None),
 ])
 def test_bad_arguments_exit_with_an_error(capsys, argv, message):
+    """Bad arguments exit with argparse's error; ``--intersector dense``
+    and ``bvh`` (once refused, hence the name) are accepted: the CLI
+    builds the scene's tables for them and returns 0."""
+    if message is None:
+        rec = PORT_CLI.run(argv + ["--device", "cpu", "--compile-only", "-w",
+                                   "8", "-H", "8", "--log-level", "warn"])
+        assert rec["params"].intersector == argv[1]
+        assert "error" not in capsys.readouterr().err
+        return
     with pytest.raises(SystemExit) as e:
         PORT_CLI.main(argv + ["--device", "cpu"])
     assert e.value.code == 2

@@ -47,6 +47,7 @@ from ipu_ray_lib_tpu_torch.scene.builtin import (make_cornell_box_scene,
                                                  make_stress_scene)
 
 from test_torch_env import hold_high_frequency, split
+from test_torch_tables import BVH_LEAVES, bvh_leaves_beside
 
 ROOT = os.path.join(os.path.dirname(__file__), "..")
 GOLDEN = os.path.join(os.path.dirname(__file__), "golden",
@@ -135,8 +136,11 @@ def test_from_jax_arrays_unpacks_super_slabs(name, split_payload):
     arrays, _, leaves, tparams = _builds(name, split_payload, **kw)
     carried = TB.from_jax_arrays(_jax_leaves(arrays), "cpu")
     own = TB._from_leaves(leaves, "cpu")
+    assert bvh_leaves_beside(carried, own) == BVH_LEAVES
     for f in dataclasses.fields(own):
         got, want = getattr(carried, f.name), getattr(own, f.name)
+        if f.name in BVH_LEAVES:
+            continue
         if isinstance(want, torch.Tensor):
             assert torch.equal(got, want), f.name
         else:
@@ -322,10 +326,21 @@ def test_build_accepts_the_grid512_rung():
 
 @pytest.mark.parametrize("name", ["dense", "bvh", "vmem"])
 def test_unported_intersectors_are_refused(name):
-    with pytest.raises(ValueError, match="not ported" if name != "vmem"
-                       else "unknown"):
-        TB.build_scene(make_stress_scene(8), device="cpu", image_width=8,
-                       image_height=8, intersector=name)
+    """Once refused (hence the name), "dense" and "bvh" now build their
+    tables (the threaded BVH, the geometry, the dense rows) beside the
+    HBM-mode blocked tables; an unknown name is refused."""
+    if name == "vmem":
+        with pytest.raises(ValueError, match="unknown"):
+            TB.build_scene(make_stress_scene(8), device="cpu", image_width=8,
+                           image_height=8, intersector=name)
+    else:
+        ts, params = TB.build_scene(make_stress_scene(8), device="cpu",
+                                    image_width=8, image_height=8,
+                                    intersector=name)
+        assert params.intersector == name and ts.pbox is None
+        assert ts.bvh_nodes.shape == (params.num_bvh_nodes, 8)
+        assert ts.dense_rows.shape == (512, 16)
+        assert int((ts.dense_geom[:98] == 0).sum()) == 98
     with pytest.raises(ValueError, match="HBM-mode"):
         TB.build_scene(make_stress_scene(8), device="cpu", image_width=8,
                        image_height=8, intersector="pallas",

@@ -463,11 +463,28 @@ def test_path_intersect_matches_jax(glue_scene):
 
 @pytest.mark.parametrize("method", ["bvh", "dense"])
 def test_unported_methods_raise(box, method):
+    """Once refused (hence the name), the "bvh" and "dense" methods now
+    answer: ``scene_occluded`` equals the JAX package's on the glue
+    scene's rays (K7's any-hit walk, K8's closest hit with t < t_max)."""
     _, ts, _ = box
-    ones = torch.ones(4, 3)
-    with pytest.raises(NotImplementedError, match="queue 1 item 8"):
-        TTR.scene_occluded(ts, ones, ones, torch.zeros(4), torch.ones(4),
-                           method)
+    with pytest.raises(ValueError, match="no threaded BVH|no dense tables"):
+        TTR.scene_occluded(ts, torch.ones(4, 3), torch.ones(4, 3),
+                           torch.zeros(4), torch.ones(4), method)
+    arrays, _, _ = jax_build_scene(jax_cornell(None, box_only=False),
+                                   image_width=W, image_height=H,
+                                   intersector=method)
+    ts, _ = TB.build_scene(make_cornell_box_scene(None, box_only=False),
+                           device="cpu", image_width=W, image_height=H,
+                           intersector=method)
+    o, d = _spread(ts, 3000, 9)
+    tmin = np.zeros(len(o), np.float32)
+    dist = np.full(len(o), np.float32(200.0))
+    dist[::5] = 150.0
+    want = jax.jit(lambda a, o, d, lo, hi: JTR.scene_occluded(
+        a, o, d, lo, hi, method))(arrays, o, d, tmin, dist)
+    got = TTR.scene_occluded(ts, _t(o), _t(d), _t(tmin), _t(dist), method)
+    assert _equal(got, want) == 0
+    assert 0 < int(got.sum()) < len(o)
 
 
 # ---- 5. the kernels on the card ----

@@ -405,12 +405,23 @@ def test_shadow_trace_in_hbm_mode_holds_golden():
 
 
 def test_shadow_trace_raises_in_hbm_mode():
-    """On an HBM-mode scene the intersectors that are not ported raise and
-    name the ROADMAP item that holds them."""
+    """Once refused (hence the name): the shadow trace of a scene whose
+    tables are in HBM mode runs through "bvh" (K7's plain version) and
+    equals the JAX package's render with that intersector, every AOV."""
     ts, _ = _hbm_box()
-    for name in ("bvh", "dense"):
-        with pytest.raises(NotImplementedError, match="queue 1 item 8"):
-            shadow_trace(ts, None, torch.ones(4, 3), intersector=name)
+    with pytest.raises(ValueError, match="no threaded BVH"):
+        shadow_trace(ts, None, torch.ones(4, 3), intersector="bvh")
+    ts, params = TB.build_scene(make_cornell_box_scene(None, box_only=False),
+                                device="cpu", image_width=W, image_height=H,
+                                intersector="bvh")
+    assert ts.pbox is None  # HBM-mode tables
+    arrays, jparams, _ = jax_build_scene(
+        jax_cornell(None, box_only=False), image_width=W, image_height=H,
+        intersector="bvh")
+    want = jax_render(arrays, jparams, mode="shadow-trace", chunk_size=512)
+    out = render(ts, params, chunk_size=512)
+    for f in FIELDS:
+        assert _equal(getattr(out, f), getattr(want, f)) == 0, f
 
 
 # ---- 9. the kernel on the card ----

@@ -8,7 +8,10 @@ per-lane block cull (``slab_admit``) and widened dense row test
 the HBM-mode walk (``_walk_hbm``: super-group, super and refined
 member-block culls). A pixel-aligned vertex grid rendered through the
 port's megakernel, in either mode, must leave no dark pixel inside the
-grid.
+grid. The same holds for the ``"bvh"`` and ``"dense"`` intersectors
+(ops/traversal.py ``scene_intersect``: the threaded-BVH walk's watertight
+test, K7's plain version, and the dense test, K8's), on the edge rays
+and on the vertex grid rendered through the XLA-loop integrator.
 """
 
 import torch_threads  # noqa: F401  (first: one torch thread)
@@ -22,6 +25,7 @@ from ipu_ray_lib_tpu_torch.ops import megakernel as mk
 from ipu_ray_lib_tpu_torch.ops.intersect import (INF, dense_rows, slab_admit,
                                                  slab_inv)
 from ipu_ray_lib_tpu_torch.ops.tables import TB
+from ipu_ray_lib_tpu_torch.ops.traversal import scene_intersect
 from ipu_ray_lib_tpu_torch.render.streaming import render_streaming
 from ipu_ray_lib_tpu_torch.scene.build import build_scene
 from ipu_ray_lib_tpu_torch.scene.types import (Camera, HostMesh, Material,
@@ -179,3 +183,31 @@ def test_no_cracks_on_shared_edges_hbm(n, seed):
     assert bool((best_row >= 0).all()), (
         f"{int((best_row < 0).sum())}/{R} edge rays leaked")
     assert torch.equal(best_t, want_t)
+
+
+@pytest.mark.parametrize("method", ["bvh", "dense"])
+@pytest.mark.parametrize("n,seed", [(12, 3), (9, 5), (16, 11)])
+def test_no_cracks_on_shared_edges_traversal(method, n, seed):
+    """Edge rays from (0, 0, 0) through ``scene_intersect`` with the
+    method: no ray aimed at a shared edge or vertex misses every incident
+    triangle."""
+    scene, verts, tris = _skewed_grid_scene(n, seed)
+    ts, _ = build_scene(scene, device="cpu", image_width=8, image_height=8,
+                        samples_per_pixel=1, intersector=method)
+    targets = _edge_targets(verts, tris, seed=seed)
+    d = targets / np.linalg.norm(targets, axis=-1, keepdims=True)
+    d = torch.from_numpy(d.astype(np.float32))
+    R = d.shape[0]
+    hit = scene_intersect(ts, None, d, torch.zeros(R), torch.full((R,), INF),
+                          method)
+    assert bool(hit.found.all()), (
+        f"{int((~hit.found).sum())}/{R} edge rays leaked ({method})")
+    t = hit.t
+    assert bool((t > 1.0).all() & (t < 10.0).all())
+
+
+@pytest.mark.parametrize("method", ["bvh", "dense"])
+def test_xla_loop_no_cracks_at_vertices(method):
+    """The vertex grid through the XLA-loop integrator with the method."""
+    dark = _vertex_grid_dark_pixels(method)
+    assert dark == 0, f"{dark} cracked pixels at mesh vertices ({method})"

@@ -23,14 +23,17 @@ JAX_CLI = load_cli("trace")
 PORT_CLI = load_cli("trace_torch")
 
 
-def run_pair(tmp_path, argv, vis="rgb"):
+def run_pair(tmp_path, argv, vis="rgb", intersector=None):
     """Both CLIs on ``argv``; returns {kind: (port file, JAX file)} for
-    every image both wrote (gpu/tpu, cpu, oracle)."""
+    every image both wrote (gpu/tpu, cpu, oracle). ``intersector`` None:
+    ``pallas`` for trace.py (its accelerator's choice off the TPU) and
+    ``auto`` for the port; else that one for both."""
     jout, tout = str(tmp_path / "jax"), str(tmp_path / "port")
-    assert JAX_CLI.main(list(argv) + ["--intersector", "pallas", "-o", jout,
-                                      "--log-level", "warn"]) == 0
-    rec = PORT_CLI.run(list(argv) + ["--device", "cpu", "-o", tout,
-                                     "--log-level", "warn"])
+    own = [] if intersector is None else ["--intersector", intersector]
+    assert JAX_CLI.main(list(argv) + ["--intersector", intersector or "pallas",
+                                      "-o", jout, "--log-level", "warn"]) == 0
+    rec = PORT_CLI.run(list(argv) + own + ["--device", "cpu", "-o", tout,
+                                           "--log-level", "warn"])
     pairs = {}
     for kind, path in rec["outputs"].items():
         jkind = "tpu" if kind == "gpu" else kind

@@ -92,9 +92,11 @@ def add_options(p: argparse.ArgumentParser) -> None:
     p.add_argument("--intersector", default="auto",
                    choices=["auto", "bvh", "dense", "pallas", "pallas-hbm"],
                    help="Closest-hit engine: 'pallas' (the VMEM-mode walk), "
-                        "'pallas-hbm' (the HBM-mode walk, any scene size) or "
-                        "'auto' (by scene size); 'bvh' and 'dense' are not "
-                        "ported.")
+                        "'pallas-hbm' (the HBM-mode walk, any scene size), "
+                        "'auto' (one of those two, by scene size), 'bvh' (the "
+                        "threaded-BVH walk, any scene size) or 'dense' (every "
+                        "ray against every triangle); 'bvh' and 'dense' path "
+                        "trace on the XLA-loop integrator.")
     p.add_argument("--compile-only", action="store_true",
                    help="Build the CUDA kernels (with a compile-progress "
                         "heartbeat) and the scene's tables (saved with "
