@@ -210,7 +210,9 @@ Phases (any failed check raises, so the exit code is non-zero):
      image, then path-traced at 256^2 spp 8, max_path_length 5 under the
      NIF sky (K3 in record mode, K2); (g)
      ``--progressive`` at 256^2 spp 32, and one ``utils/profiling.trace``
-     around a 256^2 frame (the trace's size and its CUDA kernel events);
+     around a 256^2 frame (the trace's size, its ``streaming.*`` spans as
+     the program recorded them, held against the profile's, and the
+     card's idle time under each);
   14. the per-sample wavefront and NIF training
      (``per_sample_and_training``): ``path_trace_sample``'s kernel route
      against its plain route on Cornell + monkey 64x64 spp 2 (K5), stress24
@@ -845,6 +847,8 @@ def sharded_and_progressive(dev, scene, params, env, full=FULL,
 # heightfield as a binary PLY.
 APP_GRID = 512
 APP_PROFILE = (256, 32)  # the progressive run and the profiled frame
+FRAME_SPANS = ("streaming.upload", "streaming.batch", "streaming.readback",
+               "streaming.scatter")  # the profiled frame's spans, in order
 
 
 def write_ply(path: str, mesh) -> None:
@@ -875,7 +879,9 @@ def application(dev) -> dict:
     (path A, K6), the second run a cache hit with the same image, then
     path-traced at 256^2 spp 8 under the NIF sky (K3, K2); (g) the
     progressive path trace, and one ``utils/profiling.trace`` around a
-    frame. Raises on any failed check. Returns the numbers it logged."""
+    frame: its ``streaming.*`` spans, in order, and the card's idle time
+    under each (``benchmark/spans.py``). Raises on any failed check.
+    Returns the numbers it logged."""
     import tempfile
 
     from ipu_ray_lib_tpu_torch.ops import env as envk
@@ -892,6 +898,9 @@ def application(dev) -> dict:
     from ipu_ray_lib_tpu_torch.utils import profiling
     from ipu_ray_lib_tpu_torch.utils.exr import read_exr
     import trace_torch
+    from benchmark import harness as bench_harness
+    from benchmark import spans as bench_spans
+    from benchmark import stats as bench_stats
 
     os.chdir(ROOT)  # the CLI finds assets/monkey_bust.glb as trace.py does
     t_phase = time.perf_counter()
@@ -1059,19 +1068,50 @@ def application(dev) -> dict:
             image_width=size, image_height=size, samples_per_pixel=spp)
         render_streaming(gs, gp)  # warm
         path = os.path.join(tmp.name, "frame_trace.json")
-        with profiling.trace(path):
+        n0 = len(profiling.recorded_spans())
+        with profiling.trace(path) as prof:
             (_, gdone), t_prof = timed(lambda: render_streaming(gs, gp))
-        summary = profiling.kernel_summary(path)
-        out["g"] = dict(trace_bytes=os.path.getsize(path),
-                        frame_s=t_prof, **summary)
+        dev_ev, host, _ = bench_harness._events(prof)
+        # the spans as the benchmark reads them: the program's recorder
+        mine = sorted(profiling.recorded_spans()[n0:])
+        if not mine:
+            raise AssertionError("(g): no streaming.* span recorded")
+        # each inside the profile's range of it, on one clock; none copied
+        # onto the card's row
+        prof_spans = sorted(h for h in host if h[2].startswith("streaming."))
+        clock_us = max(max(ks - s, e - ke) for (s, e, _), (ks, ke, _)
+                       in zip(mine, prof_spans)) * 1e-3
+        if ([h[2] for h in prof_spans] != [h[2] for h in mine]
+                or clock_us > 1000.0
+                or any(e.name.startswith("streaming.") for e in dev_ev)):
+            raise AssertionError(
+                f"(g): recorded spans {mine} against the profile's "
+                f"{prof_spans} (clock {clock_us} us), or a card-side copy")
+        lo, hi = mine[0][0], max(h[1] for h in mine)
+        cards = [[(e.start, e.end) for e in dev_ev]]
+        idle = sum(e - s for s, e in bench_stats.gaps(cards[0], lo, hi))
+        under = {n: bench_spans.idle_under(cards, mine, lo, hi, (n,))
+                 for n in FRAME_SPANS}
+        out["g"] = dict(
+            trace_bytes=os.path.getsize(path), frame_s=t_prof,
+            spans=[h[2] for h in mine], device_events=len(dev_ev),
+            frame_ms=(hi - lo) * 1e-6, idle_ms=idle * 1e-6,
+            idle_ms_under={n: v * 1e-6 for n, v in under.items()
+                           if v is not None},
+            idle_under_no_span_ms=(idle - bench_spans.idle_under(
+                cards, mine, lo, hi, ("streaming.",))) * 1e-6,
+            clock_us=clock_us)
         log(f"[app g] torch.profiler around a {size}^2 spp {spp} frame "
             f"({t_prof:.3f} s): trace {out['g']['trace_bytes']} bytes, "
-            f"{summary['kernel_events']} CUDA kernel events, busy "
-            f"{summary['busy_us']:.0f} us of a {summary['span_us']:.0f} us "
-            f"span (idle share {summary['idle_share']}); top "
-            f"{summary['by_name']}")
-        if not out["g"]["trace_bytes"] or gdone != size * size * spp:
-            raise AssertionError("(g): no trace written")
+            f"spans {out['g']['spans']}, {len(dev_ev)} device events; "
+            f"the card idle {out['g']['idle_ms']:.3f} ms of the spans' "
+            f"{out['g']['frame_ms']:.3f} ms, by span (ms) "
+            f"{out['g']['idle_ms_under']}, under no span "
+            f"{out['g']['idle_under_no_span_ms']:.3f} ms; the recorder "
+            f"within {clock_us:.1f} us of the profile's ranges")
+        if (out["g"]["spans"] != list(FRAME_SPANS)
+                or not out["g"]["trace_bytes"] or gdone != size * size * spp):
+            raise AssertionError("(g): the frame's spans or trace are wrong")
     finally:
         tmp.cleanup()
     out["seconds"] = time.perf_counter() - t_phase

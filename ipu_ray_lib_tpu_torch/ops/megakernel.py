@@ -58,6 +58,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..utils.profiling import span
 from . import bxdf
 from .camera import CameraConsts, camera_consts, camera_ray
 from .env import env_mlp, env_mlp_ref
@@ -488,8 +489,9 @@ def image(out, done, spp, env=None, mlp=env_mlp, bank_fn=bank):
     if env is None:
         accum = out
     else:
-        shade_records(out, done, env, mlp)
-        accum = bank_fn(out, done, int(spp))
+        with span("streaming.env"):
+            shade_records(out, done, env, mlp)
+            accum = bank_fn(out, done, int(spp))
     J, _, R = accum.shape
     return (accum.permute(0, 2, 1).reshape(R * J, 3)
             * float(np.float32(1.0 / spp)))

@@ -54,6 +54,7 @@ import torch
 
 from ..bvh.builder import INVALID_GEOM_ID
 from ..utils.constants import RAY_EPSILON
+from ..utils.profiling import span
 from .cull import BR, SLAB_SCALE, block_cull_lists_bundle
 from .dense import disc_pass, sphere_pass
 from .intersect import INF, SLAB_LO
@@ -265,14 +266,14 @@ def fused_shadow_trace_arrays(scene, origins, dirs: torch.Tensor, *, light):
     :func:`shadow_trace_ref` for CPU tensors. Returns the raw
     (out_f [4, R], out_i [4, R]) (module docstring)."""
     R = dirs.shape[0]
-    args = shadow_inputs(scene, origins, dirs)
     dev = scene.device.type
-    if dev == "cuda":
-        out_f, out_i = shadow_trace_cuda(scene, *args, light=light)
-    elif dev == "cpu":
-        out_f, out_i = shadow_trace_ref(scene, *args, light=light)
-    else:
+    if dev not in ("cuda", "cpu"):
         raise ValueError(f"unsupported device {scene.device}")
+    with span("renderer.cull"):
+        args = shadow_inputs(scene, origins, dirs)
+    with span("renderer.kernel"):
+        trace = shadow_trace_cuda if dev == "cuda" else shadow_trace_ref
+        out_f, out_i = trace(scene, *args, light=light)
     return out_f[:, :R], out_i[:, :R]
 
 
@@ -326,5 +327,6 @@ def fused_shadow_trace(scene, origins, dirs, light_pos, ambient):
     epilogue; returns :func:`shadow_epilogue`'s fields."""
     out_f, out_i = fused_shadow_trace_arrays(scene, origins, dirs,
                                              light=light_pos)
-    return shadow_epilogue(scene, origins, dirs, out_f, out_i, light_pos,
-                           ambient)
+    with span("renderer.epilogue"):
+        return shadow_epilogue(scene, origins, dirs, out_f, out_i, light_pos,
+                               ambient)

@@ -44,6 +44,7 @@ from ..render.streaming import (MAX_K_PER_DISPATCH, _pixel_stream,
                                 trace_batch)
 from ..runtime.device import cuda_device
 from ..utils import threefry
+from ..utils.profiling import span
 from ..utils.xoshiro import derive_replica_seeds
 
 _U32 = 0xFFFFFFFF
@@ -243,15 +244,17 @@ def render_streaming_sharded(scene, params, mesh: RayMesh,
     device before they are read back."""
     spp = params.samples_per_pixel if spp is None else int(spp)
     n = len(mesh)
-    plan = shard_plan(params, n, chunk_slots)
-    scenes = _replicas(scene, mesh)
-    envs = _replicas(env, mesh) if isinstance(env, NifEnv) else {}
-    streams = {i: (torch.from_numpy(plan.rows[i]).to(mesh[i]),
-                   torch.from_numpy(plan.cols[i]).to(mesh[i]))
-               for i in mesh.local}
+    with span("mesh.setup"):
+        plan = shard_plan(params, n, chunk_slots)
+        scenes = _replicas(scene, mesh)
+        envs = _replicas(env, mesh) if isinstance(env, NifEnv) else {}
+        streams = {i: (torch.from_numpy(plan.rows[i]).to(mesh[i]),
+                       torch.from_numpy(plan.cols[i]).to(mesh[i]))
+                   for i in mesh.local}
 
     def host(acc):
-        return _gather(mesh, {i: a.cpu().numpy() for i, a in acc.items()})
+        with span("mesh.gather"):
+            return _gather(mesh, {i: a.cpu().numpy() for i, a in acc.items()})
 
     b_cap = max(1, MAX_K_PER_DISPATCH // plan.j_per_slot)
     acc, done = {}, {}
@@ -261,17 +264,19 @@ def render_streaming_sharded(scene, params, mesh: RayMesh,
         seeds = shard_seeds(params.rng_seed, n, bi)
         wgt = float(np.float32(b / spp))
         # Every local shard's batch is enqueued before any is read back.
-        for i in mesh.local:
-            d = mesh[i]
-            flat_b, done_b = trace_batch(
-                scenes[d], *streams[i], int(seeds[i]), plan.n_valid[i],
-                params=params, slots=plan.slots, j_per_slot=plan.j_per_slot,
-                spp=b, env=envs.get(d, env))
-            if i in acc:
-                acc[i] = acc[i] + flat_b * wgt
-                done[i] = done[i] + done_b
-            else:
-                acc[i], done[i] = flat_b * wgt, done_b
+        with span("mesh.dispatch"):
+            for i in mesh.local:
+                d = mesh[i]
+                flat_b, done_b = trace_batch(
+                    scenes[d], *streams[i], int(seeds[i]), plan.n_valid[i],
+                    params=params, slots=plan.slots,
+                    j_per_slot=plan.j_per_slot, spp=b,
+                    env=envs.get(d, env))
+                if i in acc:
+                    acc[i] = acc[i] + flat_b * wgt
+                    done[i] = done[i] + done_b
+                else:
+                    acc[i], done[i] = flat_b * wgt, done_b
         s += b
         if progress_callback is not None:
             progress_callback(bi, plan.assemble(host(acc))
@@ -280,8 +285,11 @@ def render_streaming_sharded(scene, params, mesh: RayMesh,
 
     if readback_f16:
         acc = {i: a.to(torch.float16) for i, a in acc.items()}
-    img = plan.assemble(host(acc))
-    return img, sum(_gather(mesh, {i: int(d) for i, d in done.items()}))
+    parts = host(acc)
+    with span("mesh.assemble"):
+        img = plan.assemble(parts)
+        n_done = sum(_gather(mesh, {i: int(d) for i, d in done.items()}))
+    return img, n_done
 
 
 def render_shadow_sharded(scene, params, rows, cols,

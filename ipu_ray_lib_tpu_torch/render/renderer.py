@@ -47,6 +47,7 @@ from ..bvh.builder import INVALID_GEOM_ID
 from ..ops.camera import generate_camera_rays
 from ..utils import threefry
 from ..utils.log import logger
+from ..utils.profiling import span
 from .path import path_trace_sample
 from .shadow import shadow_trace
 from .streaming import _pixel_stream, env_term, render_streaming
@@ -258,36 +259,41 @@ def render(scene, params, mode: str = "shadow-trace",
 
     for ci in range(n_chunks):
         g0 = ci * chunk_size
-        if device_coords:
-            rows, cols = _tile_coords(g0, chunk_size, w, params.window_c,
-                                      params.window_r, total, dev)
-        else:
-            rows = torch.from_numpy(rows_np[g0:g0 + chunk_size]).to(dev)
-            cols = torch.from_numpy(cols_np[g0:g0 + chunk_size]).to(dev)
-        _, d = generate_camera_rays(rows, cols, params.image_width,
-                                    params.image_height, params.fov_radians)
+        with span("renderer.rays"):
+            if device_coords:
+                rows, cols = _tile_coords(g0, chunk_size, w, params.window_c,
+                                          params.window_r, total, dev)
+            else:
+                rows = torch.from_numpy(rows_np[g0:g0 + chunk_size]).to(dev)
+                cols = torch.from_numpy(cols_np[g0:g0 + chunk_size]).to(dev)
+            _, d = generate_camera_rays(rows, cols, params.image_width,
+                                        params.image_height,
+                                        params.fov_radians)
         res = shadow_trace(scene, None, d, intersector=params.intersector,
                            fused=fused)
-        for k in fields:
-            bufs[k][g0:g0 + chunk_size] = getattr(res, k)
+        with span("renderer.store"):
+            for k in fields:
+                bufs[k][g0:g0 + chunk_size] = getattr(res, k)
         if progress_callback is not None:
             progress_callback(ci, _prep_f(res.rgb, readback_f16).cpu()
                               .numpy().astype(np.float32))
 
-    # Raster order: image[order[g]] = stream[g].
-    inverse = np.empty(total, np.int64)
-    inverse[order] = np.arange(total)
-    inv = torch.from_numpy(inverse).to(dev)
-    out = {}
-    for k, (shape, _, _) in _AOVS.items():
-        if k in bufs:
-            a = bufs[k][:total].index_select(0, inv)
-            if a.is_floating_point():
-                a = _prep_f(a, readback_f16)
-            a = a.cpu().numpy().astype(_NP[_AOVS[k][1]], copy=False)
-        else:
-            a = _filled(k, total)
-        out[k] = a.reshape((h, w) + shape)
-    g = out["geom_id"]
-    out["geom_id"] = np.where(g == INVALID_GEOM_ID, -1, g).astype(np.int32)
+    with span("renderer.readback"):
+        # Raster order: image[order[g]] = stream[g].
+        inverse = np.empty(total, np.int64)
+        inverse[order] = np.arange(total)
+        inv = torch.from_numpy(inverse).to(dev)
+        out = {}
+        for k, (shape, _, _) in _AOVS.items():
+            if k in bufs:
+                a = bufs[k][:total].index_select(0, inv)
+                if a.is_floating_point():
+                    a = _prep_f(a, readback_f16)
+                a = a.cpu().numpy().astype(_NP[_AOVS[k][1]], copy=False)
+            else:
+                a = _filled(k, total)
+            out[k] = a.reshape((h, w) + shape)
+        g = out["geom_id"]
+        out["geom_id"] = np.where(g == INVALID_GEOM_ID, -1,
+                                  g).astype(np.int32)
     return RenderOutput(**out)

@@ -56,6 +56,7 @@ from ..ops.megakernel import megakernel_path_trace
 from ..ops.rng import normal2, uniform01
 from ..ops.traversal import pallas_path_intersect, scene_intersect_with_normal
 from ..ops.vec3 import fma
+from ..utils.profiling import span
 
 SPP_BATCH = 64
 MAX_K_PER_DISPATCH = 2048
@@ -304,7 +305,6 @@ def render_streaming(scene, params, chunk_slots: int = 1 << 17, env=None,
     seed = params.rng_seed if seed is None else int(seed)
     w, h = params.window_w, params.window_h
     n_pix = w * h
-    rows_np, cols_np, order = _pixel_stream(params)
     if megakernel_route(params.intersector, env):
         R, J = slot_pool(n_pix, chunk_slots)
     else:
@@ -312,8 +312,10 @@ def render_streaming(scene, params, chunk_slots: int = 1 << 17, env=None,
         J = -(-n_pix // R)
     pad = R * J - n_pix
     dev = scene.device
-    rows = torch.from_numpy(np.pad(rows_np, (0, pad))).to(dev)
-    cols = torch.from_numpy(np.pad(cols_np, (0, pad))).to(dev)
+    with span("streaming.upload"):
+        rows_np, cols_np, order = _pixel_stream(params)
+        rows = torch.from_numpy(np.pad(rows_np, (0, pad))).to(dev)
+        cols = torch.from_numpy(np.pad(cols_np, (0, pad))).to(dev)
 
     b_cap = max(1, MAX_K_PER_DISPATCH // J)
     flat_acc = None
@@ -322,18 +324,23 @@ def render_streaming(scene, params, chunk_slots: int = 1 << 17, env=None,
     while s < spp:
         b = min(SPP_BATCH, b_cap, spp - s)
         bseed = (seed + 0x9E3779B9 * bi) & _U32
-        flat_b, done_b = trace_batch(scene, rows, cols, bseed, n_pix,
-                                     params=params, slots=R, j_per_slot=J,
-                                     spp=b, env=env, stats=stats)
-        wgt = float(np.float32(b / spp))
-        flat_acc = (flat_b * wgt if flat_acc is None
-                    else flat_acc + flat_b * wgt)
+        with span("streaming.batch"):
+            flat_b, done_b = trace_batch(scene, rows, cols, bseed, n_pix,
+                                         params=params, slots=R,
+                                         j_per_slot=J, spp=b, env=env,
+                                         stats=stats)
+            wgt = float(np.float32(b / spp))
+            flat_acc = (flat_b * wgt if flat_acc is None
+                        else flat_acc + flat_b * wgt)
         dones.append(done_b)
         s += b
         bi += 1
-    if readback_f16:
-        flat_acc = flat_acc.to(torch.float16)
-    img = np.empty((n_pix, 3), np.float32)
-    img[order] = flat_acc[:n_pix].cpu().numpy()
-    done = int(torch.stack(dones).sum())
+    with span("streaming.readback"):
+        if readback_f16:
+            flat_acc = flat_acc.to(torch.float16)
+        flat = flat_acc[:n_pix].cpu().numpy()
+    with span("streaming.scatter"):
+        img = np.empty((n_pix, 3), np.float32)
+        img[order] = flat
+        done = int(torch.stack(dones).sum())
     return img.reshape(h, w, 3), done

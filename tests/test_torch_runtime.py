@@ -5,13 +5,11 @@
 * ``log_compile`` logs a build at info from 5 s, at debug below; the
   kernel build (``ops/cuda/build.py:_compile``) logs one line per nvcc
   with its seconds (run here with a stand-in nvcc script).
-* ``RateMeter`` reports what the JAX package's reports on the same clock;
-  ``analyse_model`` gives the JAX package's report, for numpy arrays and
+* ``analyse_model`` gives the JAX package's report, for numpy arrays and
   for tensors.
 * ``acquire_devices``: CPU shards when asked, an error without a card.
-* ``utils/profiling.trace`` writes a Chrome trace on the CPU;
-  ``kernel_summary`` counts kernel events, their busy time and the idle
-  share of their span.
+* ``utils/profiling.trace`` writes a Chrome trace on the CPU, with no
+  kernel event there (its spans: ``tests/test_torch_spans.py``).
 * No module of the port, nor ``trace_torch.py``, ``chip_smoke.py`` or
   ``examples/verify_all_torch.py``, imports ``jax`` or the JAX package
   (``ipu_ray_lib_tpu.``): an AST walk of every import, and every module
@@ -91,32 +89,6 @@ def test_kernel_build_logs_each_nvcc(tmp_path, monkeypatch, caplog):
     assert not cuda_build.build_info["cached"]
 
 
-def test_rate_meter_matches_jax(monkeypatch, caplog):
-    clock = iter([100.0, 102.5, 200.0, 201.5] * 2)
-
-    class Clock:  # the meters' own clock, in both modules
-        time = staticmethod(lambda: next(clock))
-
-    reports = []
-    for mod, name in ((tprof, PORT), (jprof, "ipu_ray_lib_tpu")):
-        monkeypatch.setattr(mod, "time", Clock)
-        meter = mod.RateMeter("rays")
-        with meter:
-            meter.add(1000)
-        with meter:
-            meter.add(3000)
-        caplog.clear()
-        with caplog.at_level(logging.INFO, logger=name):
-            meter.log("unit")
-        reports.append((meter.elapsed, meter.count, meter.rate,
-                        [r.getMessage() for r in caplog.records
-                         if r.name == name]))
-    assert reports[0] == reports[1]
-    assert reports[0][2] == 1000.0 and reports[0][3] == [
-        "unit: 1000 rays/sec (4000 in 4.00s)"]
-    assert tprof.RateMeter().rate == 0.0
-
-
 def test_analyse_model_matches_jax():
     rng = np.random.default_rng(3)
     params = {"kernels": [rng.normal(size=(8, 16)).astype(np.float32),
@@ -127,13 +99,6 @@ def test_analyse_model_matches_jax():
     as_tensors = {k: [torch.from_numpy(a) for a in v]
                   for k, v in params.items()}
     assert tprof.analyse_model(as_tensors, sample_count=5) == want
-
-
-def test_block_on_and_memory_stats_on_the_cpu():
-    tree = {"a": [torch.ones(3), (torch.zeros(2),)]}
-    assert tprof.block_on(tree) is tree
-    if not torch.cuda.is_available():
-        assert tprof.device_memory_stats() == {}
 
 
 def test_acquire_devices(monkeypatch):
@@ -158,23 +123,7 @@ def test_profiler_trace_on_the_cpu(tmp_path):
     with open(path) as f:
         doc = json.load(f)
     assert any("mm" in e.get("name", "") for e in doc["traceEvents"])
-    assert tprof.kernel_summary(path)["kernel_events"] == 0
-
-
-def test_kernel_summary_counts_busy_and_idle(tmp_path):
-    ev = lambda name, ts, dur: {"ph": "X", "cat": "kernel", "name": name,
-                                "ts": ts, "dur": dur}
-    doc = {"traceEvents": [ev("a", 0, 10), ev("b", 5, 10), ev("a", 30, 10),
-                           {"ph": "X", "cat": "cpu_op", "name": "c",
-                            "ts": 0, "dur": 100}]}
-    path = tmp_path / "t.json"
-    path.write_text(json.dumps(doc))
-    s = tprof.kernel_summary(str(path))
-    assert s["kernel_events"] == 3
-    assert s["busy_us"] == 25.0 and s["span_us"] == 40.0
-    assert s["idle_share"] == pytest.approx(0.375)
-    assert s["by_name"] == {"a": {"count": 2, "us": 20.0},
-                            "b": {"count": 1, "us": 10.0}}
+    assert not any(e.get("cat") == "kernel" for e in doc["traceEvents"])
 
 
 def _port_files():
