@@ -274,6 +274,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import hashlib
 import json
 import os
 import sys
@@ -3063,6 +3064,36 @@ def main() -> int:
             and np.array_equal(nout.geom_id, sout.geom_id)
             and not nout.rgb.any()):
         raise AssertionError("normals-only frame differs from the full one")
+
+    # The graph route (render/renderer.py): the frames above replayed the
+    # chunk loop captured at their key's first call. Replayed frames at two
+    # zooms against the eager loop (a progress callback keeps the loop on
+    # the host), every AOV's md5, each route's K4 launches; the captures'
+    # cost.
+    n_before = sh.launches
+    for zoom in (0.985, 1.015):
+        pz = dataclasses.replace(params,
+                                 fov_radians=params.fov_radians * zoom)
+        sh.launches = 0
+        eout, t_e = timed(lambda: render(
+            scene, pz, progress_callback=lambda i, rgb: None))
+        n_e, sh.launches = sh.launches, 0
+        gout, t_g = timed(lambda: render(scene, pz))
+        n_g = sh.launches
+        md5 = [[hashlib.md5(getattr(o, f).tobytes()).hexdigest()
+                for f in sout._fields] for o in (eout, gout)]
+        log(f"[shadow graph] zoom {zoom}: replay {t_g * 1e3:.2f} ms, eager "
+            f"(with a callback) {t_e * 1e3:.2f} ms; md5 equal on "
+            f"{sum(a == b for a, b in zip(*md5))} of {len(md5[0])} AOVs; K4 "
+            f"launches eager {n_e}, replayed {n_g}")
+        if md5[0] != md5[1] or n_e != n_g or n_g < 1:
+            raise AssertionError("a replayed shadow frame differs from the "
+                                 "eager loop's")
+    sh.launches = n_before
+    log(f"[shadow graph] captures {sh.graph_captures}, replays "
+        f"{sh.graph_replays}; capture ms " + ", ".join(
+            f"{'+'.join(k[8])}: {fg.capture_ms:.1f}"
+            for k, fg in scene._frame_graphs.items()))
 
     # Where the frame's time goes, piece by piece at its shapes (CUDA
     # events, 3 runs each): camera rays + cull, K4 alone (the kernels

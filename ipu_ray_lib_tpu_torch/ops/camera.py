@@ -33,6 +33,16 @@ def tan_half_fov(fov_radians: float) -> float:
     return float(np.float32(np.tan(np.float64(half))))
 
 
+def plane_scale(w: int, h: int, tan_theta: float) -> tuple[float, float]:
+    """(sx, sy): the f32 factors of the image plane's x and y,
+    ``2 * aspect * tan`` and ``-2 * tan``, each folded into one f32
+    constant as XLA folds it (:func:`pixel_to_ray_dir`)."""
+    f32 = np.float32
+    aspect = f32(w) / f32(h)
+    return (float(f32(f32(2.0) * aspect) * f32(tan_theta)),
+            float(f32(-2.0) * f32(tan_theta)))
+
+
 def pixel_to_ray_dir(x: torch.Tensor, y: torch.Tensor, w: int, h: int,
                      tan_theta: float) -> torch.Tensor:
     """Unit direction [R, 3] through pixel coordinates (column x, row y):
@@ -43,10 +53,16 @@ def pixel_to_ray_dir(x: torch.Tensor, y: torch.Tensor, w: int, h: int,
     image size becomes a product with its f32 reciprocal, fused with the
     ``- 0.5`` into one multiply-add; ``2 * aspect * tan`` folds into one
     f32 constant; the squared length is a chain of multiply-adds."""
+    return scaled_ray_dir(x, y, w, h, *plane_scale(w, h, tan_theta))
+
+
+def scaled_ray_dir(x: torch.Tensor, y: torch.Tensor, w: int, h: int, sx,
+                   sy) -> torch.Tensor:
+    """:func:`pixel_to_ray_dir` with the plane's factors given: Python
+    floats, or 0-d f32 tensors on x's device, which a CUDA graph reads
+    when it replays (an f32 tensor times either is the same f32
+    product)."""
     f32 = np.float32
-    aspect = f32(w) / f32(h)
-    sx = float(f32(f32(2.0) * aspect) * f32(tan_theta))
-    sy = float(f32(-2.0) * f32(tan_theta))
     xn = fma(x, float(f32(1.0) / f32(w)), -0.5)
     yn = fma(y, float(f32(1.0) / f32(h)), -0.5)
     dx, dy = xn * sx, yn * sy

@@ -61,18 +61,22 @@ from .intersect import INF, SLAB_LO
 from .intersect_kernel import (CHECK_EVERY, REF_BUNDLES, _dot, count, lanes,
                                o_mag, test_block, walk, winner_payload)
 from .traversal import from_hit, resolve_hit
-from .vec3 import TINY, fma, rowdot, sqrt, unit
+from .vec3 import TINY, const3, fma, rowdot, sqrt, unit
 
 BIG = 1e30  # K4's padding-box bound (float32(1e30) is this value's f32)
 _RAY_EPS = float(RAY_EPSILON)
 
-# CUDA kernel launches since the last reset.
+# CUDA kernel launches since the last reset; and the shadow frames that
+# ``render`` captured as a CUDA graph and replayed (render/renderer.py),
+# each replay adding the K4 launches of its graph to ``launches``.
 launches = 0
+graph_captures = 0
+graph_replays = 0
 
 
 def reset_launches() -> None:
-    global launches
-    launches = 0
+    global launches, graph_captures, graph_replays
+    launches = graph_captures = graph_replays = 0
 
 
 def _sphere_pass(ap, n_sph, o, d, t_min, bound):
@@ -284,8 +288,7 @@ def light_ray(origins, dirs, found, hit_t, light_pos):
     hp_t = torch.where(found, hit_t, 0.0)
     hit_p = (dirs * hp_t[:, None] if origins is None
              else fma(dirs, hp_t[:, None], origins))
-    light = torch.tensor([float(np.float32(v)) for v in light_pos],
-                         dtype=torch.float32, device=dirs.device)
+    light = const3(*(float(np.float32(v)) for v in light_pos), dirs.device)
     light_offset = from_hit(origins, dirs, hp_t, light[None, :], 1.0)
     dist = sqrt(rowdot(light_offset, light_offset))
     return hit_p, light_offset / torch.clamp_min(dist, TINY)[:, None], dist

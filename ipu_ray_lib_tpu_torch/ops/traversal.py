@@ -43,7 +43,7 @@ from .ids import GEOM_MESH, GEOM_SPHERE, INTERSECTORS
 from .intersect import intersect_triangle_watertight, make_ray_shear
 from .intersect_hbm import pallas_intersect_hbm
 from .intersect_kernel import pallas_intersect
-from .vec3 import fma, unit
+from .vec3 import const3, fma, unit
 
 INVALID_PRIM_ID = -1
 
@@ -107,8 +107,7 @@ def resolve_hit(scene, origin, direction, hit_t, tri, si_b, di_b,
     disc_n = scene.ap[n_sph + di_c, 4:7]
     normal = torch.where(sb[:, None], sphere_n, knormal)
     normal = torch.where(db[:, None], disc_n, normal)
-    default = torch.tensor([0.0, 0.0, 1.0], dtype=torch.float32,
-                           device=direction.device)
+    default = const3(0.0, 0.0, 1.0, direction.device)
     return geom, prim, found, torch.where(found[:, None], normal, default)
 
 
@@ -175,8 +174,7 @@ def pallas_path_intersect(scene, origin, direction, t_min, t_max,
     emission = torch.where(use_o[:, None], scene.mat_emission[mid_o], emission)
     emissive = torch.where(use_o, scene.mat_emissive[mid_o] != 0, emissive)
 
-    default = torch.tensor([0.0, 0.0, 1.0], dtype=torch.float32,
-                           device=direction.device)
+    default = const3(0.0, 0.0, 1.0, direction.device)
     normal = torch.where(found[:, None], normal, default)
     return dict(t=torch.where(found, hit_t, t_max), found=found,
                 normal=normal, albedo=albedo, mat_id=mid, mat_type=mtype,
@@ -250,8 +248,7 @@ def hit_normal(scene, origin, direction, hit: Hit) -> torch.Tensor:
     n = torch.where((gtype == GEOM_MESH)[:, None], mesh_n,
                     torch.where((gtype == GEOM_SPHERE)[:, None], sphere_n,
                                 disc_n))
-    default = torch.tensor([0.0, 0.0, 1.0], dtype=torch.float32,
-                           device=direction.device)
+    default = const3(0.0, 0.0, 1.0, direction.device)
     return torch.where(hit.found[:, None], n, default)
 
 

@@ -4,10 +4,21 @@ the reference's operation order, so results round the same way."""
 
 from __future__ import annotations
 
+import functools
+
 import numpy as np
 import torch
 
 TINY = float(np.float32(1e-30))
+
+
+@functools.cache
+def const3(x: float, y: float, z: float, device: torch.device) -> torch.Tensor:
+    """The f32 vector [3] (x, y, z) on ``device``, made once and kept for
+    good (read only): a copy from the host cannot be captured in a CUDA
+    graph, and a captured graph reads the tensor whenever it replays
+    (render/renderer.py)."""
+    return torch.tensor([x, y, z], dtype=torch.float32, device=device)
 
 
 def dot3(a, b):

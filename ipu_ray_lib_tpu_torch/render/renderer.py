@@ -34,17 +34,33 @@ JAX package) and logged.
 AOVs to f16 on the device before they are read back: finite values are
 clamped to +-65504 first, true infinities (t of a miss) pass; the ids stay
 exact. The path trace's image is rounded likewise (no clamp).
+
+On a CUDA scene the shadow frame's chunk loop is one CUDA graph when
+nothing in it returns to the host: the fused K4 route, no progress
+callback, and a window of whole tiles (so ~13,000 small launches a 1440²
+frame become one replay). The first frame of a shape (a key: the window,
+the image size, the chunk size, the AOV set and the device) runs the
+loop eagerly, then captures it; each later frame of that shape sets the
+image plane's two factors, which the fov alone changes, in 0-d tensors
+on the card and replays it into the same AOV buffers, which the readback
+copies to the host before the next replay. Each scene keeps its
+``GRAPH_KEYS`` most recently used frames, and drops them with itself.
+Every other call runs the loop eagerly; both give the same bits.
 """
 
 from __future__ import annotations
 
+import collections
+import time
 from typing import Callable, NamedTuple, Optional
 
 import numpy as np
 import torch
 
 from ..bvh.builder import INVALID_GEOM_ID
-from ..ops.camera import generate_camera_rays
+from ..ops import shadow as shadow_ops
+from ..ops.camera import (generate_camera_rays, plane_scale, scaled_ray_dir,
+                          tan_half_fov)
 from ..utils import threefry
 from ..utils.log import logger
 from ..utils.profiling import span
@@ -54,6 +70,7 @@ from .streaming import _pixel_stream, env_term, render_streaming
 
 DEFAULT_CHUNK = 1 << 16
 TILE = 32  # pixel tile edge of the ray order (render/streaming.py)
+GRAPH_KEYS = 4  # captured shadow frames a scene keeps
 
 # Each AOV's trailing shape, dtype and fill where it is not read back:
 _AOVS = {
@@ -189,6 +206,120 @@ def _render_path(scene, params, chunk_size, progress_callback, env,
     return a.cpu().numpy().astype(np.float32).reshape(h, w, 3)
 
 
+def _aov_bufs(fields, padded: int, dev) -> dict:
+    """Empty stream-order buffers [padded, ...] of the AOVs ``fields``."""
+    return {k: torch.empty((padded,) + _AOVS[k][0], dtype=_AOVS[k][1],
+                           device=dev) for k in fields}
+
+
+def _shadow_chunks(scene, params, chunk_size: int, bufs: dict, scale,
+                   fused: bool = True, coords=None, progress_callback=None,
+                   readback_f16: bool = False) -> None:
+    """The shadow frame's chunk loop: each chunk's camera rays, shadow
+    trace and AOV stores into ``bufs`` (stream order). ``scale``: the image
+    plane's factors (sx, sy) as :func:`~..ops.camera.scaled_ray_dir` takes
+    them; ``coords``: the padded stream's (rows, cols) numpy, or None to
+    compute them on the device (a window of whole tiles)."""
+    w, h = params.window_w, params.window_h
+    total = w * h
+    dev = scene.device
+    for ci in range(-(-total // chunk_size)):
+        g0 = ci * chunk_size
+        with span("renderer.rays"):
+            if coords is None:
+                rows, cols = _tile_coords(g0, chunk_size, w, params.window_c,
+                                          params.window_r, total, dev)
+            else:
+                rows = torch.from_numpy(coords[0][g0:g0 + chunk_size]).to(dev)
+                cols = torch.from_numpy(coords[1][g0:g0 + chunk_size]).to(dev)
+            d = scaled_ray_dir(cols, rows, params.image_width,
+                               params.image_height, *scale)
+        res = shadow_trace(scene, None, d, intersector=params.intersector,
+                           fused=fused)
+        with span("renderer.store"):
+            for k, buf in bufs.items():
+                buf[g0:g0 + chunk_size] = getattr(res, k)
+        if progress_callback is not None:
+            progress_callback(ci, _prep_f(res.rgb, readback_f16).cpu()
+                              .numpy().astype(np.float32))
+
+
+def _graph_route(device: torch.device, fused: bool, intersector: str,
+                 progress_callback, w: int, h: int) -> bool:
+    """Whether the shadow frame replays a captured CUDA graph (module
+    note): a CUDA scene, the fused K4 route, no progress callback and a
+    window of whole tiles."""
+    return (device.type == "cuda" and fused and intersector == "pallas"
+            and progress_callback is None and w % TILE == 0
+            and h % TILE == 0)
+
+
+class _FrameGraph(NamedTuple):
+    """A captured shadow frame: the image plane's factors (0-d f32 on the
+    card, its inputs), the AOV buffers (its outputs), the graph, the K4
+    launches it replays and the capture's ms."""
+
+    scale: tuple
+    bufs: dict
+    graph: object
+    k4_launches: int
+    capture_ms: float
+
+
+def _capture(body, dev: torch.device):
+    """(``body()`` captured as one CUDA graph with a private memory pool,
+    the capture's wall ms from an idle card)."""
+    with torch.cuda.device(dev):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            body()
+        return graph, (time.perf_counter() - t0) * 1e3
+
+
+def _replayed_frame(scene, params, chunk_size: int, fields, scale) -> dict:
+    """The frame's AOV buffers, filled by a replay of its captured chunk
+    loop; the first call of a key runs the loop eagerly (which also loads
+    what loads lazily: the kernel library, K4's shared-memory opt-in) and
+    then captures it (module note)."""
+    key = (scene.device, params.window_w, params.window_h, params.window_c,
+           params.window_r, params.image_width, params.image_height,
+           chunk_size, tuple(fields))
+    cache = scene.__dict__.setdefault("_frame_graphs",
+                                      collections.OrderedDict())
+    fg = cache.get(key)
+    if fg is not None:
+        cache.move_to_end(key)
+        with span("renderer.replay"):
+            for t, v in zip(fg.scale, scale):
+                t.fill_(v)
+            fg.graph.replay()
+        shadow_ops.launches += fg.k4_launches
+        shadow_ops.graph_replays += 1
+        return fg.bufs
+    dev = scene.device
+    total = params.window_w * params.window_h
+    bufs = _aov_bufs(fields, -(-total // chunk_size) * chunk_size, dev)
+    sc = tuple(torch.full((), v, dtype=torch.float32, device=dev)
+               for v in scale)
+    body = lambda: _shadow_chunks(scene, params, chunk_size, bufs, sc)
+    body()
+    n0 = shadow_ops.launches
+    with span("renderer.capture"):
+        graph, ms = _capture(body, dev)
+    fg = _FrameGraph(sc, bufs, graph, shadow_ops.launches - n0, ms)
+    shadow_ops.launches = n0  # a capture launches nothing
+    shadow_ops.graph_captures += 1
+    logger().info("Shadow frame %dx%d captured as a CUDA graph: %d K4 "
+                  "launches, %.1f ms", params.window_w, params.window_h,
+                  fg.k4_launches, ms)
+    cache[key] = fg
+    while len(cache) > GRAPH_KEYS:
+        cache.popitem(last=False)
+    return bufs
+
+
 def render(scene, params, mode: str = "shadow-trace",
            chunk_size: int = DEFAULT_CHUNK,
            progress_callback: Optional[Callable[[int, np.ndarray], None]] = None,
@@ -247,36 +378,20 @@ def render(scene, params, mode: str = "shadow-trace",
     dev = scene.device
     total = w * h
     rows_np, cols_np, order = _pixel_stream(params)
-    device_coords = w % TILE == 0 and h % TILE == 0
-    n_chunks = -(-total // chunk_size)
-    padded = n_chunks * chunk_size
-    if not device_coords:
-        rows_np = np.pad(rows_np, (0, padded - total))
-        cols_np = np.pad(cols_np, (0, padded - total))
     fields = [k for k in _AOVS if k == "geom_id" or aovs is None or k in aovs]
-    bufs = {k: torch.empty((padded,) + _AOVS[k][0], dtype=_AOVS[k][1],
-                           device=dev) for k in fields}
-
-    for ci in range(n_chunks):
-        g0 = ci * chunk_size
-        with span("renderer.rays"):
-            if device_coords:
-                rows, cols = _tile_coords(g0, chunk_size, w, params.window_c,
-                                          params.window_r, total, dev)
-            else:
-                rows = torch.from_numpy(rows_np[g0:g0 + chunk_size]).to(dev)
-                cols = torch.from_numpy(cols_np[g0:g0 + chunk_size]).to(dev)
-            _, d = generate_camera_rays(rows, cols, params.image_width,
-                                        params.image_height,
-                                        params.fov_radians)
-        res = shadow_trace(scene, None, d, intersector=params.intersector,
-                           fused=fused)
-        with span("renderer.store"):
-            for k in fields:
-                bufs[k][g0:g0 + chunk_size] = getattr(res, k)
-        if progress_callback is not None:
-            progress_callback(ci, _prep_f(res.rgb, readback_f16).cpu()
-                              .numpy().astype(np.float32))
+    scale = plane_scale(params.image_width, params.image_height,
+                        tan_half_fov(params.fov_radians))
+    if _graph_route(dev, fused, params.intersector, progress_callback, w, h):
+        bufs = _replayed_frame(scene, params, chunk_size, fields, scale)
+    else:
+        padded = -(-total // chunk_size) * chunk_size
+        bufs = _aov_bufs(fields, padded, dev)
+        coords = None
+        if w % TILE or h % TILE:
+            pad = (0, padded - total)
+            coords = (np.pad(rows_np, pad), np.pad(cols_np, pad))
+        _shadow_chunks(scene, params, chunk_size, bufs, scale, fused, coords,
+                       progress_callback, readback_f16)
 
     with span("renderer.readback"):
         # Raster order: image[order[g]] = stream[g].
