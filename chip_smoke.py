@@ -107,8 +107,10 @@ Phases (any failed check raises, so the exit code is non-zero):
      kernel, plain);
   6b. the shadow-trace main path: ``render`` of phase 4's scene at
      1440^2, one warm-up, three timed frames with all AOVs and three with
-     normals only (hits, finite AOVs where hit, K4 launched); the frame's
-     parts with CUDA events (camera + cull, K4 alone, epilogue,
+     normals only (hits, finite AOVs where hit, K4 launched); replayed
+     frames against the eager loop (md5), the readback alone (its ms, one
+     pinned copy a frame) and two frames held (the first one's md5 after
+     the second); the frame's parts with CUDA events (camera + cull, K4 alone, epilogue,
      un-tiling) and its device-to-host copy; K4 against its plain version
      over the whole frame, bit for bit, which also counts the (bundle,
      block) pairs its walks test; the (lane, block) pairs its hits need
@@ -2020,6 +2022,7 @@ def main() -> int:
     from ipu_ray_lib_tpu_torch.ops.camera import generate_camera_rays
     from ipu_ray_lib_tpu_torch.ops.cull import super_cull_lists_bundle
     from ipu_ray_lib_tpu_torch.render.renderer import (DEFAULT_CHUNK,
+                                                       _read_back,
                                                        _tile_coords, render)
     from ipu_ray_lib_tpu_torch.scene import types as st
     from ipu_ray_lib_tpu_torch.ops.cuda import build as cuda_build
@@ -3068,27 +3071,59 @@ def main() -> int:
     # The graph route (render/renderer.py): the frames above replayed the
     # chunk loop captured at their key's first call. Replayed frames at two
     # zooms against the eager loop (a progress callback keeps the loop on
-    # the host), every AOV's md5, each route's K4 launches; the captures'
+    # the host), every AOV's md5, each route's K4 launches and pinned
+    # readbacks; the readback alone on the replayed frame's buffers (its
+    # wall ms from an idle card, 3 runs); the first zoom's replayed frame
+    # held while the second renders, its md5 unchanged; the captures'
     # cost.
     n_before = sh.launches
+    held = None
+    md5_of = lambda o: [hashlib.md5(getattr(o, f).tobytes()).hexdigest()
+                        for f in sout._fields]
     for zoom in (0.985, 1.015):
         pz = dataclasses.replace(params,
                                  fov_radians=params.fov_radians * zoom)
         sh.launches = 0
+        p0 = sh.pinned_readbacks
         eout, t_e = timed(lambda: render(
             scene, pz, progress_callback=lambda i, rgb: None))
         n_e, sh.launches = sh.launches, 0
+        p1 = sh.pinned_readbacks
         gout, t_g = timed(lambda: render(scene, pz))
         n_g = sh.launches
-        md5 = [[hashlib.md5(getattr(o, f).tobytes()).hexdigest()
-                for f in sout._fields] for o in (eout, gout)]
+        pins = (p1 - p0, sh.pinned_readbacks - p1)
+        md5 = [md5_of(o) for o in (eout, gout)]
+        bufs = next(reversed(scene._frame_graphs.values())).bufs
+        rb_ms = []
+        for _ in range(3):
+            torch.cuda.synchronize()
+            rb, t = timed(lambda: _read_back(bufs, pz, scene.device, False))
+            rb_ms.append(t * 1e3)
+        rb_same = md5_of(rb) == md5[1]
         log(f"[shadow graph] zoom {zoom}: replay {t_g * 1e3:.2f} ms, eager "
             f"(with a callback) {t_e * 1e3:.2f} ms; md5 equal on "
             f"{sum(a == b for a, b in zip(*md5))} of {len(md5[0])} AOVs; K4 "
-            f"launches eager {n_e}, replayed {n_g}")
+            f"launches eager {n_e}, replayed {n_g}; readback "
+            f"{', '.join(f'{t:.2f}' for t in rb_ms)} ms (its md5 equal "
+            f"{rb_same}); pinned readbacks eager {pins[0]}, replayed "
+            f"{pins[1]} ({sh.pinned_readbacks} in all)")
         if md5[0] != md5[1] or n_e != n_g or n_g < 1:
             raise AssertionError("a replayed shadow frame differs from the "
                                  "eager loop's")
+        if not rb_same or pins != (1, 1):
+            raise AssertionError("the readback alone differs from the "
+                                 "frame's, or a frame made other than one "
+                                 "pinned copy")
+        if held is not None:
+            kept = md5_of(held[0]) == held[1]
+            log(f"[shadow graph] the zoom {held[2]} frame, held while zoom "
+                f"{zoom} rendered: md5 unchanged {kept}; the two frames "
+                f"differ {held[1] != md5[1]}")
+            if not kept or held[1] == md5[1]:
+                raise AssertionError("a held shadow frame changed under the "
+                                     "next frame, or the zoom moved nothing")
+        held = (gout, md5[1], zoom)
+    del held, rb, gout, eout
     sh.launches = n_before
     log(f"[shadow graph] captures {sh.graph_captures}, replays "
         f"{sh.graph_replays}; capture ms " + ", ".join(

@@ -11,10 +11,27 @@ kernels K5/K6 twice with the shading between; render/shadow.py). For a window wh
 of the tile, each chunk's pixel coordinates are computed on the device
 (``_tile_coords``); otherwise they are uploaded. The chunk size decides
 where the bundles of 1,024 rays fall when it is not a multiple of 1,024,
-so it is kept as in the JAX package. At the end the requested AOVs are
-put back in raster order on the device and copied to the host as
+so it is kept as in the JAX package. The requested AOVs come back as
 [H, W, ...] numpy; the others come back filled (zeros, t = inf, prim
 -1). ``geom_id`` is always read back.
+
+The readback (``_read_back``) puts the AOVs in raster order on the
+scene's device with the raster permutation (int32, the inverse of the
+stream's order), built once per device and window and cached there as
+the host stream is (``_raster_inverse``). Each AOV is gathered into its
+own segment of one packed buffer, allocated per call, and ``geom_id``'s
+``INVALID_GEOM_ID`` becomes -1 there. On a CUDA scene the packed buffer
+then reaches the host in one copy into pinned memory (counted in
+``ops/shadow.py:pinned_readbacks``) and one synchronisation of the
+stream; on a CPU scene it is already on the host. The returned arrays
+are views of that host buffer: each array's ``base`` holds it, so a
+frame's arrays are never overwritten by a later frame, and the buffer is
+freed, or goes back to torch's pinned cache, when the caller drops all
+of them. So a caller that keeps N frames of a CUDA scene holds N pinned
+blocks (the packed size rounded up to a power of two: 128 MB for the six
+AOVs of a 1440² frame), keeping one AOV of a frame keeps the whole
+block, and a frame that finds no free block in the cache allocates one
+(for 128 MB about 30 ms on an H100's host, ten times the copy).
 
 In path-trace mode ``render`` runs :func:`render_streaming` once; with a
 progress callback it renders decorrelated batches of at most 16 samples
@@ -31,7 +48,8 @@ with an unknown material are counted (padding lanes included, as in the
 JAX package) and logged.
 
 ``readback_f16`` (the JAX package's ``RAY_READBACK_F16``) rounds the float
-AOVs to f16 on the device before they are read back: finite values are
+AOVs to f16 on the device before they are read back (2-byte segments of
+the packed buffer, widened to f32 on the host): finite values are
 clamped to +-65504 first, true infinities (t of a miss) pass; the ids stay
 exact. The path trace's image is rounded likewise (no clamp).
 
@@ -43,14 +61,16 @@ the image size, the chunk size, the AOV set and the device) runs the
 loop eagerly, then captures it; each later frame of that shape sets the
 image plane's two factors, which the fov alone changes, in 0-d tensors
 on the card and replays it into the same AOV buffers, which the readback
-copies to the host before the next replay. Each scene keeps its
-``GRAPH_KEYS`` most recently used frames, and drops them with itself.
+gathers into its own packed buffer before the next replay. Each scene
+keeps its ``GRAPH_KEYS`` most recently used frames, and drops them with
+itself.
 Every other call runs the loop eagerly; both give the same bits.
 """
 
 from __future__ import annotations
 
 import collections
+import math
 import time
 from typing import Callable, NamedTuple, Optional
 
@@ -71,6 +91,9 @@ from .streaming import _pixel_stream, env_term, render_streaming
 DEFAULT_CHUNK = 1 << 16
 TILE = 32  # pixel tile edge of the ray order (render/streaming.py)
 GRAPH_KEYS = 4  # captured shadow frames a scene keeps
+# Bytes: each AOV's segment of the readback starts at a multiple, so an
+# f16 segment of odd length leaves the next one's 4-byte view legal.
+SEGMENT_ALIGN = 64
 
 # Each AOV's trailing shape, dtype and fill where it is not read back:
 _AOVS = {
@@ -210,6 +233,76 @@ def _aov_bufs(fields, padded: int, dev) -> dict:
     """Empty stream-order buffers [padded, ...] of the AOVs ``fields``."""
     return {k: torch.empty((padded,) + _AOVS[k][0], dtype=_AOVS[k][1],
                            device=dev) for k in fields}
+
+
+# The raster permutations on the scenes' devices, keyed (device, window):
+_RASTER_CACHE: dict = {}
+
+
+def _raster_inverse(params, dev: torch.device) -> torch.Tensor:
+    """int32 [W*H] on ``dev``: each raster pixel's position in the window's
+    tile-ordered stream (``image[p] = stream[inv[p]]``), built once per
+    device and window and bounded as ``_pixel_stream``'s host cache is."""
+    w, h = params.window_w, params.window_h
+    key = (dev, w, h, params.window_c, params.window_r)
+    inv = _RASTER_CACHE.get(key)
+    if inv is None:
+        host = np.empty(w * h, np.int32)
+        host[_pixel_stream(params)[2]] = np.arange(w * h, dtype=np.int32)
+        inv = torch.from_numpy(host).to(dev)
+        if len(_RASTER_CACHE) > 8:
+            _RASTER_CACHE.clear()
+        _RASTER_CACHE[key] = inv
+    return inv
+
+
+def _read_back(bufs: dict, params, dev: torch.device,
+               f16: bool) -> RenderOutput:
+    """The AOVs of ``bufs`` (stream order, padded) as [H, W, ...] numpy in
+    raster order, the others filled (module note): gathered on ``dev`` into
+    the segments of one packed buffer, one copy to pinned host memory on a
+    CUDA scene, the arrays views of the host buffer."""
+    h, w = params.window_h, params.window_w
+    total = w * h
+    segs, nbytes = {}, 0
+    for k in bufs:
+        shape, dt, _ = _AOVS[k]
+        if f16 and dt.is_floating_point:
+            dt = torch.float16
+        size = total * math.prod(shape) * dt.itemsize
+        segs[k] = (nbytes, size, dt, shape)
+        nbytes += -(-size // SEGMENT_ALIGN) * SEGMENT_ALIGN
+
+    def seg(buf: torch.Tensor, k: str) -> torch.Tensor:
+        off, size, dt, shape = segs[k]
+        return buf[off:off + size].view(dt).view((total,) + shape)
+
+    inv = _raster_inverse(params, dev)
+    packed = torch.empty(nbytes, dtype=torch.uint8, device=dev)
+    for k, src in bufs.items():
+        src = src[:total]
+        if src.is_floating_point():
+            src = _prep_f(src, f16)
+        torch.index_select(src, 0, inv, out=seg(packed, k))
+    g = seg(packed, "geom_id")
+    g.masked_fill_(g == INVALID_GEOM_ID, -1)
+    if dev.type == "cuda":
+        host = torch.empty(nbytes, dtype=torch.uint8, pin_memory=True)
+        host.copy_(packed, non_blocking=True)
+        torch.cuda.current_stream(dev).synchronize()
+        shadow_ops.pinned_readbacks += 1
+    else:
+        host = packed
+    out = {}
+    for k, (shape, _, _) in _AOVS.items():
+        if k in segs:
+            a = seg(host, k).view((h, w) + shape).numpy()
+            if a.dtype == np.float16:
+                a = a.astype(np.float32)
+        else:
+            a = _filled(k, total).reshape((h, w) + shape)
+        out[k] = a
+    return RenderOutput(**out)
 
 
 def _shadow_chunks(scene, params, chunk_size: int, bufs: dict, scale,
@@ -377,7 +470,7 @@ def render(scene, params, mode: str = "shadow-trace",
 
     dev = scene.device
     total = w * h
-    rows_np, cols_np, order = _pixel_stream(params)
+    rows_np, cols_np, _ = _pixel_stream(params)
     fields = [k for k in _AOVS if k == "geom_id" or aovs is None or k in aovs]
     scale = plane_scale(params.image_width, params.image_height,
                         tan_half_fov(params.fov_radians))
@@ -394,21 +487,4 @@ def render(scene, params, mode: str = "shadow-trace",
                        progress_callback, readback_f16)
 
     with span("renderer.readback"):
-        # Raster order: image[order[g]] = stream[g].
-        inverse = np.empty(total, np.int64)
-        inverse[order] = np.arange(total)
-        inv = torch.from_numpy(inverse).to(dev)
-        out = {}
-        for k, (shape, _, _) in _AOVS.items():
-            if k in bufs:
-                a = bufs[k][:total].index_select(0, inv)
-                if a.is_floating_point():
-                    a = _prep_f(a, readback_f16)
-                a = a.cpu().numpy().astype(_NP[_AOVS[k][1]], copy=False)
-            else:
-                a = _filled(k, total)
-            out[k] = a.reshape((h, w) + shape)
-        g = out["geom_id"]
-        out["geom_id"] = np.where(g == INVALID_GEOM_ID, -1,
-                                  g).astype(np.int32)
-    return RenderOutput(**out)
+        return _read_back(bufs, params, dev, readback_f16)
