@@ -635,8 +635,7 @@ def sharded_and_progressive(dev, scene, params, env, full=FULL,
         # n_valid: K1 against its plain version bit for bit --
         plan = shard_plan(params, SHARDS)
         last = SHARDS - 1
-        lrows = torch.from_numpy(plan.rows[last]).to(dev)
-        lcols = torch.from_numpy(plan.cols[last]).to(dev)
+        lrows, lcols = plan.coords(last, dev)
         lseed = int(shard_seeds(params.rng_seed, SHARDS, 0)[last])
 
         def last_shard():
@@ -1680,8 +1679,8 @@ def intersectors(dev, k4_frame, mega_mean, full=FULL) -> dict:
     from ipu_ray_lib_tpu_torch.ops import shadow as sh
     from ipu_ray_lib_tpu_torch.ops.camera import generate_camera_rays
     from ipu_ray_lib_tpu_torch.ops.cuda import build as cb
-    from ipu_ray_lib_tpu_torch.render.renderer import (DEFAULT_CHUNK,
-                                                       _tile_coords, render)
+    from ipu_ray_lib_tpu_torch.render.pixels import pixel_stream
+    from ipu_ray_lib_tpu_torch.render.renderer import DEFAULT_CHUNK, render
     from ipu_ray_lib_tpu_torch.render.streaming import render_streaming
     from ipu_ray_lib_tpu_torch.scene.build import build_scene
     from ipu_ray_lib_tpu_torch.scene.builtin import (make_cornell_box_scene,
@@ -1742,7 +1741,8 @@ def intersectors(dev, k4_frame, mega_mean, full=FULL) -> dict:
         _, calls = shadow_calls(cs, small[m], chunk_size=P15_SMALL ** 2)
         hold(f"Cornell + monkey {P15_SMALL}^2 shadow trace, {m}", key,
              calls[key])
-    rows, cols = _tile_coords(0, DEFAULT_CHUNK, full, 0, 0, full * full, dev)
+    rows, cols = (a[:DEFAULT_CHUNK] for a in pixel_stream(cp).coords(
+        dev, -(-full * full // DEFAULT_CHUNK) * DEFAULT_CHUNK))
     _, d0 = generate_camera_rays(rows, cols, full, full, cp.fov_radians)
     n0 = d0.shape[0]
     zeros, inf = (torch.zeros(n0, device=dev),
@@ -2021,16 +2021,17 @@ def main() -> int:
     from ipu_ray_lib_tpu_torch.ops import shadow as sh
     from ipu_ray_lib_tpu_torch.ops.camera import generate_camera_rays
     from ipu_ray_lib_tpu_torch.ops.cull import super_cull_lists_bundle
+    from ipu_ray_lib_tpu_torch.render import renderer as rnd
+    from ipu_ray_lib_tpu_torch.render.pixels import pixel_stream
     from ipu_ray_lib_tpu_torch.render.renderer import (DEFAULT_CHUNK,
-                                                       _read_back,
-                                                       _tile_coords, render)
+                                                       _read_back, render)
     from ipu_ray_lib_tpu_torch.scene import types as st
     from ipu_ray_lib_tpu_torch.ops.cuda import build as cuda_build
     from ipu_ray_lib_tpu_torch.render.shadow import (DEFAULT_LIGHT_POS,
                                                      shadow_trace)
     from ipu_ray_lib_tpu_torch.render.streaming import (
-        ACTIVE_CHECK, MAX_K_PER_DISPATCH, SPP_BATCH, _pixel_stream,
-        render_streaming, slot_pool)
+        ACTIVE_CHECK, MAX_K_PER_DISPATCH, SPP_BATCH, render_streaming,
+        slot_pool)
     from ipu_ray_lib_tpu_torch.runtime.device import cuda_device, gpu_identity
     from ipu_ray_lib_tpu_torch.scene.build import build_scene
     from ipu_ray_lib_tpu_torch.scene.builtin import (make_cornell_box_scene,
@@ -2065,12 +2066,9 @@ def main() -> int:
            "k4": 0.0, "k5": 0.0, "k6": 0.0, "k7": 0.0, "k8": 0.0}
 
     def stream(params, chunk=1 << 17):
-        rows_np, cols_np, _ = _pixel_stream(params)
         n_pix = params.window_w * params.window_h
         R, J = slot_pool(n_pix, chunk)
-        pad = R * J - n_pix
-        rows = torch.from_numpy(np.pad(rows_np, (0, pad))).to(dev)
-        cols = torch.from_numpy(np.pad(cols_np, (0, pad))).to(dev)
+        rows, cols = pixel_stream(params).coords(dev, R * J)
         return rows, cols, R, J, n_pix
 
     def bad_pixels(a, b):
@@ -2176,7 +2174,7 @@ def main() -> int:
         jn = J if jn is None else jn
         idx = (np.arange(jn)[:, None] * R + slot0
                + np.arange(n)[None]).ravel()
-        want = rgb.reshape(-1, 3)[_pixel_stream(params)[2][idx]]
+        want = rgb.reshape(-1, 3)[pixel_stream(params).order[idx]]
         idx_t = torch.from_numpy(idx).to(dev)
         sub_k, sub_p, t_k, t_p, wet = compare(
             f"{name}, slots {slot0}..{slot0 + n - 1}"
@@ -2580,7 +2578,7 @@ def main() -> int:
                                 k_img)
         # The slots whose pixels the frame lit (slot s owns stream
         # positions s + j*R):
-        lit = rgb.reshape(-1, 3)[_pixel_stream(rp)[2]].sum(axis=1) > 0
+        lit = rgb.reshape(-1, 3)[pixel_stream(rp).order].sum(axis=1) > 0
         lit = np.flatnonzero(np.pad(lit, (0, R * J - lit.size))
                              .reshape(J, R).any(axis=0))
         if not lit.size:
@@ -2624,9 +2622,8 @@ def main() -> int:
 
     def frame_rays(params):
         """All pixels of a window as camera directions, stream order."""
-        rows_np, cols_np, _ = _pixel_stream(params)
-        rows = torch.from_numpy(rows_np).to(dev)
-        cols = torch.from_numpy(cols_np).to(dev)
+        rows, cols = pixel_stream(params).coords(
+            dev, params.window_w * params.window_h)
         return generate_camera_rays(rows, cols, params.image_width,
                                     params.image_height,
                                     params.fov_radians)[1]
@@ -2855,10 +2852,9 @@ def main() -> int:
         (whole bundles) against the plain route (camera, cull, plain K5/K6,
         the glue in torch), every AOV bit for bit."""
         n_fr = params.window_w * params.window_h
-        order_ = _pixel_stream(params)[2]
-        pix = order_[g0:g0 + n]
-        rows, cols = _tile_coords(g0, len(pix), params.window_w, 0, 0, n_fr,
-                                  dev)
+        stream_ = pixel_stream(params)
+        pix = stream_.order[g0:g0 + n]
+        rows, cols = (a[g0:g0 + len(pix)] for a in stream_.coords(dev, n_fr))
         d_rep = generate_camera_rays(rows, cols, params.image_width,
                                      params.image_height,
                                      params.fov_radians)[1]
@@ -3041,6 +3037,7 @@ def main() -> int:
         raise AssertionError("the shadow trace runs K4 in VMEM mode")
     n_frame = FULL * FULL
     sh.reset_launches()
+    rnd.reset_counters()
     sout, t_warm = timed(lambda: render(scene, params))
     s_all, s_nrm = [], []
     for _ in range(3):
@@ -3084,14 +3081,14 @@ def main() -> int:
         pz = dataclasses.replace(params,
                                  fov_radians=params.fov_radians * zoom)
         sh.launches = 0
-        p0 = sh.pinned_readbacks
+        p0 = rnd.pinned_readbacks
         eout, t_e = timed(lambda: render(
             scene, pz, progress_callback=lambda i, rgb: None))
         n_e, sh.launches = sh.launches, 0
-        p1 = sh.pinned_readbacks
+        p1 = rnd.pinned_readbacks
         gout, t_g = timed(lambda: render(scene, pz))
         n_g = sh.launches
-        pins = (p1 - p0, sh.pinned_readbacks - p1)
+        pins = (p1 - p0, rnd.pinned_readbacks - p1)
         md5 = [md5_of(o) for o in (eout, gout)]
         bufs = next(reversed(scene._frame_graphs.values())).bufs
         rb_ms = []
@@ -3106,7 +3103,7 @@ def main() -> int:
             f"launches eager {n_e}, replayed {n_g}; readback "
             f"{', '.join(f'{t:.2f}' for t in rb_ms)} ms (its md5 equal "
             f"{rb_same}); pinned readbacks eager {pins[0]}, replayed "
-            f"{pins[1]} ({sh.pinned_readbacks} in all)")
+            f"{pins[1]} ({rnd.pinned_readbacks} in all)")
         if md5[0] != md5[1] or n_e != n_g or n_g < 1:
             raise AssertionError("a replayed shadow frame differs from the "
                                  "eager loop's")
@@ -3125,8 +3122,8 @@ def main() -> int:
         held = (gout, md5[1], zoom)
     del held, rb, gout, eout
     sh.launches = n_before
-    log(f"[shadow graph] captures {sh.graph_captures}, replays "
-        f"{sh.graph_replays}; capture ms " + ", ".join(
+    log(f"[shadow graph] captures {rnd.graph_captures}, replays "
+        f"{rnd.graph_replays}; capture ms " + ", ".join(
             f"{'+'.join(k[8])}: {fg.capture_ms:.1f}"
             for k, fg in scene._frame_graphs.items()))
 
@@ -3136,9 +3133,12 @@ def main() -> int:
     # device; the device-to-host copy of the six AOVs on the host clock.
     n_chunks = -(-n_frame // DEFAULT_CHUNK)
 
+    frame_coords = pixel_stream(params).coords(dev,
+                                               n_chunks * DEFAULT_CHUNK)
+
     def chunk_dirs(ci):
-        rows, cols = _tile_coords(ci * DEFAULT_CHUNK, DEFAULT_CHUNK, FULL, 0,
-                                  0, n_frame, dev)
+        rows, cols = (a[ci * DEFAULT_CHUNK:(ci + 1) * DEFAULT_CHUNK]
+                      for a in frame_coords)
         return generate_camera_rays(rows, cols, FULL, FULL,
                                     params.fov_radians)[1]
 
@@ -3162,9 +3162,7 @@ def main() -> int:
         for (d, _), (f, i) in zip(inputs, k_outs)])
     stream_aovs = [torch.cat([e[k] for e in epis])[:n_frame]
                    for k in (0, 1, 2, 3, 4, 5)]
-    inv = np.empty(n_frame, np.int64)
-    inv[_pixel_stream(params)[2]] = np.arange(n_frame)
-    inv_t = torch.from_numpy(inv).to(dev)
+    inv_t = pixel_stream(params).inverse(dev)
     untile_ms, raster = event_ms(lambda: [a.index_select(0, inv_t)
                                           for a in stream_aovs])
     d2h = []
@@ -3248,7 +3246,7 @@ def main() -> int:
     # box). A chunk is a whole number of bundles, so these are the frame's
     # own bundles.
     n_rep = SHADOW_REPLAY * 1024
-    order = _pixel_stream(params)[2]
+    order = pixel_stream(params).order
     lit = np.flatnonzero(sout.geom_id.reshape(-1)[order] >= 0)
     last = -(-n_frame // 1024) - SHADOW_REPLAY
     mid = min(max(int(lit[len(lit) // 2]) // 1024 - SHADOW_REPLAY // 2, 0),
@@ -3256,7 +3254,8 @@ def main() -> int:
     for b0 in (0, mid):
         g0 = b0 * 1024
         pix = order[g0:g0 + n_rep]
-        rows, cols = _tile_coords(g0, len(pix), FULL, 0, 0, n_frame, dev)
+        rows, cols = (a[g0:g0 + len(pix)]
+                      for a in pixel_stream(params).coords(dev, n_frame))
         d_rep = generate_camera_rays(rows, cols, FULL, FULL,
                                      params.fov_radians)[1]
         a_rep = sh.shadow_inputs(scene, None, d_rep)
@@ -3562,7 +3561,7 @@ def main() -> int:
     # primary and the occlusion call of the chunk that holds the median
     # lit pixel, and the occlusion call that walked the most (64 bundles
     # each), every output bit for bit.
-    a_order = _pixel_stream(bp)[2]
+    a_order = pixel_stream(bp).order
     a_lit = np.flatnonzero(aout.geom_id.reshape(-1)[a_order] >= 0)
     c_mid = int(a_lit[len(a_lit) // 2]) // DEFAULT_CHUNK
     c_occ = max(range(n_chunks), key=lambda c: int(a_calls[2 * c + 1][1][4]
@@ -3586,7 +3585,8 @@ def main() -> int:
     for b0 in (a_first, a_mid):
         g0 = b0 * 1024
         pix = a_order[g0:g0 + n_rep]
-        rows, cols = _tile_coords(g0, len(pix), FULL, 0, 0, n_frame, dev)
+        rows, cols = (a[g0:g0 + len(pix)]
+                      for a in pixel_stream(bp).coords(dev, n_frame))
         d_rep = generate_camera_rays(rows, cols, FULL, FULL,
                                      bp.fov_radians)[1]
         intersect_vs_plain(f"path A, stream pixels {g0}..{g0 + len(pix) - 1}",

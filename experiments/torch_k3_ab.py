@@ -25,8 +25,7 @@ import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
 from ipu_ray_lib_tpu_torch.ops import megakernel as mk  # noqa: E402
-from ipu_ray_lib_tpu_torch.render.streaming import (  # noqa: E402
-    _pixel_stream, slot_pool)
+from ipu_ray_lib_tpu_torch.render.streaming import slot_pool  # noqa: E402
 from ipu_ray_lib_tpu_torch.scene.build import build_scene  # noqa: E402
 from ipu_ray_lib_tpu_torch.scene.builtin import (  # noqa: E402
     make_cornell_box_scene, make_stress_scene)
@@ -36,12 +35,17 @@ dev = torch.device("cuda", 0)
 
 
 def stream(params, chunk=1 << 17):
-    rows_np, cols_np, _ = _pixel_stream(params)
     n_pix = params.window_w * params.window_h
     R, J = slot_pool(n_pix, chunk)
-    pad = R * J - n_pix
-    return (torch.from_numpy(np.pad(rows_np, (0, pad))).to(dev),
-            torch.from_numpy(np.pad(cols_np, (0, pad))).to(dev), R, J, n_pix)
+    try:
+        from ipu_ray_lib_tpu_torch.render.pixels import pixel_stream
+    except ImportError:  # a tree from before render/pixels.py
+        from ipu_ray_lib_tpu_torch.render.streaming import _pixel_stream
+        rows_np, cols_np, _ = _pixel_stream(params)
+        pad = (0, R * J - n_pix)
+        return (torch.from_numpy(np.pad(rows_np, pad)).to(dev),
+                torch.from_numpy(np.pad(cols_np, pad)).to(dev), R, J, n_pix)
+    return (*pixel_stream(params).coords(dev, R * J), R, J, n_pix)
 
 
 out = {}

@@ -41,6 +41,9 @@ from ipu_ray_lib_tpu_torch.scene.build import build_scene  # noqa: E402
 from ipu_ray_lib_tpu_torch.scene.builtin import make_cornell_box_scene  # noqa: E402
 
 assert R.__file__.startswith(tree), R.__file__
+# the renderer's counters: in render/renderer.py, or in ops/shadow.py in a
+# tree from before they moved
+counters = R if hasattr(R, "graph_replays") else sh
 dev = torch.device("cuda", 0)
 FULL = 1440
 ZOOMS = [0.985 + 0.0025 * i for i in range(12)]
@@ -65,6 +68,7 @@ t0 = time.perf_counter()
 frame(1.0)
 warm_s = time.perf_counter() - t0
 sh.reset_launches()
+getattr(counters, "reset_counters", lambda: None)()
 sums = [md5(frame(z)) for z in ZOOMS]
 times = []
 out = None
@@ -81,6 +85,6 @@ print(json.dumps({
     "tree": tree, "md5": sums, "warm_s": round(warm_s, 3),
     "frames": n_frames, "ms_median": round(statistics.median(times), 3),
     "ms_p90": round(q[8], 3), "ms_min": round(min(times), 3),
-    "graph_replays": sh.graph_replays,
-    "pinned_readbacks": getattr(sh, "pinned_readbacks", None),
+    "graph_replays": counters.graph_replays,
+    "pinned_readbacks": getattr(counters, "pinned_readbacks", None),
     "held_frame_kept": held}), flush=True)

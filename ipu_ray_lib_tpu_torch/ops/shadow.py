@@ -66,19 +66,13 @@ from .vec3 import TINY, const3, fma, rowdot, sqrt, unit
 BIG = 1e30  # K4's padding-box bound (float32(1e30) is this value's f32)
 _RAY_EPS = float(RAY_EPSILON)
 
-# CUDA kernel launches since the last reset; the shadow frames that
-# ``render`` captured as a CUDA graph and replayed (render/renderer.py),
-# each replay adding the K4 launches of its graph to ``launches``; and the
-# shadow frames whose AOVs it read back in one copy to pinned memory.
+# K4's CUDA launches since the last reset.
 launches = 0
-graph_captures = 0
-graph_replays = 0
-pinned_readbacks = 0
 
 
 def reset_launches() -> None:
-    global launches, graph_captures, graph_replays, pinned_readbacks
-    launches = graph_captures = graph_replays = pinned_readbacks = 0
+    global launches
+    launches = 0
 
 
 def _sphere_pass(ap, n_sph, o, d, t_min, bound):

@@ -38,10 +38,10 @@ import torch.distributed as dist
 
 from ..nif.model import NifEnv
 from ..ops.camera import generate_camera_rays
+from ..render.pixels import PixelStream, pixel_stream
 from ..render.renderer import path_chunk
 from ..render.shadow import TraceResultSoA, shadow_trace
-from ..render.streaming import (MAX_K_PER_DISPATCH, _pixel_stream,
-                                trace_batch)
+from ..render.streaming import MAX_K_PER_DISPATCH, trace_batch
 from ..runtime.device import cuda_device
 from ..utils import threefry
 from ..utils.profiling import span
@@ -176,43 +176,42 @@ def _replicas(obj, mesh: RayMesh) -> dict:
 class ShardPlan:
     """How a frame's pixel stream is cut over ``n`` shards (the JAX
     package's per-device slicing, mesh.py:130-168): shard i renders the
-    padded-stream pixels [i*R*J, (i+1)*R*J) with a pool of R = ``slots``
-    slots of J = ``j_per_slot`` pixels each, of which the first
-    ``n_valid[i]`` are real."""
+    padded-stream pixels [i*R*J, (i+1)*R*J) of ``stream`` with a pool of
+    R = ``slots`` slots of J = ``j_per_slot`` pixels each, of which the
+    first ``n_valid[i]`` are real."""
 
-    rows: np.ndarray   # [n, R*J] f32: each shard's slice of the stream
-    cols: np.ndarray
-    order: np.ndarray  # stream position -> raster pixel, [n_pix]
+    stream: PixelStream
     slots: int
     j_per_slot: int
     n_valid: tuple
     width: int
     height: int
 
+    def coords(self, i: int, dev) -> tuple:
+        """Shard i's (rows, cols) [R*J] f32 on ``dev``: its slice of the
+        stream padded to every shard's."""
+        size = self.slots * self.j_per_slot
+        return tuple(a[i * size:(i + 1) * size] for a in
+                     self.stream.coords(dev, len(self.n_valid) * size))
+
     def assemble(self, flats) -> np.ndarray:
         """The window image [H, W, 3] f32 from every shard's [R*J, 3]."""
-        n_pix = self.order.shape[0]
-        a = np.concatenate([np.asarray(f) for f in flats]).reshape(-1, 3)
-        img = np.empty((n_pix, 3), np.float32)
-        img[self.order] = a[:n_pix]
-        return img.reshape(self.height, self.width, 3)
+        return self.stream.scatter(
+            np.concatenate([np.asarray(f) for f in flats]).reshape(-1, 3))
 
 
 def shard_plan(params, n: int, chunk_slots: int = 1 << 17) -> ShardPlan:
     """The stream of ``params``'s window cut over ``n`` shards:
     ``per_dev = ceil(n_pix / n)``, R = min(chunk_slots, per_dev) (not
     rounded to 256), J = ceil(per_dev / R)."""
-    rows_np, cols_np, order = _pixel_stream(params)
-    n_pix = rows_np.shape[0]
+    n_pix = params.window_w * params.window_h
     per_dev = -(-n_pix // n)
     R = min(chunk_slots, per_dev)
     J = -(-per_dev // R)
-    pad = n * R * J - n_pix
     n_valid = tuple(int(np.clip(n_pix - i * R * J, 0, R * J))
                     for i in range(n))
-    return ShardPlan(np.pad(rows_np, (0, pad)).reshape(n, R * J),
-                     np.pad(cols_np, (0, pad)).reshape(n, R * J), order, R, J,
-                     n_valid, params.window_w, params.window_h)
+    return ShardPlan(pixel_stream(params), R, J, n_valid, params.window_w,
+                     params.window_h)
 
 
 def shard_seeds(rng_seed: int, n: int, batch: int) -> np.ndarray:
@@ -248,9 +247,7 @@ def render_streaming_sharded(scene, params, mesh: RayMesh,
         plan = shard_plan(params, n, chunk_slots)
         scenes = _replicas(scene, mesh)
         envs = _replicas(env, mesh) if isinstance(env, NifEnv) else {}
-        streams = {i: (torch.from_numpy(plan.rows[i]).to(mesh[i]),
-                       torch.from_numpy(plan.cols[i]).to(mesh[i]))
-                   for i in mesh.local}
+        streams = {i: plan.coords(i, mesh[i]) for i in mesh.local}
 
     def host(acc):
         with span("mesh.gather"):

@@ -3,28 +3,25 @@ path trace, one-shot or progressive.
 
 Port of ``render`` (ipu_ray_lib_tpu/render/renderer.py:152). In
 shadow-trace mode (the default) the window's pixels are streamed in tile
-order (32x32 tiles, ``render/streaming.py:_pixel_stream``), in chunks of
-``chunk_size`` rays padded to a whole chunk: a chunk's camera rays, the
-fused shadow kernel (K4) and its epilogue run on the scene's device and
-write into per-AOV buffers there (or, on the glue route, the closest-hit
-kernels K5/K6 twice with the shading between; render/shadow.py). For a window whose sides are multiples
-of the tile, each chunk's pixel coordinates are computed on the device
-(``_tile_coords``); otherwise they are uploaded. The chunk size decides
-where the bundles of 1,024 rays fall when it is not a multiple of 1,024,
-so it is kept as in the JAX package. The requested AOVs come back as
-[H, W, ...] numpy; the others come back filled (zeros, t = inf, prim
--1). ``geom_id`` is always read back.
+order (render/pixels.py), in chunks of ``chunk_size`` rays padded to a
+whole chunk: a chunk's pixel coordinates are a slice of the padded
+stream on the scene's device, and its camera rays, the fused shadow
+kernel (K4) and its epilogue run there and write into per-AOV buffers
+(or, on the glue route, the closest-hit kernels K5/K6 twice with the
+shading between; render/shadow.py). The chunk size decides where the
+bundles of 1,024 rays fall when it is not a multiple of 1,024, so it is
+kept as in the JAX package. The requested AOVs come back as [H, W, ...]
+numpy; the others come back filled (zeros, t = inf, prim -1).
+``geom_id`` is always read back.
 
 The readback (``_read_back``) puts the AOVs in raster order on the
-scene's device with the raster permutation (int32, the inverse of the
-stream's order), built once per device and window and cached there as
-the host stream is (``_raster_inverse``). Each AOV is gathered into its
-own segment of one packed buffer, allocated per call, and ``geom_id``'s
-``INVALID_GEOM_ID`` becomes -1 there. On a CUDA scene the packed buffer
-then reaches the host in one copy into pinned memory (counted in
-``ops/shadow.py:pinned_readbacks``) and one synchronisation of the
-stream; on a CPU scene it is already on the host. The returned arrays
-are views of that host buffer: each array's ``base`` holds it, so a
+scene's device with the stream's int32 inverse (``PixelStream.inverse``).
+Each AOV is gathered into its own segment of one packed buffer, allocated
+per call, and ``geom_id``'s ``INVALID_GEOM_ID`` becomes -1 there. On a
+CUDA scene the packed buffer then reaches the host in one copy into
+pinned memory (counted in ``pinned_readbacks``) and one synchronisation
+of the stream; on a CPU scene it is already on the host. The returned
+arrays are views of that host buffer: each array's ``base`` holds it, so a
 frame's arrays are never overwritten by a later frame, and the buffer is
 freed, or goes back to torch's pinned cache, when the caller drops all
 of them. So a caller that keeps N frames of a CUDA scene holds N pinned
@@ -54,16 +51,16 @@ clamped to +-65504 first, true infinities (t of a miss) pass; the ids stay
 exact. The path trace's image is rounded likewise (no clamp).
 
 On a CUDA scene the shadow frame's chunk loop is one CUDA graph when
-nothing in it returns to the host: the fused K4 route, no progress
-callback, and a window of whole tiles (so ~13,000 small launches a 1440²
-frame become one replay). The first frame of a shape (a key: the window,
-the image size, the chunk size, the AOV set and the device) runs the
-loop eagerly, then captures it; each later frame of that shape sets the
-image plane's two factors, which the fov alone changes, in 0-d tensors
-on the card and replays it into the same AOV buffers, which the readback
-gathers into its own packed buffer before the next replay. Each scene
-keeps its ``GRAPH_KEYS`` most recently used frames, and drops them with
-itself.
+nothing in it returns to the host: the fused K4 route and no progress
+callback (so ~13,000 small launches a 1440² frame become one replay).
+The first frame of a shape (a key: the window, the image size, the chunk
+size, the AOV set and the device) runs the loop eagerly, then captures
+it; each later frame of that shape sets the image plane's two factors,
+which the fov alone changes, in 0-d tensors on the card and replays it
+into the same AOV buffers, which the readback gathers into its own packed
+buffer before the next replay. A captured frame holds the stream
+coordinates its graph reads. Each scene keeps its ``GRAPH_KEYS`` most
+recently used frames, and drops them with itself.
 Every other call runs the loop eagerly; both give the same bits.
 """
 
@@ -85,11 +82,11 @@ from ..utils import threefry
 from ..utils.log import logger
 from ..utils.profiling import span
 from .path import path_trace_sample
+from .pixels import pixel_stream
 from .shadow import shadow_trace
-from .streaming import _pixel_stream, env_term, render_streaming
+from .streaming import env_term, render_streaming
 
 DEFAULT_CHUNK = 1 << 16
-TILE = 32  # pixel tile edge of the ray order (render/streaming.py)
 GRAPH_KEYS = 4  # captured shadow frames a scene keeps
 # Bytes: each AOV's segment of the readback starts at a multiple, so an
 # f16 segment of odd length leaves the next one's 4-byte view legal.
@@ -105,6 +102,18 @@ _AOVS = {
     "hit_p": ((3,), torch.float32, 0.0),
 }
 _NP = {torch.float32: np.float32, torch.int32: np.int32}
+
+# The shadow frames ``render`` captured as a CUDA graph and replayed (each
+# replay adds its graph's K4 launches to ``ops/shadow.py:launches``), and
+# those whose AOVs it read back in one copy to pinned memory:
+graph_captures = 0
+graph_replays = 0
+pinned_readbacks = 0
+
+
+def reset_counters() -> None:
+    global graph_captures, graph_replays, pinned_readbacks
+    graph_captures = graph_replays = pinned_readbacks = 0
 
 
 def _prep_f(x: torch.Tensor, f16: bool) -> torch.Tensor:
@@ -136,20 +145,6 @@ class RenderOutput(NamedTuple):
     @property
     def hit_count(self) -> int:
         return int(np.sum(self.geom_id >= 0))
-
-
-def _tile_coords(g0: int, n: int, w: int, window_c: int, window_r: int,
-                 total: int, device):
-    """Rows and columns (f32) of padded-stream positions [g0, g0 + n) of a
-    window whose sides are multiples of TILE, from integer arithmetic on
-    the device: the host stream's values; padding positions get (0, 0)."""
-    g = g0 + torch.arange(n, dtype=torch.int64, device=device)
-    tile_id, within = g // (TILE * TILE), g % (TILE * TILE)
-    tr, tc = tile_id // (w // TILE), tile_id % (w // TILE)
-    valid = g < total
-    rows = torch.where(valid, window_r + tr * TILE + within // TILE, 0)
-    cols = torch.where(valid, window_c + tc * TILE + within % TILE, 0)
-    return rows.to(torch.float32), cols.to(torch.float32)
 
 
 def path_chunk(scene, params, rows: torch.Tensor, cols: torch.Tensor,
@@ -188,25 +183,17 @@ def _render_path(scene, params, chunk_size, progress_callback, env,
     h, w = params.window_h, params.window_w
     dev = scene.device
     total = w * h
-    rows_np, cols_np, order = _pixel_stream(params)
-    device_coords = w % TILE == 0 and h % TILE == 0
+    stream = pixel_stream(params)
     n_chunks = -(-total // chunk_size)
     padded = n_chunks * chunk_size
-    if not device_coords:
-        rows_np = np.pad(rows_np, (0, padded - total))
-        cols_np = np.pad(cols_np, (0, padded - total))
+    rows, cols = stream.coords(dev, padded)
     rgb = torch.empty((padded, 3), dtype=torch.float32, device=dev)
     n_err = torch.zeros((), dtype=torch.int64, device=dev)
     base_key = threefry.PRNGKey(params.rng_seed)
     for ci in range(n_chunks):
         g0 = ci * chunk_size
-        if device_coords:
-            rows, cols = _tile_coords(g0, chunk_size, w, params.window_c,
-                                      params.window_r, total, dev)
-        else:
-            rows = torch.from_numpy(rows_np[g0:g0 + chunk_size]).to(dev)
-            cols = torch.from_numpy(cols_np[g0:g0 + chunk_size]).to(dev)
-        c_rgb, err = path_chunk(scene, params, rows, cols,
+        c_rgb, err = path_chunk(scene, params, rows[g0:g0 + chunk_size],
+                                cols[g0:g0 + chunk_size],
                                 threefry.fold_in(base_key, ci), env=env,
                                 stats=stats)
         rgb[g0:g0 + chunk_size] = c_rgb
@@ -222,9 +209,7 @@ def _render_path(scene, params, chunk_size, progress_callback, env,
         # flagging (TraceCodelets.cpp:240-244):
         logger().warning("%d rays flagged material errors during path trace",
                          n_errors)
-    inverse = np.empty(total, np.int64)
-    inverse[order] = np.arange(total)
-    a = _prep_f(rgb[:total].index_select(0, torch.from_numpy(inverse).to(dev)),
+    a = _prep_f(rgb[:total].index_select(0, stream.inverse(dev)),
                 readback_f16)
     return a.cpu().numpy().astype(np.float32).reshape(h, w, 3)
 
@@ -235,33 +220,13 @@ def _aov_bufs(fields, padded: int, dev) -> dict:
                            device=dev) for k in fields}
 
 
-# The raster permutations on the scenes' devices, keyed (device, window):
-_RASTER_CACHE: dict = {}
-
-
-def _raster_inverse(params, dev: torch.device) -> torch.Tensor:
-    """int32 [W*H] on ``dev``: each raster pixel's position in the window's
-    tile-ordered stream (``image[p] = stream[inv[p]]``), built once per
-    device and window and bounded as ``_pixel_stream``'s host cache is."""
-    w, h = params.window_w, params.window_h
-    key = (dev, w, h, params.window_c, params.window_r)
-    inv = _RASTER_CACHE.get(key)
-    if inv is None:
-        host = np.empty(w * h, np.int32)
-        host[_pixel_stream(params)[2]] = np.arange(w * h, dtype=np.int32)
-        inv = torch.from_numpy(host).to(dev)
-        if len(_RASTER_CACHE) > 8:
-            _RASTER_CACHE.clear()
-        _RASTER_CACHE[key] = inv
-    return inv
-
-
 def _read_back(bufs: dict, params, dev: torch.device,
                f16: bool) -> RenderOutput:
     """The AOVs of ``bufs`` (stream order, padded) as [H, W, ...] numpy in
     raster order, the others filled (module note): gathered on ``dev`` into
     the segments of one packed buffer, one copy to pinned host memory on a
     CUDA scene, the arrays views of the host buffer."""
+    global pinned_readbacks
     h, w = params.window_h, params.window_w
     total = w * h
     segs, nbytes = {}, 0
@@ -277,7 +242,7 @@ def _read_back(bufs: dict, params, dev: torch.device,
         off, size, dt, shape = segs[k]
         return buf[off:off + size].view(dt).view((total,) + shape)
 
-    inv = _raster_inverse(params, dev)
+    inv = pixel_stream(params).inverse(dev)
     packed = torch.empty(nbytes, dtype=torch.uint8, device=dev)
     for k, src in bufs.items():
         src = src[:total]
@@ -290,7 +255,7 @@ def _read_back(bufs: dict, params, dev: torch.device,
         host = torch.empty(nbytes, dtype=torch.uint8, pin_memory=True)
         host.copy_(packed, non_blocking=True)
         torch.cuda.current_stream(dev).synchronize()
-        shadow_ops.pinned_readbacks += 1
+        pinned_readbacks += 1
     else:
         host = packed
     out = {}
@@ -306,26 +271,19 @@ def _read_back(bufs: dict, params, dev: torch.device,
 
 
 def _shadow_chunks(scene, params, chunk_size: int, bufs: dict, scale,
-                   fused: bool = True, coords=None, progress_callback=None,
+                   coords: tuple, fused: bool = True, progress_callback=None,
                    readback_f16: bool = False) -> None:
     """The shadow frame's chunk loop: each chunk's camera rays, shadow
     trace and AOV stores into ``bufs`` (stream order). ``scale``: the image
     plane's factors (sx, sy) as :func:`~..ops.camera.scaled_ray_dir` takes
-    them; ``coords``: the padded stream's (rows, cols) numpy, or None to
-    compute them on the device (a window of whole tiles)."""
-    w, h = params.window_w, params.window_h
-    total = w * h
-    dev = scene.device
-    for ci in range(-(-total // chunk_size)):
+    them; ``coords``: the padded stream's (rows, cols) on the scene's
+    device (``PixelStream.coords``)."""
+    rows, cols = coords
+    for ci in range(-(-params.window_w * params.window_h // chunk_size)):
         g0 = ci * chunk_size
         with span("renderer.rays"):
-            if coords is None:
-                rows, cols = _tile_coords(g0, chunk_size, w, params.window_c,
-                                          params.window_r, total, dev)
-            else:
-                rows = torch.from_numpy(coords[0][g0:g0 + chunk_size]).to(dev)
-                cols = torch.from_numpy(coords[1][g0:g0 + chunk_size]).to(dev)
-            d = scaled_ray_dir(cols, rows, params.image_width,
+            d = scaled_ray_dir(cols[g0:g0 + chunk_size],
+                               rows[g0:g0 + chunk_size], params.image_width,
                                params.image_height, *scale)
         res = shadow_trace(scene, None, d, intersector=params.intersector,
                            fused=fused)
@@ -338,21 +296,21 @@ def _shadow_chunks(scene, params, chunk_size: int, bufs: dict, scale,
 
 
 def _graph_route(device: torch.device, fused: bool, intersector: str,
-                 progress_callback, w: int, h: int) -> bool:
+                 progress_callback) -> bool:
     """Whether the shadow frame replays a captured CUDA graph (module
-    note): a CUDA scene, the fused K4 route, no progress callback and a
-    window of whole tiles."""
+    note): a CUDA scene, the fused K4 route and no progress callback."""
     return (device.type == "cuda" and fused and intersector == "pallas"
-            and progress_callback is None and w % TILE == 0
-            and h % TILE == 0)
+            and progress_callback is None)
 
 
 class _FrameGraph(NamedTuple):
     """A captured shadow frame: the image plane's factors (0-d f32 on the
-    card, its inputs), the AOV buffers (its outputs), the graph, the K4
-    launches it replays and the capture's ms."""
+    card) and the stream's padded coordinates (its inputs: held here, as
+    the stream cache may drop them), the AOV buffers (its outputs), the
+    graph, the K4 launches it replays and the capture's ms."""
 
     scale: tuple
+    coords: tuple
     bufs: dict
     graph: object
     k4_launches: int
@@ -376,6 +334,7 @@ def _replayed_frame(scene, params, chunk_size: int, fields, scale) -> dict:
     loop; the first call of a key runs the loop eagerly (which also loads
     what loads lazily: the kernel library, K4's shared-memory opt-in) and
     then captures it (module note)."""
+    global graph_captures, graph_replays
     key = (scene.device, params.window_w, params.window_h, params.window_c,
            params.window_r, params.image_width, params.image_height,
            chunk_size, tuple(fields))
@@ -389,21 +348,22 @@ def _replayed_frame(scene, params, chunk_size: int, fields, scale) -> dict:
                 t.fill_(v)
             fg.graph.replay()
         shadow_ops.launches += fg.k4_launches
-        shadow_ops.graph_replays += 1
+        graph_replays += 1
         return fg.bufs
     dev = scene.device
-    total = params.window_w * params.window_h
-    bufs = _aov_bufs(fields, -(-total // chunk_size) * chunk_size, dev)
+    padded = -(-params.window_w * params.window_h // chunk_size) * chunk_size
+    coords = pixel_stream(params).coords(dev, padded)
+    bufs = _aov_bufs(fields, padded, dev)
     sc = tuple(torch.full((), v, dtype=torch.float32, device=dev)
                for v in scale)
-    body = lambda: _shadow_chunks(scene, params, chunk_size, bufs, sc)
+    body = lambda: _shadow_chunks(scene, params, chunk_size, bufs, sc, coords)
     body()
     n0 = shadow_ops.launches
     with span("renderer.capture"):
         graph, ms = _capture(body, dev)
-    fg = _FrameGraph(sc, bufs, graph, shadow_ops.launches - n0, ms)
+    fg = _FrameGraph(sc, coords, bufs, graph, shadow_ops.launches - n0, ms)
     shadow_ops.launches = n0  # a capture launches nothing
-    shadow_ops.graph_captures += 1
+    graph_captures += 1
     logger().info("Shadow frame %dx%d captured as a CUDA graph: %d K4 "
                   "launches, %.1f ms", params.window_w, params.window_h,
                   fg.k4_launches, ms)
@@ -469,21 +429,16 @@ def render(scene, params, mode: str = "shadow-trace",
         raise ValueError(f"Unknown render mode '{mode}'")
 
     dev = scene.device
-    total = w * h
-    rows_np, cols_np, _ = _pixel_stream(params)
     fields = [k for k in _AOVS if k == "geom_id" or aovs is None or k in aovs]
     scale = plane_scale(params.image_width, params.image_height,
                         tan_half_fov(params.fov_radians))
-    if _graph_route(dev, fused, params.intersector, progress_callback, w, h):
+    if _graph_route(dev, fused, params.intersector, progress_callback):
         bufs = _replayed_frame(scene, params, chunk_size, fields, scale)
     else:
-        padded = -(-total // chunk_size) * chunk_size
+        padded = -(-w * h // chunk_size) * chunk_size
         bufs = _aov_bufs(fields, padded, dev)
-        coords = None
-        if w % TILE or h % TILE:
-            pad = (0, padded - total)
-            coords = (np.pad(rows_np, pad), np.pad(cols_np, pad))
-        _shadow_chunks(scene, params, chunk_size, bufs, scale, fused, coords,
+        _shadow_chunks(scene, params, chunk_size, bufs, scale,
+                       pixel_stream(params).coords(dev, padded), fused,
                        progress_callback, readback_f16)
 
     with span("renderer.readback"):

@@ -3,8 +3,9 @@ the megakernel or the XLA-loop integrator (port of ``render_streaming``,
 ipu_ray_lib_tpu/render/streaming.py:584, and ``streaming_path_trace``,
 :85-257), optionally lit by an environment, at any scene size.
 
-A fixed pool of R ray slots serves a tile-ordered pixel stream: slot s
-owns the padded-stream pixels {s, s+R, ...}, J of them; each slot runs
+A fixed pool of R ray slots serves the window's tile-ordered pixel stream
+(render/pixels.py; its coordinates reach the device once per window): slot
+s owns the padded-stream pixels {s, s+R, ...}, J of them; each slot runs
 its J*spp paths back to back inside the kernel. High spp renders run in
 decorrelated batches of at most ``SPP_BATCH`` samples (and
 ``MAX_K_PER_DISPATCH`` paths per slot) with seeds ``seed + 0x9E3779B9*bi``
@@ -57,44 +58,15 @@ from ..ops.rng import normal2, uniform01
 from ..ops.traversal import pallas_path_intersect, scene_intersect_with_normal
 from ..ops.vec3 import fma
 from ..utils.profiling import span
+from .pixels import pixel_stream
 
 SPP_BATCH = 64
 MAX_K_PER_DISPATCH = 2048
-TILE = 32  # side of the square tiles that order the pixel stream
 MAT_DIFFUSE, MAT_SPECULAR, MAT_REFRACTIVE = 0, 1, 2
 # The XLA-loop host loop reads ``active.any()`` once every this many
 # iterations; an iteration with no active slot changes nothing.
 ACTIVE_CHECK = 4
 _U32 = 0xFFFFFFFF
-
-_STREAM_CACHE: dict = {}
-
-
-def _pixel_stream(params):
-    """Tile-ordered pixel stream (rows, cols as f32, and the permutation
-    back to raster order), cached per window."""
-    w, h = params.window_w, params.window_h
-    key = (w, h, params.window_c, params.window_r)
-    hit = _STREAM_CACHE.get(key)
-    if hit is not None:
-        return hit
-    rr, cc = np.meshgrid(
-        np.arange(params.window_r, params.window_r + h),
-        np.arange(params.window_c, params.window_c + w),
-        indexing="ij",
-    )
-    rel_r, rel_c = rr - params.window_r, cc - params.window_c
-    order = np.lexsort(
-        (rel_c.ravel() % TILE, rel_r.ravel() % TILE,
-         rel_c.ravel() // TILE, rel_r.ravel() // TILE)
-    )
-    rows_np = rr.ravel()[order].astype(np.float32)
-    cols_np = cc.ravel()[order].astype(np.float32)
-    if len(_STREAM_CACHE) > 8:
-        _STREAM_CACHE.clear()
-    _STREAM_CACHE[key] = (rows_np, cols_np, order)
-    return rows_np, cols_np, order
-
 
 def slot_pool(n_pix: int, chunk_slots: int) -> tuple[int, int]:
     """(R, J): the slot pool, a multiple of 256 no larger than the frame
@@ -303,19 +275,15 @@ def render_streaming(scene, params, chunk_slots: int = 1 << 17, env=None,
     gains ``iters``."""
     spp = params.samples_per_pixel if spp is None else int(spp)
     seed = params.rng_seed if seed is None else int(seed)
-    w, h = params.window_w, params.window_h
-    n_pix = w * h
+    n_pix = params.window_w * params.window_h
     if megakernel_route(params.intersector, env):
         R, J = slot_pool(n_pix, chunk_slots)
     else:
         R = min(chunk_slots, n_pix)
         J = -(-n_pix // R)
-    pad = R * J - n_pix
-    dev = scene.device
     with span("streaming.upload"):
-        rows_np, cols_np, order = _pixel_stream(params)
-        rows = torch.from_numpy(np.pad(rows_np, (0, pad))).to(dev)
-        cols = torch.from_numpy(np.pad(cols_np, (0, pad))).to(dev)
+        stream = pixel_stream(params)
+        rows, cols = stream.coords(scene.device, R * J)
 
     b_cap = max(1, MAX_K_PER_DISPATCH // J)
     flat_acc = None
@@ -340,7 +308,6 @@ def render_streaming(scene, params, chunk_slots: int = 1 << 17, env=None,
             flat_acc = flat_acc.to(torch.float16)
         flat = flat_acc[:n_pix].cpu().numpy()
     with span("streaming.scatter"):
-        img = np.empty((n_pix, 3), np.float32)
-        img[order] = flat
+        img = stream.scatter(flat)
         done = int(torch.stack(dones).sum())
-    return img.reshape(h, w, 3), done
+    return img, done

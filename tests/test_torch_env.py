@@ -48,6 +48,7 @@ from ipu_ray_lib_tpu.ops.pallas.megakernel import _analytic_tables
 from ipu_ray_lib_tpu.scene.build import build_scene as jax_build_scene
 from ipu_ray_lib_tpu.scene.builtin import make_primitive_scene as jax_prim
 import ipu_ray_lib_tpu_torch.render.streaming as TS
+from ipu_ray_lib_tpu_torch.render.pixels import pixel_stream
 from ipu_ray_lib_tpu_torch.nif.model import (atan2_poly, from_jax_params,
                                              load_nif_env)
 from ipu_ray_lib_tpu_torch.ops import env as envk
@@ -110,16 +111,14 @@ def test_primitive_scene_tables_match_jax():
 
 
 def _stream(params):
-    rows, cols, _ = TS._pixel_stream(params)
     n_pix = params.window_w * params.window_h
     R, J = TS.slot_pool(n_pix, 1 << 17)
-    pad = R * J - n_pix
+    rows, cols = pixel_stream(params).coords(torch.device("cpu"), R * J)
     kw = dict(params=params, slots=R, j_per_slot=J,
               spp=params.samples_per_pixel,
               max_iters=J * params.samples_per_pixel * params.max_path_length
               + 16)
-    return (torch.from_numpy(np.pad(rows, (0, pad))),
-            torch.from_numpy(np.pad(cols, (0, pad))), n_pix, kw)
+    return rows, cols, n_pix, kw
 
 
 def test_render_holds_spheres_nif_golden(urban):

@@ -17,6 +17,7 @@ import ipu_ray_lib_tpu.render.streaming as JS
 from ipu_ray_lib_tpu.scene.build import build_scene as jax_build_scene
 from ipu_ray_lib_tpu.scene.builtin import make_cornell_box_scene as jax_cornell
 import ipu_ray_lib_tpu_torch.render.streaming as TS
+from ipu_ray_lib_tpu_torch.render.pixels import pixel_stream
 import ipu_ray_lib_tpu_torch.scene.build as TB
 from ipu_ray_lib_tpu_torch.ops import intersect_hbm as ih
 from ipu_ray_lib_tpu_torch.ops import intersect_kernel as ik
@@ -59,19 +60,16 @@ def test_xla_loop_integrator_matches_jax_iterations():
     exact (a slot pool of 96 slots, 3 pixels each: a padded stream)."""
     arrays, jparams, ts, params = _cornell((16, 16), "pallas",
                                            samples_per_pixel=2)
-    rows, cols, _ = TS._pixel_stream(params)
     R, J = 96, 3
-    rows = np.pad(rows, (0, R * J - 256))
-    cols = np.pad(cols, (0, R * J - 256))
+    rows, cols = pixel_stream(params).coords(torch.device("cpu"), R * J)
     kw = dict(slots=R, j_per_slot=J, spp=2,
               max_iters=J * 2 * params.max_path_length + 16)
     jacc, jdone, jit_ = JS.streaming_path_trace(
-        arrays, jnp.asarray(rows), jnp.asarray(cols), jnp.uint32(1442),
-        jnp.float32(0.7), jnp.int32(256), params=jparams, has_env=True,
-        env_fn=jax_sky, **kw)
+        arrays, jnp.asarray(rows.numpy()), jnp.asarray(cols.numpy()),
+        jnp.uint32(1442), jnp.float32(0.7), jnp.int32(256), params=jparams,
+        has_env=True, env_fn=jax_sky, **kw)
     acc, done, iters = TS.streaming_path_trace(
-        ts, torch.from_numpy(rows), torch.from_numpy(cols), 1442, 256,
-        params=params, env=sky, **kw)
+        ts, rows, cols, 1442, 256, params=params, env=sky, **kw)
     assert int(done) == int(jdone) == 512
     assert iters == int(jit_)
     np.testing.assert_allclose(acc.numpy(), np.asarray(jacc), **TOL)

@@ -38,6 +38,7 @@ from ipu_ray_lib_tpu.scene.build import build_scene as jax_build_scene
 from ipu_ray_lib_tpu.scene.builtin import make_cornell_box_scene as jax_cornell
 from ipu_ray_lib_tpu.scene.builtin import make_stress_scene as jax_stress
 import ipu_ray_lib_tpu_torch.render.streaming as TS
+from ipu_ray_lib_tpu_torch.render.pixels import pixel_stream
 import ipu_ray_lib_tpu_torch.scene.build as TB
 import ipu_ray_lib_tpu_torch.scene.types as TT
 from ipu_ray_lib_tpu_torch.nif.model import load_nif_env
@@ -238,11 +239,10 @@ def test_hbm_mode_is_honoured():
         assert gd == wd == 16 * 16 * 2
         np.testing.assert_allclose(got, np.asarray(want), **TOL)
         assert got.mean() > 0.05
-        rows, cols, _ = TS._pixel_stream(params)
+        rows, cols = pixel_stream(params).coords(torch.device("cpu"), 256)
         rec, done = mk.trace_records(
-            ts, torch.from_numpy(rows), torch.from_numpy(cols), 1442, 256,
-            params=params, slots=256, j_per_slot=1, spp=2,
-            max_iters=2 * params.max_path_length + 16)
+            ts, rows, cols, 1442, 256, params=params, slots=256,
+            j_per_slot=1, spp=2, max_iters=2 * params.max_path_length + 16)
         records[mode] = rec[7:10][:, mk.escaped_records(rec, done)]
     v, h = records["pallas"], records["pallas-hbm"]
     assert v.shape == h.shape and v.shape[1] > 100
@@ -355,10 +355,8 @@ def test_hbm_walk_counts_each_level():
                                 image_width=16, image_height=16,
                                 samples_per_pixel=1, max_path_length=3,
                                 intersector="pallas-hbm")
-    rows, cols, _ = TS._pixel_stream(params)
     R, J = TS.slot_pool(256, 1 << 17)
-    rows = torch.from_numpy(rows)
-    cols = torch.from_numpy(cols)
+    rows, cols = pixel_stream(params).coords(torch.device("cpu"), R * J)
     kw = dict(params=params, slots=R, j_per_slot=J, spp=1,
               max_iters=J * params.max_path_length + 16)
     stats = {}
@@ -386,8 +384,7 @@ def test_slot0_replays_a_pools_middle_slots():
                                 device="cpu", image_width=32, image_height=32,
                                 samples_per_pixel=2, max_path_length=3,
                                 intersector="pallas-hbm")
-    rows, cols, _ = TS._pixel_stream(params)
-    rows, cols = torch.from_numpy(rows), torch.from_numpy(cols)
+    rows, cols = pixel_stream(params).coords(torch.device("cpu"), 1024)
     kw = dict(params=params, spp=2, j_per_slot=1,
               max_iters=2 * params.max_path_length + 16)
     full, _ = mk.megakernel_path_trace_ref(ts, rows, cols, 9, 1024,
@@ -440,10 +437,8 @@ def test_cuda_hbm_route_matches_plain(cuda_device):
     ts, params = TB.build_scene(make_stress_scene(64), device=cuda_device,
                                 image_width=32, image_height=32,
                                 samples_per_pixel=2, intersector="pallas-hbm")
-    rows, cols, _ = TS._pixel_stream(params)
     R, J = TS.slot_pool(32 * 32, 1 << 17)
-    rows = torch.from_numpy(rows).to(cuda_device)
-    cols = torch.from_numpy(cols).to(cuda_device)
+    rows, cols = pixel_stream(params).coords(cuda_device, R * J)
     kw = dict(params=params, slots=R, j_per_slot=J, spp=2,
               max_iters=J * 2 * params.max_path_length + 16)
     mk.reset_launches()
@@ -466,10 +461,8 @@ def test_cuda_hbm_walks_agree_and_count(cuda_device):
     ts, params = TB.build_scene(make_stress_scene(64), device=cuda_device,
                                 image_width=32, image_height=32,
                                 samples_per_pixel=2, intersector="pallas-hbm")
-    rows, cols, _ = TS._pixel_stream(params)
     R, J = TS.slot_pool(32 * 32, 1 << 17)
-    rows = torch.from_numpy(rows).to(cuda_device)
-    cols = torch.from_numpy(cols).to(cuda_device)
+    rows, cols = pixel_stream(params).coords(cuda_device, R * J)
     kw = dict(params=params, slots=R, j_per_slot=J, spp=2,
               max_iters=J * 2 * params.max_path_length + 16)
     walk = {}

@@ -23,7 +23,8 @@ from ipu_ray_lib_tpu.ops.pallas.megakernel import (
 from ipu_ray_lib_tpu.scene.build import build_scene as jax_build_scene
 from ipu_ray_lib_tpu.scene.builtin import make_cornell_box_scene as jax_cornell
 from ipu_ray_lib_tpu_torch.ops import megakernel as mk
-from ipu_ray_lib_tpu_torch.render.streaming import _pixel_stream, slot_pool
+from ipu_ray_lib_tpu_torch.render.pixels import pixel_stream
+from ipu_ray_lib_tpu_torch.render.streaming import slot_pool
 from ipu_ray_lib_tpu_torch.scene.build import build_scene
 from ipu_ray_lib_tpu_torch.scene.builtin import make_cornell_box_scene
 
@@ -34,11 +35,10 @@ MESHES = {"golden": None, "monkey": "assets/monkey_bust.glb"}
 
 
 def _stream(params):
-    rows, cols, _ = _pixel_stream(params)
     n_pix = W * H
     R, J = slot_pool(n_pix, 1 << 17)
-    pad = R * J - n_pix
-    return np.pad(rows, (0, pad)), np.pad(cols, (0, pad)), R, J, n_pix
+    rows, cols = pixel_stream(params).coords(torch.device("cpu"), R * J)
+    return rows.numpy(), cols.numpy(), R, J, n_pix
 
 
 def make_case(name):

@@ -75,13 +75,16 @@ def test_shard_plan_cuts_the_stream():
     plan = shard_plan(params, 8, SLOTS)
     assert (plan.slots, plan.j_per_slot) == (256, 2)
     assert plan.n_valid == (512, 512, 512, 512, 256, 0, 0, 0)
-    assert plan.rows.shape == (8, 512) and uses_megakernel(plan.slots, None)
+    shards = [plan.coords(i, torch.device("cpu")) for i in range(8)]
+    assert all(r.shape == c.shape == (512,) for r, c in shards)
+    assert uses_megakernel(plan.slots, None)
     flat = np.arange(8 * 512 * 3, dtype=np.float32).reshape(8, 512, 3)
     img = plan.assemble(list(flat))
     assert img.shape == (SIZE, SIZE, 3)
     # pixel (r, c) came from the stream position whose coordinates it has
     pos = img[..., 0].astype(np.int64) // 3
-    rows, cols = plan.rows.ravel()[pos], plan.cols.ravel()[pos]
+    rows = torch.cat([r for r, _ in shards]).numpy()[pos]
+    cols = torch.cat([c for _, c in shards]).numpy()[pos]
     rr, cc = np.meshgrid(np.arange(SIZE), np.arange(SIZE), indexing="ij")
     assert _same(rows, rr.astype(np.float32))
     assert _same(cols, cc.astype(np.float32))

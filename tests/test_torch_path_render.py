@@ -4,11 +4,11 @@ wavefront over a window (render/renderer.py), against the JAX package's
 mode, its scenes built with ``intersector="pallas"``).
 
 At 24x24 spp 2 in chunks of 256 (three chunks, the last one partial; a
-window that is not TILE-aligned, so the coordinates are uploaded) the
-Cornell box equals the JAX render bit for bit, and so does a 32x32
-window (coordinates made on the device). Lit by the urban_4k NIF
-(spheres scene) it holds tests/test_torch_env.py's split tolerance: the
-env term takes the equirect angles of the JAX package's XLA env function
+window that is not made of whole 32-pixel tiles) the Cornell box equals
+the JAX render bit for bit, and so does a 32x32 window (one whole tile).
+Lit by the urban_4k NIF (spheres scene) it holds
+tests/test_torch_env.py's split tolerance: the env term takes the
+equirect angles of the JAX package's XLA env function
 (``env_mlp(exact_uv=True)``); measured at 24x24: 511 of 1,728 elements
 outside rtol 1e-5, 99.88% within rtol 1e-2, the largest relative
 difference 2.6e-2 (with the megakernel's polynomial angles 92.4% within

@@ -1,6 +1,6 @@
 """The shadow frame's readback (render/renderer.py ``_read_back``): the
-AOVs gathered to raster order on the scene's device with the cached
-raster permutation, packed into one buffer, ``geom_id``'s
+AOVs gathered to raster order on the scene's device with the pixel
+stream's cached inverse (render/pixels.py), packed into one buffer, ``geom_id``'s
 ``INVALID_GEOM_ID`` made -1 there, and on a CUDA scene one copy into
 pinned host memory; the returned arrays are views of the host buffer.
 
@@ -26,8 +26,7 @@ import torch
 
 import ipu_ray_lib_tpu_torch.render.renderer as R
 from ipu_ray_lib_tpu_torch.bvh.builder import INVALID_GEOM_ID
-from ipu_ray_lib_tpu_torch.ops import shadow as sh
-from ipu_ray_lib_tpu_torch.render.streaming import _pixel_stream
+from ipu_ray_lib_tpu_torch.render.pixels import pixel_stream
 from ipu_ray_lib_tpu_torch.scene.build import build_scene
 from ipu_ray_lib_tpu_torch.scene.builtin import make_cornell_box_scene
 
@@ -36,7 +35,7 @@ MONKEY = os.path.join(ROOT, "assets", "monkey_bust.glb")
 FIELDS = R.RenderOutput._fields
 CHUNK = 1024
 # (width, height, window): whole 32-pixel tiles, and a crop window that
-# is not (its stream's coordinates uploaded, its last chunk padded)
+# is not (its last chunk padded)
 WINDOWS = {"tiles": (64, 64, None), "crop": (48, 32, (17, 13, 5, 9))}
 AOV_SETS = (None, ("normal",), ("rgb", "t", "hit_p"))
 
@@ -48,7 +47,7 @@ def _host_scatter(bufs: dict, params, f16: bool) -> dict:
     h, w = params.window_h, params.window_w
     total = w * h
     inverse = np.empty(total, np.int64)
-    inverse[_pixel_stream(params)[2]] = np.arange(total)
+    inverse[pixel_stream(params).order] = np.arange(total)
     inv = torch.from_numpy(inverse).to(next(iter(bufs.values())).device)
     out = {}
     for k, (shape, dt, _) in R._AOVS.items():
@@ -106,7 +105,7 @@ def spy(monkeypatch):
         return got
 
     monkeypatch.setattr(R, "_read_back", read_back)
-    sh.reset_launches()
+    R.reset_counters()
     return seen
 
 
@@ -124,7 +123,7 @@ def stubbed(monkeypatch):
     monkeypatch.setattr(R, "_graph_route", lambda device, *a: route(
         torch.device("cuda") if device.type == "cpu" else device, *a))
     monkeypatch.setattr(R, "_capture", capture)
-    sh.reset_launches()
+    R.reset_counters()
 
 
 # ---- the readback equals the host scatter, bit for bit ----
@@ -142,7 +141,7 @@ def test_render_equals_the_host_scatter(boxes, spy, window, aovs, f16):
     assert set(bufs) == {k for k in FIELDS if k == "geom_id" or aovs is None
                          or k in aovs}
     assert out.hit_count > 0
-    assert sh.pinned_readbacks == 0  # a CPU scene copies nothing
+    assert R.pinned_readbacks == 0  # a CPU scene copies nothing
 
 
 @pytest.mark.parametrize("f16", [False, True], ids=["f32", "f16"])
@@ -213,7 +212,7 @@ def test_earlier_frames_are_not_overwritten(boxes, request, route):
         scene, params = boxes["tiles"]
     a, before, b = _frames_a_b(scene, params)
     if route == "graph":
-        assert (sh.graph_captures, sh.graph_replays) == (1, 1)
+        assert (R.graph_captures, R.graph_replays) == (1, 1)
     assert {k: getattr(a, k).tobytes() for k in FIELDS} == before
     assert not all(getattr(a, k).tobytes() == getattr(b, k).tobytes()
                    for k in FIELDS)  # the zoom moves the frame
@@ -236,42 +235,6 @@ def test_arrays_are_views_of_one_host_buffer(boxes):
     h = R.render(scene, params, chunk_size=CHUNK, readback_f16=True)
     assert isinstance(h.geom_id.base, torch.Tensor)
     assert h.rgb.dtype == np.float32 and h.rgb.base is None
-
-
-# ---- the raster permutation cached on the device ----
-
-def test_inverse_cached_per_device_and_window(boxes, spy):
-    R._RASTER_CACHE.clear()
-    dev = torch.device("cpu")
-    views = {}
-    for name in ("tiles", "crop", "tiles", "crop"):
-        scene, params = boxes[name]
-        inv = R._raster_inverse(params, dev)
-        R.render(scene, params, chunk_size=CHUNK)
-        assert R._raster_inverse(params, dev) is inv
-        views.setdefault(name, inv)
-        assert views[name] is inv  # built once per (device, window)
-        order = _pixel_stream(params)[2]
-        assert inv.dtype == torch.int32 and inv.device == dev
-        assert np.array_equal(inv.numpy()[order], np.arange(order.size))
-    assert len(R._RASTER_CACHE) == 2
-    for got, want, _ in spy:
-        _assert_equal(got, want)
-    # a window of the same size elsewhere in the image is another key
-    scene, params = boxes["crop"]
-    moved = dataclasses.replace(params, window_c=params.window_c + 1)
-    assert R._raster_inverse(moved, dev) is not views["crop"]
-    assert len(R._RASTER_CACHE) == 3
-
-
-def test_inverse_cache_is_bounded():
-    R._RASTER_CACHE.clear()
-    dev = torch.device("cpu")
-    for i in range(20):
-        p = types.SimpleNamespace(window_w=8 + i, window_h=4, window_c=0,
-                                  window_r=0)
-        R._raster_inverse(p, dev)
-        assert len(R._RASTER_CACHE) <= 9
 
 
 # ---- on the card: the pinned route ----
@@ -298,9 +261,9 @@ def test_pinned_readback_on_the_card(cuda_device, spy):
         # a progress callback keeps the loop on the host: the eager route
         want = R.render(scene, p, chunk_size=chunk,
                         progress_callback=lambda i, rgb: None)
-        n = sh.pinned_readbacks
+        n = R.pinned_readbacks
         got = R.render(scene, p, chunk_size=chunk)
-        assert sh.pinned_readbacks == n + 1 == 2 * (i + 1)
+        assert R.pinned_readbacks == n + 1 == 2 * (i + 1)
         assert _md5(got) == _md5(want), z
         for g, w, _ in spy[-2:]:
             assert _md5(g) == _md5(w), z  # each against the host scatter
@@ -314,4 +277,4 @@ def test_pinned_readback_on_the_card(cuda_device, spy):
     # frames held by the caller are never overwritten
     for out, md5 in held:
         assert _md5(out) == md5
-    assert sh.graph_replays >= 2
+    assert R.graph_replays >= 2
