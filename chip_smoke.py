@@ -2019,7 +2019,8 @@ def main() -> int:
     from ipu_ray_lib_tpu_torch.ops import intersect_kernel as ik
     from ipu_ray_lib_tpu_torch.ops import megakernel as mk
     from ipu_ray_lib_tpu_torch.ops import shadow as sh
-    from ipu_ray_lib_tpu_torch.ops.camera import generate_camera_rays
+    from ipu_ray_lib_tpu_torch.ops.camera import (generate_camera_rays,
+                                                  plane_scale, tan_half_fov)
     from ipu_ray_lib_tpu_torch.ops.cull import super_cull_lists_bundle
     from ipu_ray_lib_tpu_torch.render import renderer as rnd
     from ipu_ray_lib_tpu_torch.render.pixels import pixel_stream
@@ -3080,14 +3081,15 @@ def main() -> int:
     for zoom in (0.985, 1.015):
         pz = dataclasses.replace(params,
                                  fov_radians=params.fov_radians * zoom)
-        sh.launches = 0
+        sh.launches = sh.glue_launches = 0
         p0 = rnd.pinned_readbacks
         eout, t_e = timed(lambda: render(
             scene, pz, progress_callback=lambda i, rgb: None))
         n_e, sh.launches = sh.launches, 0
+        gl_e, sh.glue_launches = sh.glue_launches, 0
         p1 = rnd.pinned_readbacks
         gout, t_g = timed(lambda: render(scene, pz))
-        n_g = sh.launches
+        n_g, gl_g = sh.launches, sh.glue_launches
         pins = (p1 - p0, rnd.pinned_readbacks - p1)
         md5 = [md5_of(o) for o in (eout, gout)]
         bufs = next(reversed(scene._frame_graphs.values())).bufs
@@ -3100,11 +3102,13 @@ def main() -> int:
         log(f"[shadow graph] zoom {zoom}: replay {t_g * 1e3:.2f} ms, eager "
             f"(with a callback) {t_e * 1e3:.2f} ms; md5 equal on "
             f"{sum(a == b for a, b in zip(*md5))} of {len(md5[0])} AOVs; K4 "
-            f"launches eager {n_e}, replayed {n_g}; readback "
+            f"launches eager {n_e}, replayed {n_g}; glue launches eager "
+            f"{gl_e}, replayed {gl_g}; readback "
             f"{', '.join(f'{t:.2f}' for t in rb_ms)} ms (its md5 equal "
             f"{rb_same}); pinned readbacks eager {pins[0]}, replayed "
             f"{pins[1]} ({rnd.pinned_readbacks} in all)")
-        if md5[0] != md5[1] or n_e != n_g or n_g < 1:
+        if (md5[0] != md5[1] or n_e != n_g or n_g < 1
+                or gl_e != gl_g or gl_g != 2 * n_g):
             raise AssertionError("a replayed shadow frame differs from the "
                                  "eager loop's")
         if not rb_same or pins != (1, 1):
@@ -3171,6 +3175,57 @@ def main() -> int:
         d2h.append(t * 1e3)
     nbytes = sum(a.numel() * a.element_size() for a in raster)
     e2e_ms = median(s_all) * 1e3
+    # The glue kernels (ops/cuda/glue.cu) at the frame's shapes against
+    # the plain chains above, bit for bit: the prologue (camera rays and
+    # cull from the chunk's pixels) against camera + cull, the epilogue
+    # (every AOV and escaped, fresh tensors) against the epilogue; their
+    # CUDA-event times alone and behind the spin kernel (the card's time),
+    # and their bound: bytes at 3.35 TB/s (pixels 8 B and rays 32 B a ray,
+    # the lists; rays, out_f and out_i 56 B and the AOVs 49 B a ray).
+    scale = plane_scale(FULL, FULL, tan_half_fov(params.fov_radians))
+
+    def glue_inputs():
+        return [sh.camera_inputs_cuda(
+            scene, *(a[ci * DEFAULT_CHUNK:(ci + 1) * DEFAULT_CHUNK]
+                     for a in frame_coords), (FULL, FULL), scale)
+            for ci in range(n_chunks)]
+
+    def glue_epis():
+        return [sh.shade_cuda(scene, a[3], f, i, DEFAULT_CHUNK, light, 0.05,
+                              zero_origin=True)
+                for (_, a), (f, i) in zip(inputs, k_outs)]
+
+    g0 = sh.glue_launches
+    pro_ms, pro = event_ms(glue_inputs)
+    pro_card_ms, _ = event_ms(glue_inputs, hold_ms=5.0)
+    epk_ms, epk = event_ms(glue_epis)
+    epk_card_ms, _ = event_ms(glue_epis, hold_ms=5.0)
+    glue_n = sh.glue_launches - g0
+    pro_bad = sum(not bits_equal(x.cpu(), y.cpu())
+                  for (_, want), got in zip(inputs, pro)
+                  for x, y in zip(got, want))
+    epk_bad = sum(not bits_equal(x.cpu(), y.cpu())
+                  for got, want in zip(epk, epis) for x, y in zip(got, want))
+    rp_glue = n_chunks * DEFAULT_CHUNK
+    pro_bytes = rp_glue * (8 + 32) + sum(
+        t.numel() * t.element_size() for a in pro for t in a[:3])
+    epk_bytes = rp_glue * (56 + 49)
+    log(f"[glue kernels] per frame ({n_chunks} launches each; "
+        f"{glue_n} in all): prologue "
+        f"{', '.join(f'{t:.3f}' for t in pro_ms)} ms (behind a spin kernel "
+        f"{', '.join(f'{t:.3f}' for t in pro_card_ms)} ms), bound "
+        f"{pro_bytes / PEAK_BYTES * 1e3:.4f} ms ({pro_bytes / 1e6:.1f} MB), "
+        f"its plain chain (camera + cull) {median(cull_ms):.2f} ms, "
+        f"{pro_bad} of {4 * n_chunks} outputs differ; epilogue "
+        f"{', '.join(f'{t:.3f}' for t in epk_ms)} ms (behind a spin kernel "
+        f"{', '.join(f'{t:.3f}' for t in epk_card_ms)} ms), bound "
+        f"{epk_bytes / PEAK_BYTES * 1e3:.4f} ms ({epk_bytes / 1e6:.1f} MB), "
+        f"its plain chain {median(epi_ms):.2f} ms, {epk_bad} of "
+        f"{7 * n_chunks} outputs differ")
+    if pro_bad or epk_bad or glue_n != 12 * n_chunks:
+        raise AssertionError("a glue kernel disagrees with its plain chain, "
+                             "or launched other than once a chunk a call")
+    del pro, epk
     log(f"[shadow main breakdown] per frame ({n_chunks} chunks of "
         f"{DEFAULT_CHUNK} rays): camera + cull "
         f"{', '.join(f'{t:.2f}' for t in cull_ms)} ms; K4 alone "

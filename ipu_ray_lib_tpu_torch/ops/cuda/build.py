@@ -34,8 +34,8 @@ from ...runtime.config import log_compile
 
 _HERE = os.path.dirname(os.path.abspath(__file__))
 _SOURCES = ("megakernel.cu", "env_mlp.cu", "shadow.cu", "intersect.cu",
-            "bvh.cu", "dense.cu")
-_HEADERS = ("rows.cuh",)  # included by shadow.cu and intersect.cu
+            "bvh.cu", "dense.cu", "glue.cu")
+_HEADERS = ("rows.cuh",)  # included by shadow.cu, intersect.cu and glue.cu
 BUILD_DIR = os.path.join(_HERE, "..", "..", "_build")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-fmad=false", "-Xcompiler", "-fPIC",
@@ -92,6 +92,8 @@ _SIGNATURES = {
     "intersect_launch": [_P] * 18 + [_I] * 8 + [_P],
     "bvh_launch": [_P] * 16 + [_I] * 9 + [_P],
     "dense_launch": [_P] * 7 + [_I] * 2 + [_P],
+    "rays_cull_launch": [_P] * 5 + [_F] * 4 + [_P] * 6 + [_I] * 2 + [_P],
+    "shade_launch": [_P] * 17 + [_I] * 8 + [_F] * 4 + [_P],
 }
 # The counters of a counting launch of K7: node visits, leaf tests.
 BVH_COUNTERS = ("node_visits", "leaf_tests")
@@ -188,12 +190,23 @@ def load() -> ctypes.CDLL:
 def _check(name: str, t: torch.Tensor, dtype, shape=None):
     if t.device.type != "cuda":
         raise ValueError(f"{name} must be a CUDA tensor, got {t.device}")
+    _check_layout(name, t, dtype, shape)
+
+
+def _check_layout(name: str, t: torch.Tensor, dtype, shape=None):
     if t.dtype != dtype:
         raise ValueError(f"{name} must be {dtype}, got {t.dtype}")
     if not t.is_contiguous():
         raise ValueError(f"{name} must be contiguous")
     if shape is not None and tuple(t.shape) != tuple(shape):
         raise ValueError(f"{name} must have shape {shape}, got {tuple(t.shape)}")
+
+
+def _on_card(**ts: torch.Tensor) -> None:
+    """The glue kernels' device check, after every tensor's layout."""
+    for name, t in ts.items():
+        if t.device.type != "cuda":
+            raise ValueError(f"{name} must be a CUDA tensor, got {t.device}")
 
 
 def _check_pbox(scene, kernel: str) -> None:
@@ -543,3 +556,128 @@ def launch_dense(rows, origin, direction, t_min, t_max, out_t,
             t_min.data_ptr(), t_max.data_ptr(), out_t.data_ptr(),
             out_i.data_ptr(), R, T, _stream(direction.device))
     _raise_on(err, "dense")
+
+
+def launch_rays_cull(baabb, rays, counts, order, dists, *, R: int,
+                     camera=None, origins=None, dirs=None) -> None:
+    """Launch the shadow frame's prologue (glue.cu ``rays_cull_kernel``) on
+    the current stream, one CTA per bundle of 1,024 rays: R rays padded to
+    whole bundles into ``rays`` [8, Rp] f32 and culled against ``baabb``
+    [nb, 8] f32 into ``counts`` [nrb] i32, ``order`` [nrb, nb] i32 and
+    ``dists`` [nrb, nb] f32 (ops/shadow.py ``shadow_inputs``). The rays:
+    ``camera`` (rows, cols, inv_w, inv_h, sx, sy), each ray's direction
+    from its pixel (rows, cols [R] f32; inv_w, inv_h the f32 reciprocals
+    of the image size; sx, sy the image plane's factors, floats or 0-d f32
+    tensors on the card, read when the kernel runs) from the origin; or
+    ``dirs`` [R, 3] f32 with ``origins`` [R, 3] f32 (None: the origin)."""
+    f32, i32 = torch.float32, torch.int32
+    nb = baabb.shape[0]
+    nrb = -(-R // 1024)
+    if R < 1:
+        raise ValueError("no ray to trace")
+    if (camera is None) == (dirs is None):
+        raise ValueError("give the rays either as camera pixels or as dirs")
+    if camera is not None and origins is not None:
+        raise ValueError("camera rays start at the origin")
+    ts = dict(baabb=baabb, rays=rays, counts=counts, order=order,
+              dists=dists)
+    _check_layout("baabb", baabb, f32, (nb, 8))
+    _check_layout("rays", rays, f32, (8, nrb * 1024))
+    _check_layout("counts", counts, i32, (nrb,))
+    _check_layout("order", order, i32, (nrb, nb))
+    _check_layout("dists", dists, f32, (nrb, nb))
+    rows = cols = sxp = syp = None
+    sx = sy = inv_w = inv_h = 0.0
+    if camera is not None:
+        rows, cols, inv_w, inv_h, sx, sy = camera
+        _check_layout("rows", rows, f32, (R,))
+        _check_layout("cols", cols, f32, (R,))
+        ts.update(rows=rows, cols=cols)
+        if torch.is_tensor(sx) or torch.is_tensor(sy):
+            _check_layout("sx", sx, f32, ())
+            _check_layout("sy", sy, f32, ())
+            ts.update(sx=sx, sy=sy)
+            sxp, syp, sx, sy = sx, sy, 0.0, 0.0
+    else:
+        _check_layout("dirs", dirs, f32, (R, 3))
+        ts.update(dirs=dirs)
+        if origins is not None:
+            _check_layout("origins", origins, f32, (R, 3))
+            ts.update(origins=origins)
+    _on_card(**ts)
+    _same_device(*ts.values())
+    if nb * 4 > 48 * 1024:
+        raise ValueError(f"{nb} blocks need {nb * 4} bytes of bounds in shared "
+                         "memory; the prologue takes up to 48 KB")
+    ptr = lambda t: None if t is None else t.data_ptr()
+    lib = load()
+    with torch.cuda.device(rays.device):
+        err = lib.rays_cull_launch(
+            baabb.data_ptr(), ptr(rows), ptr(cols), ptr(sxp), ptr(syp),
+            float(sx), float(sy), float(inv_w), float(inv_h), ptr(origins),
+            ptr(dirs), rays.data_ptr(), counts.data_ptr(), order.data_ptr(),
+            dists.data_ptr(), R, nb, _stream(rays.device))
+    _raise_on(err, "rays_cull")
+
+
+# The AOVs the epilogue writes: each one's trailing shape and dtype.
+SHADE_OUTS = {"rgb": ((3,), torch.float32), "t": ((), torch.float32),
+              "geom_id": ((), torch.int32), "prim_id": ((), torch.int32),
+              "normal": ((3,), torch.float32), "hit_p": ((3,), torch.float32),
+              "escaped": ((), torch.bool)}
+
+
+def launch_shade(scene, rays, out_f, out_i, outs: dict, *, R: int, light,
+                 ambient: float, zero_origin: bool) -> None:
+    """Launch the shadow frame's epilogue (glue.cu ``shade_kernel``) on the
+    current stream, one thread per ray: the first R rays of ``rays`` [8,
+    Rp] f32 and K4's ``out_f`` [4, Rp] f32 and ``out_i`` [4, Rp] i32 shaded
+    as ops/shadow.py ``shadow_epilogue`` shades them, into the tensors of
+    ``outs`` (any of :data:`SHADE_OUTS`, each [R, ...] and contiguous: a
+    chunk's rows of a larger buffer will do); ``light`` three f32 values,
+    ``ambient`` an f32 value; ``zero_origin``: the rays start at the
+    origin, and the folded forms apply."""
+    f32, i32 = torch.float32, torch.int32
+    Rp = rays.shape[1]
+    if not 0 < R <= Rp:
+        raise ValueError(f"{R} rays do not fit {Rp} padded lanes")
+    unknown = set(outs) - set(SHADE_OUTS)
+    if unknown:
+        raise ValueError(f"no such AOV: {sorted(unknown)}")
+    _check_layout("rays", rays, f32, (8, Rp))
+    _check_layout("out_f", out_f, f32, (4, Rp))
+    _check_layout("out_i", out_i, i32, (4, Rp))
+    # the id tables, in the launcher's order: triangles, spheres, discs
+    ids = [getattr(scene, k) for k in ("tri_geom", "tri_prim", "sphere_geom",
+                                       "disc_geom")]
+    for k, t in zip(("tri_geom", "tri_prim", "sphere_geom", "disc_geom"), ids):
+        _check_layout(k, t, i32, (t.shape[0],))
+    n_tri, n_sph, n_dsc = ids[0].shape[0], ids[2].shape[0], ids[3].shape[0]
+    n_ap, n_geom = scene.ap.shape[0], scene.mat_id.shape[0]
+    n_mat = scene.mat_albedo.shape[0]
+    _check_layout("tri_prim", ids[1], i32, (n_tri,))
+    _check_layout("ap", scene.ap, f32, (n_ap, 16))
+    _check_layout("mat_id", scene.mat_id, i32, (n_geom,))
+    _check_layout("mat_albedo", scene.mat_albedo, f32, (n_mat, 3))
+    if min(n_tri, n_sph, n_dsc, n_geom) < 1 or n_sph + n_dsc > n_ap:
+        raise ValueError("the scene's id tables are empty, or its spheres "
+                         "and discs exceed its ap rows")
+    for k, t in outs.items():
+        shape, dt = SHADE_OUTS[k]
+        _check_layout(k, t, dt, (R,) + shape)
+    _on_card(rays=rays, out_f=out_f, out_i=out_i, ap=scene.ap,
+             mat_id=scene.mat_id, mat_albedo=scene.mat_albedo,
+             **dict(zip(("tri_geom", "tri_prim", "sphere_geom", "disc_geom"),
+                        ids)), **outs)
+    _same_device(rays, out_f, out_i, scene.ap, scene.mat_id, scene.mat_albedo,
+                 *ids, *outs.values())
+    ptr = lambda k: outs[k].data_ptr() if k in outs else None
+    lib = load()
+    with torch.cuda.device(rays.device):
+        err = lib.shade_launch(
+            rays.data_ptr(), out_f.data_ptr(), out_i.data_ptr(),
+            *(t.data_ptr() for t in ids), scene.ap.data_ptr(),
+            scene.mat_id.data_ptr(), scene.mat_albedo.data_ptr(),
+            *map(ptr, SHADE_OUTS), R, Rp, n_tri, n_sph, n_dsc, n_geom, n_mat,
+            int(zero_origin), *light, float(ambient), _stream(rays.device))
+    _raise_on(err, "shade")

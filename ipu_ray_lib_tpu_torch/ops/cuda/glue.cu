@@ -1,0 +1,433 @@
+// The shadow frame's glue around the fused shadow kernel (K4, shadow.cu)
+// for Hopper (sm_90a): before it, the camera rays and the bundle cull;
+// after it, the shading and the AOV stores: with K4, three launches per
+// chunk of rays.
+//
+// Replaces the work that XLA fuses around the TPU kernel `_shadow_kernel`:
+// the glue of `fused_shadow_trace_arrays` / `fused_shadow_trace`
+// (ipu_ray_lib_tpu/ops/pallas/shadow_kernel.py:366-524: the padded rays,
+// the lists, and after the kernel the id resolution, normals, hit point,
+// light direction, albedo, lambert and rgb) and `bundle_cull`
+// (ipu_ray_lib_tpu/ops/pallas/intersect_kernel.py:46-150). Both are XLA,
+// not Pallas, in the JAX package; the port's plain torch versions stay
+// (ops/shadow.py `shadow_inputs`, `shadow_epilogue`; ops/cull.py
+// `bundle_cull`; ops/camera.py `scaled_ray_dir`) for CPU tensors and as
+// the checks of these kernels.
+//
+// - rays_cull_kernel (the prologue), one CTA of 256 threads per bundle of
+//   1,024 rays: each ray's direction from its pixel (scaled_ray_dir) or
+//   from the caller's rays, the padding lanes (direction 1, t_max -1),
+//   the rays [8, Rp] as K4 reads them; the bundle's interval box of its
+//   live lanes' origins and directions (a block reduction); the slab test
+//   of that box against every block AABB with interval products, the
+//   SLAB_SCALE widening and the padding-block test; each kept block's
+//   distance bound (the squared gaps summed as the port's fma), culled
+//   blocks at inf; and the blocks ordered by bound as a stable argsort
+//   does: a block's rank is the count of smaller bounds plus the count of
+//   equal bounds at a lower index (NaN sorts last, as torch sorts it).
+// - shade_kernel (the epilogue), one thread per ray: K4's out_f / out_i
+//   into the ids (resolve_hit), the kernel, sphere or disc normal, the hit
+//   point and the light direction (light_ray), albedo, lambert and rgb
+//   (shade), written straight into each AOV the caller asks for (the
+//   renderer's stream-order buffers at the chunk's rows, or fresh
+//   tensors), escaped too.
+//
+// Every formula is the port's plain torch version, operation for
+// operation, so the outputs equal it byte for byte. The port's `fma`
+// (ops/vec3.py) is not one rounding: it multiplies in double (exact for
+// two floats), adds in double and rounds to float; xfma below does the
+// same (__fmaf_rn would differ in about 2^-29 of the cases). Every other
+// operation rounds once in f32, as torch's kernels do: built with
+// -fmad=false, IEEE division and square root (the port's f32 sqrt through
+// double rounds as sqrtf does). A ray whose origins are all zero (camera
+// rays, `origins` None) takes the folded forms, as XLA folds the zero
+// origin: the hit point d * t, the light offset fma(-d, t, L), the sphere
+// offset fma(d, t, -c).
+//
+// What bounds them on this card: bytes. Per ray the prologue reads its
+// pixel (8 B) and writes the rays (32 B); the epilogue reads rays, out_f
+// and out_i (56 B) and writes the six AOVs (48 B); ~300 MB over a 1440^2
+// frame, 0.09 ms at 3.35 TB/s. Their operations (~60 f32 and ~20 f64 per
+// ray, plus per bundle ~50 per block and the rank's nb compares per
+// block) are a fraction of that. What the design does about it: each
+// ray's values stay in registers from its read to its stores, every array
+// is read and written once with neighbouring threads on neighbouring
+// addresses, and the per-bundle work (box, slab test, rank) runs in
+// shared memory inside the CTA that made the bundle's rays. Measured on an
+// H100 over a 1440^2 frame (PERF.md §6): 0.31 and 0.22 ms; the prologue's
+// 64 CTAs a chunk leave most of the card's 132 SMs idle.
+
+#include "rows.cuh"
+
+namespace {
+
+using rows::BR;
+using rows::jmax;
+using rows::jmin;
+using rows::kBig30;
+using rows::kInf;
+using rows::kSlabScale;
+using rows::kTiny;
+using rows::V3;
+
+constexpr int NT = 256;          // threads of a prologue CTA
+constexpr int LPT = BR / NT;     // rays per prologue thread
+constexpr int NW = NT / 32;
+constexpr int ST = 256;          // threads of an epilogue CTA
+constexpr int kInvalidGeom = 0xFFFF;  // bvh/builder.py INVALID_GEOM_ID
+
+// The port's fma: a*b exact in double, + c rounded in double, then to f32.
+__device__ __forceinline__ float xfma(float a, float b, float c) {
+  return __double2float_rn(__dadd_rn(__dmul_rn((double)a, (double)b), (double)c));
+}
+
+// ops/vec3.py sum3 (rowdot): fma(a2, b2, fma(a1, b1, a0*b0)).
+__device__ __forceinline__ float sum3(V3 a, V3 b) {
+  return xfma(a.z, b.z, xfma(a.y, b.y, a.x * b.x));
+}
+
+// ops/vec3.py unit: v / max(sqrt(sum3(v, v)), 1e-30), NaN kept.
+__device__ __forceinline__ V3 unit(V3 v) {
+  const float l = jmax(sqrtf(sum3(v, v)), kTiny());
+  return {v.x / l, v.y / l, v.z / l};
+}
+
+__device__ __forceinline__ int clampi(int x, int lo, int hi) {
+  return x < lo ? lo : (x > hi ? hi : x);  // torch.clamp: hi wins
+}
+
+struct RaysParams {
+  const float* baabb;  // [nb, 8] block AABBs (lo.xyz, hi.xyz)
+  const float* rows;   // camera: [R] pixel rows; null: the caller's rays
+  const float* cols;   // camera: [R] pixel columns
+  const float* sxp;    // camera: 0-d image-plane factors on the card, or
+  const float* syp;    //   null for sx, sy below
+  float sx, sy, inv_w, inv_h;
+  const float* origins;  // rays: [R, 3], or null for (0, 0, 0)
+  const float* dirs;     // rays: [R, 3]
+  float* rays;    // [8, Rp] origin, direction, t_min, t_max rows
+  int* counts;    // [nrb] kept blocks per bundle
+  int* order;     // [nrb, nb] block list, nearest first
+  float* dists;   // [nrb, nb] its distance bounds
+  int R, Rp, nb;
+};
+
+// One ray of the prologue: (origin, direction) of lane i < R.
+__device__ __forceinline__ void make_ray(const RaysParams& P, int i, float sx, float sy,
+                                         float o[3], float d[3]) {
+  if (P.rows) {  // ops/camera.py scaled_ray_dir(x=cols, y=rows)
+    const float xn = xfma(P.cols[i], P.inv_w, -0.5f);
+    const float yn = xfma(P.rows[i], P.inv_h, -0.5f);
+    const float dx = xn * sx, dy = yn * sy;
+    const float n = sqrtf(xfma(dy, dy, dx * dx) + 1.0f);
+    d[0] = dx / n;
+    d[1] = dy / n;
+    d[2] = -1.0f / n;
+    o[0] = o[1] = o[2] = 0.0f;
+    return;
+  }
+  for (int c = 0; c < 3; ++c) {
+    d[c] = P.dirs[i * 3 + c];
+    o[c] = P.origins ? P.origins[i * 3 + c] : 0.0f;
+  }
+}
+
+// torch's sort order of floats: NaN after everything, NaNs equal.
+__device__ __forceinline__ bool sorts_before(float a, float b) {
+  return a < b || (b != b && a == a);
+}
+__device__ __forceinline__ bool sorts_equal(float a, float b) {
+  return a == b || (a != a && b != b);
+}
+
+__global__ void __launch_bounds__(NT) rays_cull_kernel(const RaysParams P) {
+  extern __shared__ float s_dist[];  // [nb] each block's bound
+  __shared__ float s_box[NW][12];    // per warp: o lo, o hi, d lo, d hi
+  __shared__ int s_live[NW];
+  __shared__ int s_kept;
+  const int b = blockIdx.x, tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const float sx = P.sxp ? *P.sxp : P.sx, sy = P.syp ? *P.syp : P.sy;
+  if (tid == 0) s_kept = 0;
+
+  // ---- the bundle's rays, and its box over the live lanes (ops/shadow.py
+  // shadow_inputs; ops/cull.py bundle_cull's amin / amax) ----
+  float box[12];
+  for (int k = 0; k < 3; ++k) {
+    box[k] = kInf();
+    box[3 + k] = -kInf();
+    box[6 + k] = kInf();
+    box[9 + k] = -kInf();
+  }
+  int live_any = 0;
+  for (int k = 0; k < LPT; ++k) {
+    const int i = b * BR + k * NT + tid;
+    const bool live = i < P.R;
+    float o[3] = {0.0f, 0.0f, 0.0f}, d[3] = {1.0f, 1.0f, 1.0f};
+    if (live) make_ray(P, i, sx, sy, o, d);
+    for (int c = 0; c < 3; ++c) {
+      P.rays[c * P.Rp + i] = o[c];
+      P.rays[(3 + c) * P.Rp + i] = d[c];
+    }
+    P.rays[6 * P.Rp + i] = 0.0f;
+    P.rays[7 * P.Rp + i] = live ? kInf() : -1.0f;
+    if (live) {
+      live_any = 1;
+      for (int c = 0; c < 3; ++c) {
+        box[c] = jmin(box[c], o[c]);
+        box[3 + c] = jmax(box[3 + c], o[c]);
+        box[6 + c] = jmin(box[6 + c], d[c]);
+        box[9 + c] = jmax(box[9 + c], d[c]);
+      }
+    }
+  }
+  for (int off = 16; off > 0; off >>= 1) {
+    for (int c = 0; c < 3; ++c) {
+      box[c] = jmin(box[c], __shfl_xor_sync(0xffffffffu, box[c], off));
+      box[3 + c] = jmax(box[3 + c], __shfl_xor_sync(0xffffffffu, box[3 + c], off));
+      box[6 + c] = jmin(box[6 + c], __shfl_xor_sync(0xffffffffu, box[6 + c], off));
+      box[9 + c] = jmax(box[9 + c], __shfl_xor_sync(0xffffffffu, box[9 + c], off));
+    }
+  }
+  live_any = __any_sync(0xffffffffu, live_any);
+  if (lane == 0) {
+    for (int c = 0; c < 12; ++c) s_box[warp][c] = box[c];
+    s_live[warp] = live_any;
+  }
+  __syncthreads();
+  for (int w = 0; w < NW; ++w) {
+    for (int c = 0; c < 3; ++c) {
+      box[c] = jmin(box[c], s_box[w][c]);
+      box[3 + c] = jmax(box[3 + c], s_box[w][3 + c]);
+      box[6 + c] = jmin(box[6 + c], s_box[w][6 + c]);
+      box[9 + c] = jmax(box[9 + c], s_box[w][9 + c]);
+    }
+    live_any |= s_live[w];
+  }
+  const float* olo = box;
+  const float* ohi = box + 3;
+  const float* dlo = box + 6;
+  const float* dhi = box + 9;
+  // amax of t_max over every lane, amin of t_min over the live ones:
+  const float tmax_hi = live_any ? kInf() : -1.0f;
+  const float tmin_lo = live_any ? 0.0f : kInf();
+
+  // ---- each block's interval slab test and distance bound ----
+  for (int j = tid; j < P.nb; j += NT) {
+    const float* bx = P.baabb + j * 8;
+    float enter = -kInf(), exit_ = kInf(), d2 = 0.0f;
+    for (int a = 0; a < 3; ++a) {
+      const bool same = dlo[a] > 0.0f || dhi[a] < 0.0f;
+      const float i1 = 1.0f / (same ? dlo[a] : 1.0f);
+      const float i2 = 1.0f / (same ? dhi[a] : 1.0f);
+      const float ilo = jmin(i1, i2), ihi = jmax(i1, i2);
+      const float blo = bx[a], bhi = bx[a + 3];
+      const float s1lo = blo - ohi[a], s1hi = blo - olo[a];
+      const float s2lo = bhi - ohi[a], s2hi = bhi - olo[a];
+      const float p1 = s1lo * ilo, p2 = s1lo * ihi, p3 = s1hi * ilo, p4 = s1hi * ihi;
+      const float q1 = s2lo * ilo, q2 = s2lo * ihi, q3 = s2hi * ilo, q4 = s2hi * ihi;
+      const float lo1 = jmin(jmin(p1, p2), jmin(p3, p4));
+      const float hi1 = jmax(jmax(p1, p2), jmax(p3, p4));
+      const float lo2 = jmin(jmin(q1, q2), jmin(q3, q4));
+      const float hi2 = jmax(jmax(q1, q2), jmax(q3, q4));
+      enter = jmax(enter, same ? jmin(lo1, lo2) : -kInf());
+      exit_ = jmin(exit_, same ? jmax(hi1, hi2) * kSlabScale() : kInf());
+      const float gap = jmax(jmax(blo - ohi[a], olo[a] - bhi), 0.0f);
+      d2 = xfma(gap, gap, d2);
+    }
+    const bool hit = enter <= exit_ && enter <= tmax_hi && exit_ >= tmin_lo &&
+                     bx[0] < kBig30();
+    s_dist[j] = hit ? sqrtf(d2) : kInf();
+    if (hit) atomicAdd(&s_kept, 1);
+  }
+  __syncthreads();
+
+  // ---- the stable order by bound ----
+  for (int i = tid; i < P.nb; i += NT) {
+    const float di = s_dist[i];
+    int rank = 0;
+    for (int j = 0; j < P.nb; ++j) {
+      const float dj = s_dist[j];
+      rank += sorts_before(dj, di) || (j < i && sorts_equal(dj, di));
+    }
+    P.order[b * P.nb + rank] = i;
+    P.dists[b * P.nb + rank] = di;
+  }
+  if (tid == 0) P.counts[b] = s_kept;
+}
+
+struct ShadeParams {
+  const float* rays;    // [8, Rp] as the prologue wrote them
+  const float* out_f;   // [4, Rp] K4: raw kernel normal, hit t
+  const int* out_i;     // [4, Rp] K4: triangle row, sphere, disc, occluded
+  const int* tri_geom;  // [n_tri]
+  const int* tri_prim;  // [n_tri]
+  const int* sphere_geom;  // [n_sph]
+  const int* disc_geom;    // [n_dsc]
+  const float* ap;         // [n_ap, 16] sphere rows, then disc rows
+  const int* mat_id;       // [n_geom]
+  const float* mat_albedo;  // [n_mat, 3]
+  float* rgb;      // [R, 3] or null (each AOV: the caller's rows)
+  float* t;        // [R]
+  int* geom;       // [R]
+  int* prim;       // [R]
+  float* normal;   // [R, 3]
+  float* hit_p;    // [R, 3]
+  unsigned char* escaped;  // [R] bool
+  int R, Rp, n_tri, n_sph, n_dsc, n_geom, n_mat, zero_origin;
+  float lx, ly, lz, ambient;
+};
+
+__global__ void __launch_bounds__(ST) shade_kernel(const ShadeParams P) {
+  const int i = blockIdx.x * ST + threadIdx.x;
+  if (i >= P.R) return;
+  const int Rp = P.Rp;
+  const V3 o = {P.rays[i], P.rays[Rp + i], P.rays[2 * Rp + i]};
+  const V3 d = {P.rays[3 * Rp + i], P.rays[4 * Rp + i], P.rays[5 * Rp + i]};
+  const float hit_t = P.out_f[3 * Rp + i];
+  const int tri = P.out_i[i], si_b = P.out_i[Rp + i], di_b = P.out_i[2 * Rp + i];
+  const bool occ = P.out_i[3 * Rp + i] != 0;
+
+  // ---- ops/traversal.py resolve_hit ----
+  const bool sb = si_b >= 0, db = di_b >= 0;
+  int geom = kInvalidGeom, prim = -1;
+  if (tri >= 0) {
+    const int ts = clampi(tri, 0, P.n_tri - 1);
+    geom = P.tri_geom[ts];
+    prim = P.tri_prim[ts];
+  }
+  const int si_c = clampi(sb ? si_b : 0, 0, P.n_sph - 1);
+  const int di_c = clampi(db ? di_b : 0, 0, P.n_dsc - 1);
+  if (sb) {
+    geom = P.sphere_geom[si_c];
+    prim = 0;
+  }
+  if (db) {
+    geom = P.disc_geom[di_c];
+    prim = 0;
+  }
+  const bool found = geom != kInvalidGeom;
+  V3 nrm = unit({P.out_f[i], P.out_f[Rp + i], P.out_f[2 * Rp + i]});
+  if (sb) {  // unit(from_hit(o, d, hit_t, centre, -1))
+    const float* c = P.ap + si_c * 16 + 1;
+    const V3 v = P.zero_origin
+        ? V3{xfma(d.x, hit_t, -c[0]), xfma(d.y, hit_t, -c[1]), xfma(d.z, hit_t, -c[2])}
+        : V3{-(c[0] - xfma(d.x, hit_t, o.x)), -(c[1] - xfma(d.y, hit_t, o.y)),
+             -(c[2] - xfma(d.z, hit_t, o.z))};
+    nrm = unit(v);
+  }
+  if (db) {
+    const float* n = P.ap + (P.n_sph + di_c) * 16 + 4;
+    nrm = {n[0], n[1], n[2]};
+  }
+  if (!found) nrm = {0.0f, 0.0f, 1.0f};
+
+  // ---- ops/shadow.py light_ray ----
+  const float hp_t = found ? hit_t : 0.0f;
+  V3 hp, lo;
+  if (P.zero_origin) {
+    hp = {d.x * hp_t, d.y * hp_t, d.z * hp_t};
+    lo = {xfma(-d.x, hp_t, P.lx), xfma(-d.y, hp_t, P.ly), xfma(-d.z, hp_t, P.lz)};
+  } else {
+    hp = {xfma(d.x, hp_t, o.x), xfma(d.y, hp_t, o.y), xfma(d.z, hp_t, o.z)};
+    lo = {P.lx - hp.x, P.ly - hp.y, P.lz - hp.z};
+  }
+  const float dinv = jmax(sqrtf(sum3(lo, lo)), kTiny());
+  const V3 sdir = {lo.x / dinv, lo.y / dinv, lo.z / dinv};
+
+  // ---- ops/shadow.py shade ----
+  int m = P.mat_id[clampi(geom, 0, P.n_geom - 1)];
+  if (m < 0) m += P.n_mat;  // torch's index wraps
+  const float* alb = P.mat_albedo + m * 3;
+  const float lam = occ ? 0.0f : sum3(sdir, nrm);
+  if (P.rgb) {
+    for (int c = 0; c < 3; ++c)
+      P.rgb[i * 3 + c] = found ? xfma(alb[c], P.ambient, lam * alb[c]) : 0.0f;
+  }
+  if (P.t) P.t[i] = found ? hit_t : kInf();
+  if (P.geom) P.geom[i] = found ? geom : kInvalidGeom;
+  if (P.prim) P.prim[i] = prim;
+  if (P.normal) {
+    P.normal[i * 3] = nrm.x;
+    P.normal[i * 3 + 1] = nrm.y;
+    P.normal[i * 3 + 2] = nrm.z;
+  }
+  if (P.hit_p) {
+    P.hit_p[i * 3] = found ? hp.x : 0.0f;
+    P.hit_p[i * 3 + 1] = found ? hp.y : 0.0f;
+    P.hit_p[i * 3 + 2] = found ? hp.z : 0.0f;
+  }
+  if (P.escaped) P.escaped[i] = found ? 0 : 1;
+}
+
+}  // namespace
+
+extern "C" int rays_cull_launch(const float* baabb, const float* rows, const float* cols,
+                                const float* sxp, const float* syp, float sx, float sy,
+                                float inv_w, float inv_h, const float* origins,
+                                const float* dirs, float* rays, int* counts, int* order,
+                                float* dists, int R, int nb, void* stream) {
+  RaysParams P;
+  P.baabb = baabb;
+  P.rows = rows;
+  P.cols = cols;
+  P.sxp = sxp;
+  P.syp = syp;
+  P.sx = sx;
+  P.sy = sy;
+  P.inv_w = inv_w;
+  P.inv_h = inv_h;
+  P.origins = origins;
+  P.dirs = dirs;
+  P.rays = rays;
+  P.counts = counts;
+  P.order = order;
+  P.dists = dists;
+  P.R = R;
+  const int nrb = (R + BR - 1) / BR;
+  P.Rp = nrb * BR;
+  P.nb = nb;
+  rays_cull_kernel<<<nrb, NT, nb * sizeof(float), static_cast<cudaStream_t>(stream)>>>(P);
+  return static_cast<int>(cudaGetLastError());
+}
+
+extern "C" int shade_launch(const float* rays, const float* out_f, const int* out_i,
+                            const int* tri_geom, const int* tri_prim, const int* sphere_geom,
+                            const int* disc_geom, const float* ap, const int* mat_id,
+                            const float* mat_albedo, float* rgb, float* t, int* geom,
+                            int* prim, float* normal, float* hit_p, unsigned char* escaped,
+                            int R, int Rp, int n_tri, int n_sph, int n_dsc, int n_geom,
+                            int n_mat, int zero_origin, float lx, float ly, float lz,
+                            float ambient, void* stream) {
+  ShadeParams P;
+  P.rays = rays;
+  P.out_f = out_f;
+  P.out_i = out_i;
+  P.tri_geom = tri_geom;
+  P.tri_prim = tri_prim;
+  P.sphere_geom = sphere_geom;
+  P.disc_geom = disc_geom;
+  P.ap = ap;
+  P.mat_id = mat_id;
+  P.mat_albedo = mat_albedo;
+  P.rgb = rgb;
+  P.t = t;
+  P.geom = geom;
+  P.prim = prim;
+  P.normal = normal;
+  P.hit_p = hit_p;
+  P.escaped = escaped;
+  P.R = R;
+  P.Rp = Rp;
+  P.n_tri = n_tri;
+  P.n_sph = n_sph;
+  P.n_dsc = n_dsc;
+  P.n_geom = n_geom;
+  P.n_mat = n_mat;
+  P.zero_origin = zero_origin;
+  P.lx = lx;
+  P.ly = ly;
+  P.lz = lz;
+  P.ambient = ambient;
+  shade_kernel<<<(R + ST - 1) / ST, ST, 0, static_cast<cudaStream_t>(stream)>>>(P);
+  return static_cast<int>(cudaGetLastError());
+}

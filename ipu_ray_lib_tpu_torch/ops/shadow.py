@@ -32,8 +32,19 @@ Both take the cull's lists and the padded rays and return the kernel's
 raw outputs: ``out_f`` [4, R] f32 (the winning triangle's raw shading
 normal, hit t) and ``out_i`` [4, R] i32 (triangle row or -1, sphere index
 or -1, disc index or -1, occluded 0/1). The shading floats come from
-:func:`shadow_epilogue`, plain torch, as the JAX package computes them in
-XLA after its kernel.
+:func:`shadow_epilogue`, as the JAX package computes them in XLA after
+its kernel.
+
+The glue around the kernel, which XLA fuses in the JAX package, is two
+kernels of its own on CUDA tensors (``ops/cuda/glue.cu``), so a chunk is
+three launches: the prologue (:func:`shadow_inputs_cuda`, or
+:func:`camera_inputs_cuda` making the camera rays from pixel
+coordinates) and the epilogue (:func:`shade_cuda`, writing each AOV
+straight into the caller's tensors). They equal the plain torch versions
+:func:`shadow_inputs` (with ops/camera.py ``scaled_ray_dir`` and
+ops/cull.py ``bundle_cull``) and :func:`shadow_epilogue` byte for byte;
+those stay for CPU tensors and as the kernels' checks. The glue route
+(render/shadow.py) keeps :func:`light_ray` and :func:`shade` in torch.
 
 The kernel's arithmetic is the JAX kernel's, operation for operation: the
 primary walk and its row test are K5's (ops/intersect_kernel.py, CUDA
@@ -66,13 +77,15 @@ from .vec3 import TINY, const3, fma, rowdot, sqrt, unit
 BIG = 1e30  # K4's padding-box bound (float32(1e30) is this value's f32)
 _RAY_EPS = float(RAY_EPSILON)
 
-# K4's CUDA launches since the last reset.
+# K4's CUDA launches since the last reset, and the glue kernels' (the
+# prologue's and the epilogue's, ops/cuda/glue.cu).
 launches = 0
+glue_launches = 0
 
 
 def reset_launches() -> None:
-    global launches
-    launches = 0
+    global launches, glue_launches
+    launches = glue_launches = 0
 
 
 def _sphere_pass(ap, n_sph, o, d, t_min, bound):
@@ -260,20 +273,62 @@ def shadow_inputs(scene, origins, dirs: torch.Tensor):
     return counts, order, dists, rays
 
 
-def fused_shadow_trace_arrays(scene, origins, dirs: torch.Tensor, *, light):
-    """One shadow-trace dispatch over R rays (origins [R, 3] f32 or None
-    for (0, 0, 0), dirs [R, 3] f32): the kernel for CUDA tensors,
-    :func:`shadow_trace_ref` for CPU tensors. Returns the raw
-    (out_f [4, R], out_i [4, R]) (module docstring)."""
-    R = dirs.shape[0]
+def _inputs_cuda(scene, R: int, **rays):
+    """The prologue kernel over R rays (``rays``: as
+    ``launch_rays_cull`` takes them): (counts, order, dists, rays)."""
+    global glue_launches
+    from .cuda.build import launch_rays_cull
+
+    dev = scene.baabb.device
+    nrb, nb = -(-R // BR), scene.baabb.shape[0]
+    out = (torch.empty(nrb, dtype=torch.int32, device=dev),
+           torch.empty((nrb, nb), dtype=torch.int32, device=dev),
+           torch.empty((nrb, nb), dtype=torch.float32, device=dev),
+           torch.empty((8, nrb * BR), dtype=torch.float32, device=dev))
+    launch_rays_cull(scene.baabb, out[3], *out[:3], R=R, **rays)
+    glue_launches += 1
+    return out
+
+
+def shadow_inputs_cuda(scene, origins, dirs: torch.Tensor):
+    """:func:`shadow_inputs` as one kernel (ops/cuda/glue.cu), for CUDA
+    tensors: the same (counts, order, dists, rays), byte for byte."""
+    return _inputs_cuda(scene, dirs.shape[0], origins=origins, dirs=dirs)
+
+
+def camera_inputs_cuda(scene, rows, cols, image: tuple, scale: tuple):
+    """:func:`shadow_inputs` of the camera rays through the pixels (rows,
+    cols) [R] f32 (ops/camera.py ``scaled_ray_dir(cols, rows, *image,
+    *scale)``, from the origin) as one kernel that makes the rays too:
+    ``image`` (w, h), ``scale`` the image plane's (sx, sy), floats or 0-d
+    f32 tensors on the card (a CUDA graph reads them at each replay)."""
+    f32 = np.float32
+    inv = [float(f32(1.0) / f32(n)) for n in image]
+    return _inputs_cuda(scene, rows.shape[0],
+                        camera=(rows, cols, *inv, *scale))
+
+
+def _trace(scene, origins, dirs: torch.Tensor, light):
+    """The cull's inputs and K4's raw outputs, padded, of R rays: the
+    kernels for CUDA tensors, the plain versions for CPU tensors."""
     dev = scene.device.type
     if dev not in ("cuda", "cpu"):
         raise ValueError(f"unsupported device {scene.device}")
     with span("renderer.cull"):
-        args = shadow_inputs(scene, origins, dirs)
+        inputs = shadow_inputs_cuda if dev == "cuda" else shadow_inputs
+        args = inputs(scene, origins, dirs)
     with span("renderer.kernel"):
         trace = shadow_trace_cuda if dev == "cuda" else shadow_trace_ref
-        out_f, out_i = trace(scene, *args, light=light)
+        return args, *trace(scene, *args, light=light)
+
+
+def fused_shadow_trace_arrays(scene, origins, dirs: torch.Tensor, *, light):
+    """One shadow-trace dispatch over R rays (origins [R, 3] f32 or None
+    for (0, 0, 0), dirs [R, 3] f32): the kernels for CUDA tensors,
+    their plain versions for CPU tensors. Returns the raw
+    (out_f [4, R], out_i [4, R]) (module docstring)."""
+    R = dirs.shape[0]
+    _, out_f, out_i = _trace(scene, origins, dirs, light)
     return out_f[:, :R], out_i[:, :R]
 
 
@@ -320,12 +375,56 @@ def shadow_epilogue(scene, origins, dirs, out_f, out_i, light_pos, ambient):
                  out_i[3] != 0, ambient)
 
 
+def shade_cuda(scene, rays, out_f, out_i, R: int, light_pos, ambient, *,
+               zero_origin: bool, out: dict | None = None):
+    """:func:`shadow_epilogue` of the first R of the padded ``rays`` and
+    K4's padded ``out_f``/``out_i`` as one kernel (ops/cuda/glue.cu), for
+    CUDA tensors, byte for byte; ``zero_origin``: the rays start at (0, 0,
+    0) (``origins`` None there). ``out``: the AOVs to write, name ->
+    tensor [R, ...] (``ops/cuda/build.py:SHADE_OUTS``; a chunk's rows of
+    the renderer's buffers); None: every AOV and ``escaped`` in fresh
+    tensors, returned as :func:`shade`'s tuple."""
+    global glue_launches
+    from .cuda.build import SHADE_OUTS, launch_shade
+
+    fresh = out is None
+    if fresh:
+        out = {k: torch.empty((R,) + shape, dtype=dt, device=rays.device)
+               for k, (shape, dt) in SHADE_OUTS.items()}
+    launch_shade(scene, rays, out_f, out_i, out, R=R,
+                 light=tuple(float(np.float32(v)) for v in light_pos),
+                 ambient=float(np.float32(ambient)), zero_origin=zero_origin)
+    glue_launches += 1
+    return tuple(out.values()) if fresh else None
+
+
 def fused_shadow_trace(scene, origins, dirs, light_pos, ambient):
     """Shadow trace of R rays (``origins`` None: camera rays from
-    (0, 0, 0)): the kernel (or its plain version on the CPU) and the
-    epilogue; returns :func:`shadow_epilogue`'s fields."""
-    out_f, out_i = fused_shadow_trace_arrays(scene, origins, dirs,
-                                             light=light_pos)
+    (0, 0, 0)): the prologue, K4 and the epilogue, as kernels for CUDA
+    tensors (or their plain versions for CPU tensors); returns
+    :func:`shadow_epilogue`'s fields."""
+    R = dirs.shape[0]
+    args, out_f, out_i = _trace(scene, origins, dirs, light_pos)
     with span("renderer.epilogue"):
-        return shadow_epilogue(scene, origins, dirs, out_f, out_i, light_pos,
-                               ambient)
+        if scene.device.type == "cuda":
+            return shade_cuda(scene, args[3], out_f, out_i, R, light_pos,
+                              ambient, zero_origin=origins is None)
+        return shadow_epilogue(scene, origins, dirs, out_f[:, :R],
+                               out_i[:, :R], light_pos, ambient)
+
+
+def camera_chunk_cuda(scene, rows, cols, image: tuple, scale: tuple,
+                      out: dict, light_pos, ambient) -> None:
+    """One chunk of the renderer's shadow frame on the card, three
+    launches: :func:`camera_inputs_cuda` (the camera rays through the
+    pixels (rows, cols) [R] and their cull), K4, and :func:`shade_cuda`
+    writing the AOVs of ``out`` (name -> the chunk's rows [R, ...]);
+    the same bytes as ``scaled_ray_dir``, :func:`fused_shadow_trace` and
+    the stores. Nothing returns to the host, so a CUDA graph captures it."""
+    with span("renderer.cull"):
+        args = camera_inputs_cuda(scene, rows, cols, image, scale)
+    with span("renderer.kernel"):
+        out_f, out_i = shadow_trace_cuda(scene, *args, light=light_pos)
+    with span("renderer.epilogue"):
+        shade_cuda(scene, args[3], out_f, out_i, rows.shape[0], light_pos,
+                   ambient, zero_origin=True, out=out)

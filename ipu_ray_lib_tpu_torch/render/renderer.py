@@ -8,7 +8,11 @@ whole chunk: a chunk's pixel coordinates are a slice of the padded
 stream on the scene's device, and its camera rays, the fused shadow
 kernel (K4) and its epilogue run there and write into per-AOV buffers
 (or, on the glue route, the closest-hit kernels K5/K6 twice with the
-shading between; render/shadow.py). The chunk size decides where the
+shading between; render/shadow.py). On a CUDA scene the fused route is
+the kernel route: a chunk is three launches, the prologue (camera rays
+and cull), K4 and the epilogue, which writes the chunk's rows of the
+buffers itself (ops/shadow.py ``camera_chunk_cuda``); a CPU scene runs
+their plain torch versions. The chunk size decides where the
 bundles of 1,024 rays fall when it is not a multiple of 1,024, so it is
 kept as in the JAX package. The requested AOVs come back as [H, W, ...]
 numpy; the others come back filled (zeros, t = inf, prim -1).
@@ -51,8 +55,8 @@ clamped to +-65504 first, true infinities (t of a miss) pass; the ids stay
 exact. The path trace's image is rounded likewise (no clamp).
 
 On a CUDA scene the shadow frame's chunk loop is one CUDA graph when
-nothing in it returns to the host: the fused K4 route and no progress
-callback (so ~13,000 small launches a 1440² frame become one replay).
+nothing in it returns to the host: the kernel route and no progress
+callback (so the 96 launches of a 1440² frame become one replay).
 The first frame of a shape (a key: the window, the image size, the chunk
 size, the AOV set and the device) runs the loop eagerly, then captures
 it; each later frame of that shape sets the image plane's two factors,
@@ -83,7 +87,7 @@ from ..utils.log import logger
 from ..utils.profiling import span
 from .path import path_trace_sample
 from .pixels import pixel_stream
-from .shadow import shadow_trace
+from .shadow import DEFAULT_AMBIENT, DEFAULT_LIGHT_POS, shadow_trace
 from .streaming import env_term, render_streaming
 
 DEFAULT_CHUNK = 1 << 16
@@ -277,29 +281,47 @@ def _shadow_chunks(scene, params, chunk_size: int, bufs: dict, scale,
     trace and AOV stores into ``bufs`` (stream order). ``scale``: the image
     plane's factors (sx, sy) as :func:`~..ops.camera.scaled_ray_dir` takes
     them; ``coords``: the padded stream's (rows, cols) on the scene's
-    device (``PixelStream.coords``)."""
+    device (``PixelStream.coords``). On the kernel route (module note) a
+    chunk is three launches that write the chunk's rows of ``bufs``."""
     rows, cols = coords
+    kernels = _kernel_route(scene.device, fused, params.intersector)
+    image = (params.image_width, params.image_height)
     for ci in range(-(-params.window_w * params.window_h // chunk_size)):
-        g0 = ci * chunk_size
-        with span("renderer.rays"):
-            d = scaled_ray_dir(cols[g0:g0 + chunk_size],
-                               rows[g0:g0 + chunk_size], params.image_width,
-                               params.image_height, *scale)
-        res = shadow_trace(scene, None, d, intersector=params.intersector,
-                           fused=fused)
-        with span("renderer.store"):
-            for k, buf in bufs.items():
-                buf[g0:g0 + chunk_size] = getattr(res, k)
+        sl = slice(ci * chunk_size, (ci + 1) * chunk_size)
+        if kernels:
+            out = {k: buf[sl] for k, buf in bufs.items()}
+            if progress_callback is not None and "rgb" not in out:
+                out["rgb"] = torch.empty((chunk_size, 3), dtype=torch.float32,
+                                         device=scene.device)
+            shadow_ops.camera_chunk_cuda(scene, rows[sl], cols[sl],
+                                         image, scale, out,
+                                         DEFAULT_LIGHT_POS, DEFAULT_AMBIENT)
+            rgb = out.get("rgb")
+        else:
+            with span("renderer.rays"):
+                d = scaled_ray_dir(cols[sl], rows[sl], *image, *scale)
+            res = shadow_trace(scene, None, d, intersector=params.intersector,
+                               fused=fused)
+            with span("renderer.store"):
+                for k, buf in bufs.items():
+                    buf[sl] = getattr(res, k)
+            rgb = res.rgb
         if progress_callback is not None:
-            progress_callback(ci, _prep_f(res.rgb, readback_f16).cpu()
+            progress_callback(ci, _prep_f(rgb, readback_f16).cpu()
                               .numpy().astype(np.float32))
+
+
+def _kernel_route(device: torch.device, fused: bool, intersector: str) -> bool:
+    """Whether a shadow chunk runs as the prologue, K4 and the epilogue
+    kernels (module note): a CUDA scene on the fused K4 route."""
+    return device.type == "cuda" and fused and intersector == "pallas"
 
 
 def _graph_route(device: torch.device, fused: bool, intersector: str,
                  progress_callback) -> bool:
     """Whether the shadow frame replays a captured CUDA graph (module
-    note): a CUDA scene, the fused K4 route and no progress callback."""
-    return (device.type == "cuda" and fused and intersector == "pallas"
+    note): the kernel route and no progress callback."""
+    return (_kernel_route(device, fused, intersector)
             and progress_callback is None)
 
 
@@ -307,13 +329,15 @@ class _FrameGraph(NamedTuple):
     """A captured shadow frame: the image plane's factors (0-d f32 on the
     card) and the stream's padded coordinates (its inputs: held here, as
     the stream cache may drop them), the AOV buffers (its outputs), the
-    graph, the K4 launches it replays and the capture's ms."""
+    graph, the K4 and glue-kernel launches it replays and the capture's
+    ms."""
 
     scale: tuple
     coords: tuple
     bufs: dict
     graph: object
     k4_launches: int
+    glue_launches: int
     capture_ms: float
 
 
@@ -348,6 +372,7 @@ def _replayed_frame(scene, params, chunk_size: int, fields, scale) -> dict:
                 t.fill_(v)
             fg.graph.replay()
         shadow_ops.launches += fg.k4_launches
+        shadow_ops.glue_launches += fg.glue_launches
         graph_replays += 1
         return fg.bufs
     dev = scene.device
@@ -358,15 +383,17 @@ def _replayed_frame(scene, params, chunk_size: int, fields, scale) -> dict:
                for v in scale)
     body = lambda: _shadow_chunks(scene, params, chunk_size, bufs, sc, coords)
     body()
-    n0 = shadow_ops.launches
+    n0 = (shadow_ops.launches, shadow_ops.glue_launches)
     with span("renderer.capture"):
         graph, ms = _capture(body, dev)
-    fg = _FrameGraph(sc, coords, bufs, graph, shadow_ops.launches - n0, ms)
-    shadow_ops.launches = n0  # a capture launches nothing
+    fg = _FrameGraph(sc, coords, bufs, graph, shadow_ops.launches - n0[0],
+                     shadow_ops.glue_launches - n0[1], ms)
+    # a capture launches nothing
+    shadow_ops.launches, shadow_ops.glue_launches = n0
     graph_captures += 1
-    logger().info("Shadow frame %dx%d captured as a CUDA graph: %d K4 "
-                  "launches, %.1f ms", params.window_w, params.window_h,
-                  fg.k4_launches, ms)
+    logger().info("Shadow frame %dx%d captured as a CUDA graph: %d K4 and "
+                  "%d glue launches, %.1f ms", params.window_w,
+                  params.window_h, fg.k4_launches, fg.glue_launches, ms)
     cache[key] = fg
     while len(cache) > GRAPH_KEYS:
         cache.popitem(last=False)

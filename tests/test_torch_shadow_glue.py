@@ -1,0 +1,516 @@
+"""The shadow frame's glue kernels (ops/cuda/glue.cu): the prologue (camera
+rays, padding and bundle cull) and the epilogue (shading and the AOV
+stores) around K4, on the fused route of a CUDA scene.
+
+On the CPU (tier-1): which calls take the kernel route; a CPU scene
+renders through the plain torch functions, the same bytes as the golden;
+the renderer's plumbing of the kernel route (its AOV views, a progress
+callback's rgb, the launch counts a replayed frame adds) with the chunk
+function stood in for by the plain chain; the wrappers raise on a wrong
+device, dtype, shape or contiguity before anything is launched; the new
+counter's reset.
+
+On the card (marked ``cuda``), every comparison by the bytes: the
+prologue against ``shadow_inputs`` (camera rays of a 65,536-ray chunk of
+the 1440² stream, a ragged chunk, the caller's directions, rays from
+spread origins), the epilogue against ``shadow_epilogue`` and the stores
+(every AOV subset, both origin forms), and whole frames, replayed and
+eager, against the plain chain (``scaled_ray_dir``, ``shadow_inputs``,
+K4, ``shadow_epilogue``, the stores: the frame as the port made it
+before these kernels) at the 12 zooms of
+``experiments/torch_shadow_readback_ab.py``, a 240x136 window and with
+``readback_f16``, with the launches each frame makes. This file imports
+no JAX, so the card's tests run without the conftest::
+
+    python -m pytest --noconftest -p no:cacheprovider -m cuda -s \\
+        tests/test_torch_shadow_glue.py
+"""
+
+import torch_threads  # noqa: F401  (first: one torch thread)
+import dataclasses
+import hashlib
+import itertools
+import os
+import types
+
+import numpy as np
+import pytest
+import torch
+
+import ipu_ray_lib_tpu_torch.render.renderer as R
+from ipu_ray_lib_tpu_torch.ops import shadow as sh
+from ipu_ray_lib_tpu_torch.ops.camera import (plane_scale, scaled_ray_dir,
+                                              tan_half_fov)
+from ipu_ray_lib_tpu_torch.ops.cuda import build
+from ipu_ray_lib_tpu_torch.render.pixels import pixel_stream
+from ipu_ray_lib_tpu_torch.render.shadow import (DEFAULT_AMBIENT,
+                                                 DEFAULT_LIGHT_POS)
+from ipu_ray_lib_tpu_torch.scene.build import build_scene
+from ipu_ray_lib_tpu_torch.scene.builtin import make_cornell_box_scene
+
+ROOT = os.path.join(os.path.dirname(__file__), "..")
+MONKEY = os.path.join(ROOT, "assets", "monkey_bust.glb")
+GOLDEN = os.path.join(os.path.dirname(__file__), "golden",
+                      "shadow_box48x32.npz")
+FIELDS = R.RenderOutput._fields
+# shade's tuple, in order (ops/shadow.py shade; build.SHADE_OUTS)
+SHADE_FIELDS = ("rgb", "t", "geom_id", "prim_id", "normal", "hit_p",
+                "escaped")
+LIGHT, AMBIENT = DEFAULT_LIGHT_POS, DEFAULT_AMBIENT
+ZOOMS = [0.985 + 0.0025 * i for i in range(12)]  # the A/B script's
+
+
+def _zoomed(params, zoom):
+    return dataclasses.replace(params, fov_radians=params.fov_radians * zoom)
+
+
+def _scale(params):
+    return plane_scale(params.image_width, params.image_height,
+                       tan_half_fov(params.fov_radians))
+
+
+def _bytes(t) -> bytes:
+    return (t.cpu().numpy() if torch.is_tensor(t) else t).tobytes()
+
+
+def _same(a: R.RenderOutput, b: R.RenderOutput) -> bool:
+    return all(_bytes(getattr(a, k)) == _bytes(getattr(b, k))
+               for k in FIELDS)
+
+
+def _box(dev="cpu", w=48, h=32, monkey=None):
+    return build_scene(make_cornell_box_scene(monkey, box_only=False),
+                       device=dev, image_width=w, image_height=h,
+                       intersector="pallas")
+
+
+# ---- which calls take the kernels ----
+
+@pytest.mark.parametrize("device, fused, intersector, kernels", [
+    ("cuda", True, "pallas", True),
+    ("cuda:0", True, "pallas", True),
+    ("cpu", True, "pallas", False),
+    ("cuda", False, "pallas", False),
+    ("cuda", True, "pallas-hbm", False),
+    ("cuda", True, "bvh", False),
+    ("cuda", True, "dense", False),
+])
+def test_kernel_route_choice(device, fused, intersector, kernels):
+    assert R._kernel_route(torch.device(device), fused,
+                           intersector) is kernels
+    # the graph route is the kernel route without a progress callback
+    assert R._graph_route(torch.device(device), fused, intersector,
+                          None) is kernels
+    assert not R._graph_route(torch.device(device), fused, intersector,
+                              print)
+
+
+def _no_kernels(monkeypatch):
+    def refuse(*a, **k):
+        raise AssertionError("a CPU scene reached a CUDA kernel")
+
+    for name in ("camera_chunk_cuda", "shadow_inputs_cuda",
+                 "camera_inputs_cuda", "shade_cuda", "shadow_trace_cuda"):
+        monkeypatch.setattr(sh, name, refuse)
+    monkeypatch.setattr(build, "load", refuse)
+
+
+@pytest.mark.parametrize("callback", [False, True], ids=["plain", "callback"])
+def test_cpu_scene_renders_through_the_plain_functions(monkeypatch, callback):
+    _no_kernels(monkeypatch)
+    scene, params = _box()
+    sh.reset_launches()
+    seen = []
+    out = R.render(scene, params, chunk_size=512, progress_callback=(
+        (lambda i, rgb: seen.append(i)) if callback else None))
+    assert sh.launches == sh.glue_launches == 0
+    assert seen == (list(range(3)) if callback else [])
+    golden = np.load(GOLDEN)
+    for k in FIELDS:
+        assert getattr(out, k).tobytes() == golden[k].tobytes(), k
+    # the shadow_trace API alike, both origin forms
+    rows, cols = (t[:600] for t in pixel_stream(params).coords(
+        scene.device, 48 * 32))
+    d = scaled_ray_dir(cols, rows, 48, 32, *_scale(params))
+    for o in (None, torch.full_like(d, 0.25)):
+        res = sh.fused_shadow_trace(scene, o, d, LIGHT, AMBIENT)
+        want = sh.shadow_epilogue(scene, o, d, *sh.fused_shadow_trace_arrays(
+            scene, o, d, light=LIGHT), LIGHT, AMBIENT)
+        assert all(_bytes(a) == _bytes(b) for a, b in zip(res, want))
+
+
+# ---- the renderer's kernel route, its chunk function stood in for ----
+
+@pytest.fixture
+def kernel_route(monkeypatch):
+    """The CPU taken for a card by the kernel route's rule, the chunk
+    function stood in for by the plain chain (counting the launches the
+    kernels would make), and a capture whose "graph" replays by running
+    the body again. Yields the chunks the stand-in ran."""
+    route, made = R._kernel_route, []
+
+    def chunk(scene, rows, cols, image, scale, out, light, ambient):
+        made.append(rows.shape[0])
+        d = scaled_ray_dir(cols, rows, *image, *scale)
+        res = dict(zip(SHADE_FIELDS, sh.fused_shadow_trace(
+            scene, None, d, light, ambient)))
+        for k, t in out.items():
+            t.copy_(res[k])
+        sh.glue_launches += 2
+
+    def capture(body, dev):
+        body()  # a capture runs the body, its launches recorded
+
+        def replay():  # a replay launches nothing from Python
+            n = sh.glue_launches
+            body()
+            sh.glue_launches = n
+
+        return types.SimpleNamespace(replay=replay), 0.0
+
+    monkeypatch.setattr(R, "_kernel_route", lambda device, *a: route(
+        torch.device("cuda") if device.type == "cpu" else device, *a))
+    monkeypatch.setattr(sh, "camera_chunk_cuda", chunk)
+    monkeypatch.setattr(R, "_capture", capture)
+    sh.reset_launches()
+    R.reset_counters()
+    return made
+
+
+@pytest.mark.parametrize("aovs", [None, ("normal",), ("rgb", "t")],
+                         ids=["all", "normal", "rgb-t"])
+def test_kernel_route_equals_the_plain_route(kernel_route, aovs):
+    scene, params = _box()
+    p = _zoomed(params, 0.97)
+    chunk = 512
+    n_chunks = -(-48 * 32 // chunk)
+    want_rgb, got_rgb = [], []
+    with pytest.MonkeyPatch.context() as m:  # the plain route
+        m.setattr(R, "_kernel_route", lambda *a: False)
+        want = R.render(scene, p, chunk_size=chunk, aovs=aovs,
+                        progress_callback=lambda i, rgb: want_rgb.append(rgb))
+    assert not kernel_route
+    # the eager loop: its progress callback gets each chunk's rgb, also
+    # when rgb is not among the AOVs read back
+    eager = R.render(scene, p, chunk_size=chunk, aovs=aovs,
+                     progress_callback=lambda i, rgb: got_rgb.append(rgb))
+    assert kernel_route == [chunk] * n_chunks
+    assert [a.tobytes() for a in got_rgb] == [a.tobytes() for a in want_rgb]
+    # the graph route: a capture, then replays, each adding the frame's
+    # glue launches (two a chunk)
+    frames = [R.render(scene, p, chunk_size=chunk, aovs=aovs)
+              for _ in range(3)]
+    assert (R.graph_captures, R.graph_replays) == (1, 2)
+    fg = next(iter(scene._frame_graphs.values()))
+    assert fg.glue_launches == 2 * n_chunks
+    # the eager frame, the capture's eager frame, and two replays (the
+    # capture itself adds nothing)
+    assert sh.glue_launches == 4 * 2 * n_chunks
+    for out in [eager] + frames:
+        assert _same(out, want)
+
+
+# ---- the wrappers raise before anything is launched ----
+
+def _prologue_args(R_=3000, nb=8):
+    f32, i32 = torch.float32, torch.int32
+    nrb = -(-R_ // 1024)
+    return dict(baabb=torch.zeros((nb, 8)),
+                rays=torch.zeros((8, nrb * 1024)),
+                counts=torch.zeros(nrb, dtype=i32),
+                order=torch.zeros((nrb, nb), dtype=i32),
+                dists=torch.zeros((nrb, nb), dtype=f32),
+                dirs=torch.ones((R_, 3)))
+
+
+PROLOGUE_FAULTS = {
+    "device": ({}, "must be a CUDA tensor"),
+    "dtype": ({"rays": torch.zeros((8, 3072), dtype=torch.float64)},
+              "rays must be torch.float32"),
+    "shape": ({"order": torch.zeros((3, 9), dtype=torch.int32)},
+              "order must have shape"),
+    "contiguous": ({"dirs": torch.ones((3, 3000)).t()},
+                   "dirs must be contiguous"),
+    "idtype": ({"counts": torch.zeros(3)}, "counts must be torch.int32"),
+}
+
+
+@pytest.fixture
+def no_launch(monkeypatch):
+    def load():
+        raise AssertionError("launched")
+
+    monkeypatch.setattr(build, "load", load)
+
+
+@pytest.mark.parametrize("fault", list(PROLOGUE_FAULTS))
+def test_prologue_wrapper_raises_without_launching(no_launch, fault):
+    change, match = PROLOGUE_FAULTS[fault]
+    args = dict(_prologue_args(), **change)
+    with pytest.raises(ValueError, match=match):
+        build.launch_rays_cull(args["baabb"], args["rays"], args["counts"],
+                               args["order"], args["dists"], R=3000,
+                               dirs=args["dirs"])
+
+
+def test_prologue_wrapper_takes_one_form_of_rays(no_launch):
+    a = _prologue_args()
+    cam = (torch.zeros(3000), torch.zeros(3000), 0.5, 0.5, 1.0, -1.0)
+    lists = (a["baabb"], a["rays"], a["counts"], a["order"], a["dists"])
+    with pytest.raises(ValueError, match="either"):
+        build.launch_rays_cull(*lists, R=3000, camera=cam, dirs=a["dirs"])
+    with pytest.raises(ValueError, match="either"):
+        build.launch_rays_cull(*lists, R=3000)
+    with pytest.raises(ValueError, match="origin"):
+        build.launch_rays_cull(*lists, R=3000, camera=cam,
+                               origins=a["dirs"])
+    with pytest.raises(ValueError, match="sx must have shape"):
+        build.launch_rays_cull(*lists, R=3000, camera=cam[:4] + (
+            torch.ones(1), torch.ones(())))
+
+
+def _shade_outs(R_):
+    return {k: torch.empty((R_,) + s, dtype=dt)
+            for k, (s, dt) in build.SHADE_OUTS.items()}
+
+
+SHADE_FAULTS = {
+    "device": ({}, {}, "must be a CUDA tensor"),
+    "dtype": ({"out_i": torch.zeros((4, 1024))}, {},
+              "out_i must be torch.int32"),
+    "shape": ({}, {"rgb": torch.empty((600, 4))}, "rgb must have shape"),
+    "contiguous": ({}, {"normal": torch.empty((3, 600)).t()},
+                   "normal must be contiguous"),
+    "escaped": ({}, {"escaped": torch.empty(600, dtype=torch.uint8)},
+                "escaped must be torch.bool"),
+    "name": ({}, {"albedo": torch.empty((600, 3))}, "no such AOV"),
+    "rays": ({"R_": 1025}, {}, "do not fit"),
+}
+
+
+@pytest.mark.parametrize("fault", list(SHADE_FAULTS))
+def test_epilogue_wrapper_raises_without_launching(no_launch, fault):
+    scene, _ = _box()
+    change, outs_change, match = SHADE_FAULTS[fault]
+    args = dict(rays=torch.zeros((8, 1024)), out_f=torch.zeros((4, 1024)),
+                out_i=torch.zeros((4, 1024), dtype=torch.int32), R_=600)
+    args.update(change)
+    outs = dict(_shade_outs(600), **outs_change)
+    with pytest.raises(ValueError, match=match):
+        build.launch_shade(scene, args["rays"], args["out_f"], args["out_i"],
+                           outs, R=args["R_"], light=LIGHT, ambient=AMBIENT,
+                           zero_origin=True)
+
+
+def test_public_functions_on_cpu_tensors_launch_nothing(no_launch):
+    scene, params = _box()
+    sh.reset_launches()
+    d = torch.ones((600, 3))
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        sh.shadow_inputs_cuda(scene, None, d)
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        sh.camera_inputs_cuda(scene, d[:, 0].contiguous(),
+                              d[:, 1].contiguous(), (48, 32), _scale(params))
+    counts, order, dists, rays = sh.shadow_inputs(scene, None, d)
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        sh.shade_cuda(scene, rays, torch.zeros((4, 1024)),
+                      torch.zeros((4, 1024), dtype=torch.int32), 600, LIGHT,
+                      AMBIENT, zero_origin=True)
+    assert sh.glue_launches == sh.launches == 0
+
+
+def test_reset_launches_resets_the_glue_counter():
+    sh.launches, sh.glue_launches = 3, 64
+    R.graph_replays = 2
+    sh.reset_launches()
+    R.reset_counters()
+    assert sh.launches == sh.glue_launches == R.graph_replays == 0
+
+
+# ---- on the card ----
+
+@pytest.fixture(scope="module")
+def cuda_device():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    return torch.device("cuda", 0)
+
+
+@pytest.fixture(scope="module")
+def frame_scene(cuda_device):
+    """Cornell + monkey at 1440^2 on the card (the shadow cell's scene)."""
+    return _box(cuda_device, 1440, 1440, MONKEY)
+
+
+# The stream position of the 1440^2 frame's middle tile (tile row 22,
+# column 22 of 45): the chunks the card tests take start there.
+MIDDLE = (22 * 45 + 22) * 1024
+
+
+def _chunk_coords(scene, params, n):
+    padded = -(-1440 * 1440 // 65536) * 65536
+    rows, cols = pixel_stream(params).coords(scene.device, padded)
+    return rows[MIDDLE:MIDDLE + n], cols[MIDDLE:MIDDLE + n]
+
+
+def _spread_rays(scene, n, seed=5):
+    """n random rays from origins spread over the box, a third aimed at
+    the spheres and the disc."""
+    rng = np.random.default_rng(seed)
+    b = scene.baabb.cpu().numpy()
+    lo, hi = b[:, 0:3].min(0), b[:, 3:6].max(0)
+    o = rng.uniform(lo + 0.1 * (hi - lo), hi - 0.1 * (hi - lo),
+                    (n, 3)).astype(np.float32)
+    d = rng.normal(size=(n, 3)).astype(np.float32)
+    tg = scene.ap.cpu().numpy()[:, 1:4]
+    k = n // 3
+    d[:k] = (tg[rng.integers(0, len(tg), k)]
+             + rng.normal(0, 20, (k, 3)).astype(np.float32) - o[:k])
+    d /= np.linalg.norm(d, axis=1, keepdims=True)
+    return (torch.from_numpy(o).to(scene.device),
+            torch.from_numpy(d).to(scene.device))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["chunk", "ragged", "dirs", "origins"])
+def test_prologue_equals_shadow_inputs(frame_scene, case):
+    scene, params = frame_scene
+    p = _zoomed(params, 1.0125)
+    scale = _scale(p)
+    n = 3000 if case in ("ragged", "origins") else 65536
+    rows, cols = _chunk_coords(scene, p, n)
+    d = scaled_ray_dir(cols, rows, 1440, 1440, *scale)
+    sh.reset_launches()
+    if case in ("chunk", "ragged"):
+        want = sh.shadow_inputs(scene, None, d)
+        got = sh.camera_inputs_cuda(scene, rows, cols, (1440, 1440), scale)
+        # the factors as 0-d tensors on the card, as a replay reads them
+        sc = tuple(torch.full((), v, dtype=torch.float32,
+                              device=scene.device) for v in scale)
+        got2 = sh.camera_inputs_cuda(scene, rows, cols, (1440, 1440), sc)
+        assert all(_bytes(a) == _bytes(b) for a, b in zip(got, got2))
+    else:
+        o = None
+        if case == "origins":
+            o, d = _spread_rays(scene, n)
+        want = sh.shadow_inputs(scene, o, d)
+        got = sh.shadow_inputs_cuda(scene, o, d)
+    torch.cuda.synchronize()
+    for name, a, b in zip(("counts", "order", "dists", "rays"), got, want):
+        assert a.dtype == b.dtype and a.shape == b.shape, name
+        assert _bytes(a) == _bytes(b), name
+    assert int(got[0].sum()) > got[0].shape[0]  # several blocks a bundle
+    assert sh.glue_launches == (2 if case in ("chunk", "ragged") else 1)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("origins", ["zero", "spread"])
+def test_epilogue_equals_shadow_epilogue(frame_scene, origins):
+    scene, params = frame_scene
+    n = 65536 if origins == "zero" else 3000
+    if origins == "zero":
+        rows, cols = _chunk_coords(scene, params, n)
+        o, d = None, scaled_ray_dir(cols, rows, 1440, 1440, *_scale(params))
+    else:
+        o, d = _spread_rays(scene, n, seed=11)
+    args = sh.shadow_inputs(scene, o, d)
+    out_f, out_i = sh.shadow_trace_cuda(scene, *args, light=LIGHT)
+    want = sh.shadow_epilogue(scene, o, d, out_f[:, :n], out_i[:, :n],
+                              LIGHT, AMBIENT)
+    assert int((want[2] != R.INVALID_GEOM_ID).sum()) > n // 4
+    sh.reset_launches()
+    got = sh.shade_cuda(scene, args[3], out_f, out_i, n, LIGHT, AMBIENT,
+                        zero_origin=o is None)
+    for k, a, b in zip(SHADE_FIELDS, got, want):
+        assert a.dtype == b.dtype and a.shape == b.shape, k
+        assert _bytes(a) == _bytes(b), k
+    # every subset of the AOVs, written into the rows of larger buffers
+    want = dict(zip(SHADE_FIELDS, want))
+    for size in range(1, len(SHADE_FIELDS) + 1):
+        for subset in itertools.combinations(SHADE_FIELDS, size):
+            bufs = {k: torch.full((n + 64,) + want[k].shape[1:], 7,
+                                  dtype=want[k].dtype, device=scene.device)
+                    for k in subset}
+            before = {k: b.clone() for k, b in bufs.items()}
+            sh.shade_cuda(scene, args[3], out_f, out_i, n, LIGHT, AMBIENT,
+                          zero_origin=o is None,
+                          out={k: b[32:32 + n] for k, b in bufs.items()})
+            for k, b in bufs.items():
+                assert _bytes(b[32:32 + n]) == _bytes(want[k]), (subset, k)
+                # the rows around the chunk's are left as they were
+                assert torch.equal(b[:32], before[k][:32]), k
+                assert torch.equal(b[32 + n:], before[k][32 + n:]), k
+    assert sh.glue_launches == 2 ** len(SHADE_FIELDS)
+
+
+def _plain_frame(scene, params, chunk, fields, f16=False):
+    """The frame as the port rendered it before the glue kernels: each
+    chunk's ``scaled_ray_dir``, ``shadow_inputs``, K4, ``shadow_epilogue``
+    and the stores into the stream-order buffers, then the readback."""
+    dev = scene.device
+    n = params.window_w * params.window_h
+    padded = -(-n // chunk) * chunk
+    bufs = R._aov_bufs(fields, padded, dev)
+    rows, cols = pixel_stream(params).coords(dev, padded)
+    for g0 in range(0, padded, chunk):
+        d = scaled_ray_dir(cols[g0:g0 + chunk], rows[g0:g0 + chunk],
+                           params.image_width, params.image_height,
+                           *_scale(params))
+        args = sh.shadow_inputs(scene, None, d)
+        f, i = sh.shadow_trace_cuda(scene, *args, light=LIGHT)
+        res = dict(zip(SHADE_FIELDS, sh.shadow_epilogue(
+            scene, None, d, f[:, :chunk], i[:, :chunk], LIGHT, AMBIENT)))
+        for k, b in bufs.items():
+            b[g0:g0 + chunk] = res[k]
+    return R._read_back(bufs, params, dev, f16)
+
+
+def _md5(out):
+    return [hashlib.md5(getattr(out, k).tobytes()).hexdigest()
+            for k in FIELDS]
+
+
+def _frames_against_plain(scene, params, zooms, chunk=65536, aovs=None,
+                          f16=False):
+    fields = [k for k in R._AOVS if k == "geom_id" or aovs is None
+              or k in aovs]
+    n_chunks = -(-params.window_w * params.window_h // chunk)
+    R.render(scene, params, chunk_size=chunk, aovs=aovs, readback_f16=f16)
+    for z in zooms:
+        p = _zoomed(params, z)
+        want = _md5(_plain_frame(scene, p, chunk, fields, f16))
+        counts = []
+        for cb in (None, lambda i, rgb: None):
+            sh.reset_launches()
+            got = R.render(scene, p, chunk_size=chunk, aovs=aovs,
+                           readback_f16=f16, progress_callback=cb)
+            counts.append((sh.launches, sh.glue_launches))
+            assert _md5(got) == want, (z, "eager" if cb else "replay")
+        assert counts == [(n_chunks, 2 * n_chunks)] * 2, counts
+    return n_chunks
+
+
+@pytest.mark.cuda
+def test_frames_equal_the_plain_chain_at_12_zooms(frame_scene):
+    scene, params = frame_scene
+    R.reset_counters()
+    n_chunks = _frames_against_plain(scene, params, ZOOMS)
+    assert n_chunks == 32
+    assert R.graph_captures == 1 and R.graph_replays == len(ZOOMS)
+    fg = next(iter(scene._frame_graphs.values()))
+    assert (fg.k4_launches, fg.glue_launches) == (32, 64)
+    print(f"capture {fg.capture_ms:.1f} ms, {fg.k4_launches} K4 and "
+          f"{fg.glue_launches} glue launches a frame")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["240x136", "f16", "normal"])
+def test_frames_equal_the_plain_chain(cuda_device, frame_scene, case):
+    if case == "240x136":
+        scene, params = _box(cuda_device, 240, 136, MONKEY)
+        _frames_against_plain(scene, params, ZOOMS[:3], chunk=8192)
+    else:
+        scene, params = frame_scene
+        _frames_against_plain(scene, params, ZOOMS[::5],
+                              aovs=("normal",) if case == "normal" else None,
+                              f16=case == "f16")
