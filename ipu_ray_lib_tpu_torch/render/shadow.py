@@ -11,7 +11,10 @@ the full AOV set. Two routes, chosen as the JAX package chooses them
   (ops/traversal.py, kernel K5 or K6; K7 for ``"bvh"``, K8 for
   ``"dense"``), the shadow ray pushed off the surface, an any-hit query
   through the same kernel (K7's any-hit walk for ``"bvh"``), and the
-  shading.
+  shading; under a profiler the spans ``renderer.hit`` (the closest hit
+  and its normal), ``renderer.occlusion`` (the light ray, its offset
+  origin and the any-hit query) and ``renderer.shade``
+  (utils/profiling.py).
 
 Both end in the same shading (ops/shadow.py ``shade``). The JAX package
 chooses the route with the ``RAY_SHADOW_FUSED`` environment variable; here
@@ -27,6 +30,7 @@ import torch
 from ..ops.bxdf_loop import offset_ray_origin
 from ..ops.shadow import fused_shadow_trace, light_ray, shade
 from ..ops.traversal import scene_intersect_with_normal, scene_occluded
+from ..utils.profiling import span
 
 DEFAULT_LIGHT_POS = (18.0, 257.0, -1060.0)
 DEFAULT_AMBIENT = 0.05
@@ -59,11 +63,15 @@ def shadow_trace(scene, origins, dirs: torch.Tensor,
     dev = dirs.device
     t_min = torch.zeros(R, dtype=torch.float32, device=dev)
     t_max = torch.full((R,), float("inf"), dtype=torch.float32, device=dev)
-    hit, normal = scene_intersect_with_normal(scene, origins, dirs, t_min,
-                                              t_max, intersector)
+    with span("renderer.hit"):
+        hit, normal = scene_intersect_with_normal(scene, origins, dirs, t_min,
+                                                  t_max, intersector)
     found = hit.found
-    hit_p, sdir, dist = light_ray(origins, dirs, found, hit.t, light_pos)
-    sorig = offset_ray_origin(hit_p, sdir, normal)
-    occ = scene_occluded(scene, sorig, sdir, t_min, dist, intersector)
-    return TraceResultSoA(*shade(scene, hit.geom_id, hit.prim_id, found,
-                                 normal, hit.t, hit_p, sdir, occ, ambient))
+    with span("renderer.occlusion"):
+        hit_p, sdir, dist = light_ray(origins, dirs, found, hit.t, light_pos)
+        sorig = offset_ray_origin(hit_p, sdir, normal)
+        occ = scene_occluded(scene, sorig, sdir, t_min, dist, intersector)
+    with span("renderer.shade"):
+        return TraceResultSoA(*shade(scene, hit.geom_id, hit.prim_id, found,
+                                     normal, hit.t, hit_p, sdir, occ,
+                                     ambient))
