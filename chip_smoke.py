@@ -1593,13 +1593,13 @@ def p15_entry(p15, key, max_err) -> dict:
 
 @contextlib.contextmanager
 def recording(mod, name):
-    """``mod.name`` (a kernel's wrapper) records the arguments of its calls
-    for the length of the block."""
+    """``mod.name`` (a kernel's wrapper) records the positional arguments
+    of its calls for the length of the block."""
     calls, saved = [], getattr(mod, name)
 
-    def rec(*a):
+    def rec(*a, **kw):
         calls.append(a)
-        return saved(*a)
+        return saved(*a, **kw)
 
     setattr(mod, name, rec)
     try:
@@ -1639,6 +1639,162 @@ def yardstick_dense(rows, o, d, t_min, t_max):
         best_t = torch.where(better, lb, best_t)
         best_i = torch.where(better, (li + b0).to(torch.int32), best_i)
     return best_t, best_i
+
+
+def bvh_glue(dev, scene, params, full=FULL) -> dict:
+    """Phase 15's BVH glue kernels (ops/cuda/glue.cu ``bvh_rays_kernel``,
+    ``bvh_light_kernel``, ``bvh_shade_kernel``) on the Cornell + monkey
+    1440^2 frame of ``scene`` built with a BVH, ``params`` its "bvh"
+    parameters: each launched over the frame's 32 chunks of 65,536 rays at
+    once, as the renderer launches it, and held bit for bit against its
+    plain chain, chunk by chunk on the same inputs (the rays against
+    ``scaled_ray_dir`` and the fills; the light against ``hit_normal``,
+    ``light_ray`` and ``offset_ray_origin``; the shading against
+    ``shade``, every AOV); their CUDA-event times alone and behind the
+    spin kernel, and their bound: bytes at 3.35 TB/s (rays: pixels 8 B,
+    direction, zero origin, t_min and t_max 32 B a ray; light: ray and hit
+    24 B read, shadow ray, distance and normal 40 B written; shading: ray,
+    hit, normal and flag 40 B read, the six AOVs 48 B written); then a
+    replayed frame against the frame of render/shadow.py
+    ``glue_shadow_trace`` and the stores, every AOV bit for bit."""
+    from ipu_ray_lib_tpu_torch.ops import bvh as kb
+    from ipu_ray_lib_tpu_torch.ops import shadow as sh
+    from ipu_ray_lib_tpu_torch.ops.bxdf_loop import offset_ray_origin
+    from ipu_ray_lib_tpu_torch.ops.camera import (plane_scale,
+                                                  scaled_ray_dir,
+                                                  tan_half_fov)
+    from ipu_ray_lib_tpu_torch.ops.cuda import build as cb
+    from ipu_ray_lib_tpu_torch.ops.traversal import Hit, hit_normal
+    from ipu_ray_lib_tpu_torch.render import renderer as rr
+    from ipu_ray_lib_tpu_torch.render.pixels import pixel_stream
+    from ipu_ray_lib_tpu_torch.render.renderer import DEFAULT_CHUNK
+    from ipu_ray_lib_tpu_torch.render.shadow import (DEFAULT_AMBIENT,
+                                                     DEFAULT_LIGHT_POS,
+                                                     glue_shadow_trace)
+
+    f32, i32 = torch.float32, torch.int32
+    light = tuple(float(np.float32(v)) for v in DEFAULT_LIGHT_POS)
+    amb = float(np.float32(DEFAULT_AMBIENT))
+    n_chunks = -(-full * full // DEFAULT_CHUNK)
+    R = n_chunks * DEFAULT_CHUNK
+    rows, cols = pixel_stream(params).coords(dev, R)
+    scale = plane_scale(full, full, tan_half_fov(params.fov_radians))
+    inv = [float(np.float32(1.0) / np.float32(full))] * 2
+    chunks = [slice(c * DEFAULT_CHUNK, (c + 1) * DEFAULT_CHUNK)
+              for c in range(n_chunks)]
+    vec = lambda: torch.empty((R, 3), dtype=f32, device=dev)
+    ray = lambda dt=f32: torch.empty(R, dtype=dt, device=dev)
+    # the plain chain, chunk by chunk, K7 between (its inputs the chain's)
+    plain_ms = {"rays": 0.0, "light": 0.0, "shade": 0.0}
+
+    def plain(name, fn):
+        out, t = timed(fn)
+        plain_ms[name] += t * 1e3
+        return out
+
+    want = {k: [] for k in ("dirs", "hit", "sorig", "sdir", "dist", "normal",
+                            "occ", "shade")}
+    for w in chunks:
+        d = plain("rays", lambda: scaled_ray_dir(cols[w], rows[w], full, full,
+                                                 *scale))
+        t_min = torch.zeros(DEFAULT_CHUNK, device=dev)
+        t_max = torch.full((DEFAULT_CHUNK,), float("inf"), device=dev)
+        hit = kb.bvh_walk_raw(scene, torch.zeros_like(d), d, t_min, t_max,
+                              False, True)
+        h = Hit(*hit)
+
+        def chain_light():
+            normal = hit_normal(scene, None, d, h)
+            hit_p, sdir, dist = sh.light_ray(None, d, h.found, h.t,
+                                             DEFAULT_LIGHT_POS)
+            return (offset_ray_origin(hit_p, sdir, normal), sdir, dist,
+                    normal, hit_p)
+
+        sorig, sdir, dist, normal, hit_p = plain("light", chain_light)
+        occ = kb.bvh_walk_raw(scene, sorig, sdir, t_min, dist, True, False)[1]
+        shaded = plain("shade", lambda: sh.shade(
+            scene, hit[1], hit[2], h.found, normal, hit[0], hit_p, sdir,
+            occ != 0, DEFAULT_AMBIENT))
+        for k, v in (("dirs", d), ("hit", hit), ("sorig", sorig),
+                     ("sdir", sdir), ("dist", dist), ("normal", normal),
+                     ("occ", occ), ("shade", shaded)):
+            want[k].append(v)
+    cat = lambda xs: torch.cat(xs)
+    w_dirs, w_sorig, w_sdir, w_dist, w_normal, w_occ = (
+        cat(want[k]) for k in ("dirs", "sorig", "sdir", "dist", "normal",
+                               "occ"))
+    w_hit = [cat([h[j] for h in want["hit"]]) for j in range(3)]
+    w_shade = [cat([o[j] for o in want["shade"]]) for j in range(7)]
+    # the kernels over the frame, on the chain's inputs
+    dirs, zeros, t_min, t_max = vec(), vec(), ray(), ray()
+    sorig, sdir, dist, normal = vec(), vec(), ray(), vec()
+    outs = {k: torch.empty((R,) + shape, dtype=dt, device=dev)
+            for k, (shape, dt) in cb.SHADE_OUTS.items()}
+    aovs = {k: v for k, v in outs.items() if k != "escaped"}
+    runs = {
+        "bvh_rays_kernel": lambda: cb.launch_bvh_rays(
+            t_min, t_max, zeros=zeros, dirs=dirs,
+            camera=(rows, cols, *inv, *scale)),
+        "bvh_light_kernel": lambda: cb.launch_bvh_light(
+            scene, w_dirs, *w_hit, sorig, sdir, dist, normal, light=light),
+        "bvh_shade_kernel": lambda: cb.launch_bvh_shade(
+            scene, w_dirs, *w_hit, w_normal, w_occ, aovs, light=light,
+            ambient=amb)}
+    bound_b = {"bvh_rays_kernel": 40, "bvh_light_kernel": 64,
+               "bvh_shade_kernel": 88}
+    out = {}
+    for name, fn in runs.items():
+        ms, _ = event_ms(fn, reps=5)
+        card_ms, _ = event_ms(fn, reps=5, hold_ms=5.0)
+        nbytes = R * bound_b[name]
+        out[name] = dict(ms=ms, card_ms=card_ms, launches=1,
+                         bound_ms=nbytes / PEAK_BYTES * 1e3, bytes=nbytes)
+    cb.launch_bvh_shade(scene, w_dirs, *w_hit, w_normal, w_occ, outs,
+                        light=light, ambient=amb)
+    torch.cuda.synchronize()
+    bad = {
+        "bvh_rays_kernel": [k for k, a, b in (
+            ("dirs", dirs, w_dirs), ("zeros", zeros, torch.zeros_like(dirs)),
+            ("t_min", t_min, torch.zeros_like(t_min)),
+            ("t_max", t_max, torch.full_like(t_max, float("inf"))))
+            if not bits_equal(a.cpu(), b.cpu())],
+        "bvh_light_kernel": [k for k, a, b in (
+            ("sorig", sorig, w_sorig), ("sdir", sdir, w_sdir),
+            ("dist", dist, w_dist), ("normal", normal, w_normal))
+            if not bits_equal(a.cpu(), b.cpu())],
+        "bvh_shade_kernel": [k for k, b in zip(cb.SHADE_OUTS, w_shade)
+                             if not bits_equal(outs[k].cpu(), b.cpu())]}
+    for name, o in out.items():
+        o["differ"] = bad[name]
+        log(f"[p15 bvh glue] {name} over the {full}^2 frame ({R} rays, one "
+            f"launch): {', '.join(f'{t:.3f}' for t in o['ms'])} ms (behind "
+            f"a spin kernel {', '.join(f'{t:.3f}' for t in o['card_ms'])} "
+            f"ms), bound {o['bound_ms']:.4f} ms ({o['bytes'] / 1e6:.1f} MB); "
+            f"its plain chain over the {n_chunks} chunks "
+            f"{plain_ms[name.split('_')[1]]:.1f} ms; outputs that differ "
+            f"from it: {bad[name] or 'none'}")
+    # a replayed frame against the glue route's torch chain
+    p_bvh = dataclasses.replace(params, intersector="bvh")
+    bufs = rr._aov_bufs(list(rr._AOVS), R, dev)
+    for w, d in zip(chunks, want["dirs"]):
+        res = glue_shadow_trace(scene, None, d, DEFAULT_LIGHT_POS,
+                                DEFAULT_AMBIENT, "bvh")
+        for k, b in bufs.items():
+            b[w] = getattr(res, k)
+    chain = rr._read_back(bufs, p_bvh, dev, False)
+    rr.render(scene, p_bvh)
+    replays = rr.graph_replays
+    got = rr.render(scene, p_bvh)
+    frame_bad = [k for k in rr.RenderOutput._fields
+                 if not bits_equal(getattr(got, k), getattr(chain, k))]
+    out["replayed_frame_differs"] = frame_bad
+    log(f"[p15 bvh glue] a replayed {full}^2 frame (replays "
+        f"{replays} -> {rr.graph_replays}) against glue_shadow_trace's: AOVs "
+        f"that differ {frame_bad or 'none'}")
+    if any(bad.values()) or frame_bad or rr.graph_replays != replays + 1:
+        raise AssertionError("a BVH glue kernel disagrees with its plain "
+                             "chain, or the replayed frame with the chain's")
+    return out
 
 
 def intersectors(dev, k4_frame, mega_mean, full=FULL) -> dict:
@@ -1723,10 +1879,12 @@ def intersectors(dev, k4_frame, mega_mean, full=FULL) -> dict:
             "bit for bit")
 
     def shadow_calls(sc, p, **kw):
-        """A shadow-trace render with K7's and K8's calls recorded."""
-        with recording(kb, "bvh_walk_cuda") as c7, \
+        """A shadow-trace render with K7's and K8's calls recorded: the
+        eager chunk loop (a progress callback keeps a "bvh" frame off its
+        graph, whose replays call nothing)."""
+        with recording(kb, "bvh_walk_raw") as c7, \
                 recording(kd, "dense_closest_tri_cuda") as c8:
-            res = render(sc, p, **kw)
+            res = render(sc, p, progress_callback=lambda i, rgb: None, **kw)
         return res, {"k7": c7, "k8": c8}
 
     # ---- (a) kernel vs plain ----
@@ -1776,6 +1934,8 @@ def intersectors(dev, k4_frame, mega_mean, full=FULL) -> dict:
         f"{lib_chunk:.3f} ms, its rows equal K8's on "
         f"{out['yardstick_agree']:.4f} of the rays)")
 
+    out["bvh_glue"] = bvh_glue(dev, cs, params["bvh"], full)
+
     # ---- (b) the shadow trace at full width ----
     n_frame = full * full
     frames = {}
@@ -1815,8 +1975,9 @@ def intersectors(dev, k4_frame, mega_mean, full=FULL) -> dict:
                 or not 0 < res.hit_count < n_frame):
             raise AssertionError(f"(b) {m}: non-finite AOVs, no hits or the "
                                  "wrong kernels")
-        # The bound over the frame's calls, for its real rays only (each
-        # chunk's closest hit, then its any hit; the last chunk's padding
+        # The bound over the frame's calls, for its real rays only (K7:
+        # every chunk's closest hit, then every chunk's any hit; K8: each
+        # chunk's closest hit, then its occlusion; the last chunk's padding
         # rays are not the frame's): each ray's inputs read once and its
         # outputs written once, as the call needs them (camera rays: no
         # origin; closest hit: t, geom, prim (K8: t, row); K7's any hit:
@@ -1824,17 +1985,20 @@ def intersectors(dev, k4_frame, mega_mean, full=FULL) -> dict:
         # launch over the real rays (node visits, leaf tests), K8's from
         # the pairs (padded rows x real rays).
         chunk = calls[key][0][2].shape[0]
-        if len(calls[key]) != 2 * -(-n_frame // chunk) or (
-                key == "k7" and any(a[5] != (i % 2 == 1)
-                                    for i, a in enumerate(calls[key]))):
+        n_ch = -(-n_frame // chunk)
+        # (chunk, camera rays) of each call in order
+        seq = ([(c, True) for c in range(n_ch)]
+               + [(c, False) for c in range(n_ch)] if key == "k7"
+               else [(i // 2, i % 2 == 0) for i in range(2 * n_ch)])
+        if len(calls[key]) != 2 * n_ch or (
+                key == "k7" and any(a[5] == camera for a, (_, camera)
+                                    in zip(calls[key], seq))):
             raise AssertionError(f"(b) {m}: not one closest and one any hit "
                                  "per chunk")
-        real = [min(chunk, n_frame - (i // 2) * chunk)
-                for i in range(len(calls[key]))]
+        real = [min(chunk, n_frame - c * chunk) for c, _ in seq]
         rays = sum(real)
         words = 0
-        for i, n_ in enumerate(real):
-            camera = i % 2 == 0
+        for (_, camera), n_ in zip(seq, real):
             out_words = (3 if camera else 1) if key == "k7" else 2
             words += n_ * ((5 if camera else 8) + out_words)
         if key == "k7":

@@ -150,23 +150,36 @@ def bvh_walk_ref(scene, origin, direction, t_min, t_max, any_hit: bool,
     return best_t, best_g.to(torch.int32), best_p.to(torch.int32)
 
 
-def bvh_walk_cuda(scene, origin, direction, t_min, t_max, any_hit: bool,
-                  zero_origin: bool = False):
-    """K7 on the card; counts its launches. Same outputs as
-    :func:`bvh_walk_ref`."""
+def bvh_walk_raw(scene, origin, direction, t_min, t_max, any_hit: bool,
+                 zero_origin: bool = False, out=None):
+    """K7 on the card, its outputs as the kernel writes them: (t [R] f32,
+    geom [R] i32, prim [R] i32), into ``out`` (those three tensors) or
+    fresh ones; with ``any_hit`` geom is 1 where occluded, 0 elsewhere,
+    and t and prim are unwritten. Counts its launches."""
     global launches
     from .cuda.build import launch_bvh
 
     R = direction.shape[0]
     dev = direction.device
-    out_t = torch.empty(R, dtype=torch.float32, device=dev)
-    out_g = torch.empty(R, dtype=torch.int32, device=dev)
-    out_p = torch.empty(R, dtype=torch.int32, device=dev)
+    if out is None:
+        out = (torch.empty(R, dtype=torch.float32, device=dev),
+               torch.empty(R, dtype=torch.int32, device=dev),
+               torch.empty(R, dtype=torch.int32, device=dev))
+    out_t, out_g, out_p = out
     if R:
         launch_bvh(scene, origin.contiguous(), direction.contiguous(),
                    t_min.contiguous(), t_max.contiguous(), out_t, out_g,
                    out_p, any_hit=any_hit, zero_origin=zero_origin)
         launches += 1
+    return out_t, out_g, out_p
+
+
+def bvh_walk_cuda(scene, origin, direction, t_min, t_max, any_hit: bool,
+                  zero_origin: bool = False):
+    """K7 on the card; counts its launches. Same outputs as
+    :func:`bvh_walk_ref`."""
+    out_t, out_g, out_p = bvh_walk_raw(scene, origin, direction, t_min,
+                                       t_max, any_hit, zero_origin)
     if any_hit:
         return out_g != 0, None, None
     return out_t, out_g, out_p

@@ -94,6 +94,9 @@ _SIGNATURES = {
     "dense_launch": [_P] * 7 + [_I] * 2 + [_P],
     "rays_cull_launch": [_P] * 5 + [_F] * 4 + [_P] * 6 + [_I] * 2 + [_P],
     "shade_launch": [_P] * 17 + [_I] * 8 + [_F] * 4 + [_P],
+    "bvh_rays_launch": [_P] * 4 + [_F] * 4 + [_P] * 4 + [_I] + [_P],
+    "bvh_light_launch": [_P] * 18 + [_I] * 6 + [_F] * 3 + [_P],
+    "bvh_shade_launch": [_P] * 16 + [_I] * 3 + [_F] * 4 + [_P],
 }
 # The counters of a counting launch of K7: node visits, leaf tests.
 BVH_COUNTERS = ("node_visits", "leaf_tests")
@@ -558,6 +561,33 @@ def launch_dense(rows, origin, direction, t_min, t_max, out_t,
     _raise_on(err, "dense")
 
 
+def _ptr(t):
+    return None if t is None else t.data_ptr()
+
+
+def _camera(camera, R: int, ts: dict) -> tuple:
+    """The camera rays' arguments of the glue launchers (rows, cols, sxp,
+    syp, sx, sy, inv_w, inv_h), from ``camera`` (rows, cols [R] f32, inv_w,
+    inv_h, sx, sy; sx and sy floats or 0-d f32 tensors on the card, read
+    when the kernel runs) or None (all null and 0); ``ts`` gains the
+    tensors to check for their device."""
+    if camera is None:
+        return None, None, None, None, 0.0, 0.0, 0.0, 0.0
+    f32 = torch.float32
+    rows, cols, inv_w, inv_h, sx, sy = camera
+    _check_layout("rows", rows, f32, (R,))
+    _check_layout("cols", cols, f32, (R,))
+    ts.update(rows=rows, cols=cols)
+    sxp = syp = None
+    if torch.is_tensor(sx) or torch.is_tensor(sy):
+        _check_layout("sx", sx, f32, ())
+        _check_layout("sy", sy, f32, ())
+        ts.update(sx=sx, sy=sy)
+        sxp, syp, sx, sy = sx.data_ptr(), sy.data_ptr(), 0.0, 0.0
+    return (rows.data_ptr(), cols.data_ptr(), sxp, syp, float(sx), float(sy),
+            float(inv_w), float(inv_h))
+
+
 def launch_rays_cull(baabb, rays, counts, order, dists, *, R: int,
                      camera=None, origins=None, dirs=None) -> None:
     """Launch the shadow frame's prologue (glue.cu ``rays_cull_kernel``) on
@@ -586,19 +616,8 @@ def launch_rays_cull(baabb, rays, counts, order, dists, *, R: int,
     _check_layout("counts", counts, i32, (nrb,))
     _check_layout("order", order, i32, (nrb, nb))
     _check_layout("dists", dists, f32, (nrb, nb))
-    rows = cols = sxp = syp = None
-    sx = sy = inv_w = inv_h = 0.0
-    if camera is not None:
-        rows, cols, inv_w, inv_h, sx, sy = camera
-        _check_layout("rows", rows, f32, (R,))
-        _check_layout("cols", cols, f32, (R,))
-        ts.update(rows=rows, cols=cols)
-        if torch.is_tensor(sx) or torch.is_tensor(sy):
-            _check_layout("sx", sx, f32, ())
-            _check_layout("sy", sy, f32, ())
-            ts.update(sx=sx, sy=sy)
-            sxp, syp, sx, sy = sx, sy, 0.0, 0.0
-    else:
+    cam = _camera(camera, R, ts)
+    if camera is None:
         _check_layout("dirs", dirs, f32, (R, 3))
         ts.update(dirs=dirs)
         if origins is not None:
@@ -609,14 +628,12 @@ def launch_rays_cull(baabb, rays, counts, order, dists, *, R: int,
     if nb * 4 > 48 * 1024:
         raise ValueError(f"{nb} blocks need {nb * 4} bytes of bounds in shared "
                          "memory; the prologue takes up to 48 KB")
-    ptr = lambda t: None if t is None else t.data_ptr()
     lib = load()
     with torch.cuda.device(rays.device):
         err = lib.rays_cull_launch(
-            baabb.data_ptr(), ptr(rows), ptr(cols), ptr(sxp), ptr(syp),
-            float(sx), float(sy), float(inv_w), float(inv_h), ptr(origins),
-            ptr(dirs), rays.data_ptr(), counts.data_ptr(), order.data_ptr(),
-            dists.data_ptr(), R, nb, _stream(rays.device))
+            baabb.data_ptr(), *cam, _ptr(origins), _ptr(dirs), rays.data_ptr(),
+            counts.data_ptr(), order.data_ptr(), dists.data_ptr(), R, nb,
+            _stream(rays.device))
     _raise_on(err, "rays_cull")
 
 
@@ -681,3 +698,158 @@ def launch_shade(scene, rays, out_f, out_i, outs: dict, *, R: int, light,
             *map(ptr, SHADE_OUTS), R, Rp, n_tri, n_sph, n_dsc, n_geom, n_mat,
             int(zero_origin), *light, float(ambient), _stream(rays.device))
     _raise_on(err, "shade")
+
+
+def launch_bvh_rays(t_min, t_max, *, zeros=None, dirs=None,
+                    camera=None) -> None:
+    """Launch the BVH route's rays kernel (glue.cu ``bvh_rays_kernel``) on
+    the current stream, one thread per ray: ``t_min`` and ``t_max`` [R] f32
+    written with 0 and inf; ``zeros`` [R, 3] f32, if given, with (0, 0,
+    0), the origin K7 reads for rays from it; with ``camera`` (as
+    :func:`launch_rays_cull` takes it) the camera rays' directions into
+    ``dirs`` [R, 3] f32."""
+    f32 = torch.float32
+    R = t_min.shape[0]
+    if R < 1:
+        raise ValueError("no ray to trace")
+    if (camera is None) != (dirs is None):
+        raise ValueError("dirs are written for camera rays, and only then")
+    ts = dict(t_min=t_min, t_max=t_max)
+    _check_layout("t_min", t_min, f32, (R,))
+    _check_layout("t_max", t_max, f32, (R,))
+    for k, t in (("zeros", zeros), ("dirs", dirs)):
+        if t is not None:
+            _check_layout(k, t, f32, (R, 3))
+            ts[k] = t
+    cam = _camera(camera, R, ts)
+    _on_card(**ts)
+    _same_device(*ts.values())
+    lib = load()
+    with torch.cuda.device(t_min.device):
+        err = lib.bvh_rays_launch(*cam, _ptr(zeros), _ptr(dirs),
+                                  t_min.data_ptr(), t_max.data_ptr(), R,
+                                  _stream(t_min.device))
+    _raise_on(err, "bvh_rays")
+
+
+def _scene_tables(scene, spec: dict) -> dict:
+    """The scene's tables of ``spec`` (name -> dtype and trailing shape),
+    their layout, size and device checked once a scene: the check holds
+    while the scene's attributes are the same tensors."""
+    tables = {k: getattr(scene, k) for k in spec}
+    checked = scene.__dict__.setdefault("_glue_tables", {})
+    seen = checked.get(tuple(spec))
+    if seen is not None and all(a is b for a, b in zip(seen, tables.values())):
+        return tables
+    for k, (dt, shape) in spec.items():
+        t = tables[k]
+        _check_layout(k, t, dt, (t.shape[0],) + shape)
+        if t.shape[0] < 1:
+            raise ValueError(f"the scene's {k} is empty")
+    _on_card(**tables)
+    _same_device(*tables.values())
+    checked[tuple(spec)] = tuple(tables.values())
+    return tables
+
+
+# The tables of a "bvh" scene that the light kernel reads (hit_normal), in
+# its launcher's order, and those the shade kernel reads: name -> dtype and
+# trailing shape.
+_BVH_GEOM = {"geom_type": (torch.int32, ()), "geom_index": (torch.int32, ()),
+             "mesh_first_tri": (torch.int32, ()),
+             "mesh_has_normals": (torch.int32, ()),
+             "tri_v": (torch.int32, (3,)), "verts": (torch.float32, (3,)),
+             "normals": (torch.float32, (3,)),
+             "spheres": (torch.float32, (4,)), "discs": (torch.float32, (7,))}
+_BVH_MAT = {"mat_id": (torch.int32, ()), "mat_albedo": (torch.float32, (3,))}
+
+
+def _hit_args(R: int, ts: dict, origins, dirs, hit_t, hit_geom, hit_prim) -> None:
+    """Check a BVH glue kernel's rays and K7's closest hit, each [R, ...]
+    (``origins`` may be None), into ``ts``."""
+    f32, i32 = torch.float32, torch.int32
+    if R < 1:
+        raise ValueError("no ray to trace")
+    for k, t, dt, shape in (("origins", origins, f32, (R, 3)),
+                            ("dirs", dirs, f32, (R, 3)),
+                            ("hit_t", hit_t, f32, (R,)),
+                            ("hit_geom", hit_geom, i32, (R,)),
+                            ("hit_prim", hit_prim, i32, (R,))):
+        if t is not None:
+            _check_layout(k, t, dt, shape)
+            ts[k] = t
+
+
+def launch_bvh_light(scene, dirs, hit_t, hit_geom, hit_prim, sorig, sdir, dist,
+                     normal, *, origins=None, light) -> None:
+    """Launch the BVH route's light kernel (glue.cu ``bvh_light_kernel``)
+    on the current stream, one thread per ray: after K7's closest hit
+    (``hit_t`` [R] f32, ``hit_geom``, ``hit_prim`` [R] i32) of the rays
+    ``origins`` (None: the origin) and ``dirs`` [R, 3] f32, the shading
+    normal into ``normal`` [R, 3] (ops/traversal.py ``hit_normal``) and the
+    shadow ray toward ``light`` (three f32 values) into ``sorig``,
+    ``sdir`` [R, 3] and ``dist`` [R] (ops/shadow.py ``light_ray``,
+    ops/bxdf_loop.py ``offset_ray_origin``), all f32."""
+    f32 = torch.float32
+    R = dirs.shape[0]
+    if scene.bvh_nodes is None:
+        raise ValueError("this scene carries no threaded BVH (build it with "
+                         "intersector='bvh' or 'dense')")
+    ts = {}
+    _hit_args(R, ts, origins, dirs, hit_t, hit_geom, hit_prim)
+    for k, t, shape in (("sorig", sorig, (R, 3)), ("sdir", sdir, (R, 3)),
+                        ("dist", dist, (R,)), ("normal", normal, (R, 3))):
+        _check_layout(k, t, f32, shape)
+        ts[k] = t
+    geo = _scene_tables(scene, _BVH_GEOM)
+    _on_card(**ts)
+    _same_device(*ts.values(), geo["geom_type"])
+    lib = load()
+    with torch.cuda.device(dirs.device):
+        err = lib.bvh_light_launch(
+            _ptr(origins), dirs.data_ptr(), hit_t.data_ptr(),
+            hit_geom.data_ptr(), hit_prim.data_ptr(),
+            *(t.data_ptr() for t in geo.values()), sorig.data_ptr(),
+            sdir.data_ptr(), dist.data_ptr(), normal.data_ptr(), R,
+            *(geo[k].shape[0] for k in ("geom_type", "mesh_first_tri",
+                                        "tri_v", "spheres", "discs")),
+            *light, _stream(dirs.device))
+    _raise_on(err, "bvh_light")
+
+
+def launch_bvh_shade(scene, dirs, hit_t, hit_geom, hit_prim, normal, occ,
+                     outs: dict, *, origins=None, light,
+                     ambient: float) -> None:
+    """Launch the BVH route's shading (glue.cu ``bvh_shade_kernel``) on the
+    current stream, one thread per ray: the rays ``origins`` (None: the
+    origin) and ``dirs`` [R, 3] f32, K7's closest hit (``hit_t`` [R] f32,
+    ``hit_geom``, ``hit_prim`` [R] i32), the light kernel's ``normal`` [R, 3]
+    f32 and K7's any hit ``occ`` [R] i32 shaded as ops/shadow.py ``shade``
+    shades them, into the tensors of ``outs`` (as :func:`launch_shade`
+    takes them); ``light`` three f32 values, ``ambient`` an f32 value."""
+    f32, i32 = torch.float32, torch.int32
+    R = dirs.shape[0]
+    unknown = set(outs) - set(SHADE_OUTS)
+    if unknown:
+        raise ValueError(f"no such AOV: {sorted(unknown)}")
+    ts = {}
+    _hit_args(R, ts, origins, dirs, hit_t, hit_geom, hit_prim)
+    _check_layout("hit_normal", normal, f32, (R, 3))
+    _check_layout("occ", occ, i32, (R,))
+    for k, t in outs.items():
+        shape, dt = SHADE_OUTS[k]
+        _check_layout(k, t, dt, (R,) + shape)
+    mat = _scene_tables(scene, _BVH_MAT)
+    n_geom, n_mat = mat["mat_id"].shape[0], mat["mat_albedo"].shape[0]
+    _on_card(**ts, hit_normal=normal, occ=occ, **outs)
+    _same_device(*ts.values(), normal, occ, mat["mat_id"], *outs.values())
+    lib = load()
+    with torch.cuda.device(dirs.device):
+        err = lib.bvh_shade_launch(
+            _ptr(origins), dirs.data_ptr(), hit_t.data_ptr(),
+            hit_geom.data_ptr(), hit_prim.data_ptr(), normal.data_ptr(),
+            occ.data_ptr(), scene.mat_id.data_ptr(),
+            scene.mat_albedo.data_ptr(),
+            *(_ptr(outs.get(k)) for k in SHADE_OUTS), R, n_geom, n_mat,
+            *light, float(ambient), _stream(dirs.device))
+    _raise_on(err, "bvh_shade")

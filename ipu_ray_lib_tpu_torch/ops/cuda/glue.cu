@@ -1,7 +1,9 @@
-// The shadow frame's glue around the fused shadow kernel (K4, shadow.cu)
-// for Hopper (sm_90a): before it, the camera rays and the bundle cull;
-// after it, the shading and the AOV stores: with K4, three launches per
-// chunk of rays.
+// The shadow frame's glue for Hopper (sm_90a), around the fused shadow
+// kernel (K4, shadow.cu) and around the threaded-BVH walk (K7, bvh.cu).
+// Around K4: before it, the camera rays and the bundle cull; after it, the
+// shading and the AOV stores: with K4, three launches per chunk of rays.
+// Around K7's two walks: the rays before the closest hit, the shadow ray
+// between it and the any hit, the shading after: with K7, five launches.
 //
 // Replaces the work that XLA fuses around the TPU kernel `_shadow_kernel`:
 // the glue of `fused_shadow_trace_arrays` / `fused_shadow_trace`
@@ -31,6 +33,21 @@
 //   (shade), written straight into each AOV the caller asks for (the
 //   renderer's stream-order buffers at the chunk's rows, or fresh
 //   tensors), escaped too.
+// - bvh_rays_kernel, one thread per ray: the camera ray's direction
+//   (scaled_ray_dir, as the prologue makes it) or none (the caller's), the
+//   zero origin K7 reads for rays from (0, 0, 0), t_min 0 and t_max inf.
+// - bvh_light_kernel, one thread per ray, after K7's closest hit: the
+//   shading normal (ops/traversal.py hit_normal: the watertight test's
+//   barycentrics over the mesh's vertex normals, or its geometric normal;
+//   the sphere's or the disc's), the hit point and the light ray
+//   (light_ray), the origin pushed off the surface (ops/bxdf_loop.py
+//   offset_ray_origin): the shadow ray K7's any hit walks, and the normal.
+// - bvh_shade_kernel, one thread per ray, after K7's any hit: the light
+//   ray again from the hit, and shade_kernel's shading and stores.
+// They replace the torch glue of render/shadow.py's glue branch (the JAX
+// package's `shadow_trace`, ipu_ray_lib_tpu/render/shadow.py:66-100, which
+// XLA fuses), whose plain torch chain stays for CPU tensors and as their
+// check.
 //
 // Every formula is the port's plain torch version, operation for
 // operation, so the outputs equal it byte for byte. The port's `fma`
@@ -55,7 +72,11 @@
 // addresses, and the per-bundle work (box, slab test, rank) runs in
 // shared memory inside the CTA that made the bundle's rays. Measured on an
 // H100 over a 1440^2 frame (PERF.md §6): 0.31 and 0.22 ms; the prologue's
-// 64 CTAs a chunk leave most of the card's 132 SMs idle.
+// 64 CTAs a chunk leave most of the card's 132 SMs idle. The BVH route's
+// three kernels read and write per ray 40, 64 and 88 B (the camera ray;
+// K7's hit and the shadow ray; the shadow test, the normal and the six
+// AOVs): ~400 MB over a 1440^2 frame, 0.12 ms; hit_normal's table reads
+// stay in L2.
 
 #include "rows.cuh"
 
@@ -66,6 +87,7 @@ using rows::jmax;
 using rows::jmin;
 using rows::kBig30;
 using rows::kInf;
+using rows::kRayEps;
 using rows::kSlabScale;
 using rows::kTiny;
 using rows::V3;
@@ -75,6 +97,7 @@ constexpr int LPT = BR / NT;     // rays per prologue thread
 constexpr int NW = NT / 32;
 constexpr int ST = 256;          // threads of an epilogue CTA
 constexpr int kInvalidGeom = 0xFFFF;  // bvh/builder.py INVALID_GEOM_ID
+constexpr int kMesh = 0, kSphere = 1;  // ops/ids.py GEOM_MESH, GEOM_SPHERE
 
 // The port's fma: a*b exact in double, + c rounded in double, then to f32.
 __device__ __forceinline__ float xfma(float a, float b, float c) {
@@ -112,17 +135,23 @@ struct RaysParams {
   int R, Rp, nb;
 };
 
+// ops/camera.py scaled_ray_dir(x=col, y=row): a camera ray's direction.
+__device__ __forceinline__ void camera_dir(float row, float col, float inv_w, float inv_h,
+                                           float sx, float sy, float d[3]) {
+  const float xn = xfma(col, inv_w, -0.5f);
+  const float yn = xfma(row, inv_h, -0.5f);
+  const float dx = xn * sx, dy = yn * sy;
+  const float n = sqrtf(xfma(dy, dy, dx * dx) + 1.0f);
+  d[0] = dx / n;
+  d[1] = dy / n;
+  d[2] = -1.0f / n;
+}
+
 // One ray of the prologue: (origin, direction) of lane i < R.
 __device__ __forceinline__ void make_ray(const RaysParams& P, int i, float sx, float sy,
                                          float o[3], float d[3]) {
-  if (P.rows) {  // ops/camera.py scaled_ray_dir(x=cols, y=rows)
-    const float xn = xfma(P.cols[i], P.inv_w, -0.5f);
-    const float yn = xfma(P.rows[i], P.inv_h, -0.5f);
-    const float dx = xn * sx, dy = yn * sy;
-    const float n = sqrtf(xfma(dy, dy, dx * dx) + 1.0f);
-    d[0] = dx / n;
-    d[1] = dy / n;
-    d[2] = -1.0f / n;
+  if (P.rows) {
+    camera_dir(P.rows[i], P.cols[i], P.inv_w, P.inv_h, sx, sy, d);
     o[0] = o[1] = o[2] = 0.0f;
     return;
   }
@@ -277,6 +306,62 @@ struct ShadeParams {
   float lx, ly, lz, ambient;
 };
 
+// unit(from_hit(o, d, t, c, -1)) (ops/traversal.py): the normal at the hit
+// on the sphere of centre c; rays from the origin take the folded form.
+__device__ __forceinline__ V3 sphere_normal(const float* c, V3 o, V3 d, float t,
+                                            bool zero_origin) {
+  return unit(zero_origin
+                  ? V3{xfma(d.x, t, -c[0]), xfma(d.y, t, -c[1]), xfma(d.z, t, -c[2])}
+                  : V3{-(c[0] - xfma(d.x, t, o.x)), -(c[1] - xfma(d.y, t, o.y)),
+                       -(c[2] - xfma(d.z, t, o.z))});
+}
+
+// ops/shadow.py light_ray at hp_t (the hit t, or 0 where nothing is hit):
+// the hit point, the unit direction to the light l and the light's distance.
+__device__ __forceinline__ void light_ray(V3 o, V3 d, float hp_t, bool zero_origin, V3 l,
+                                          V3& hp, V3& sdir, float& dist) {
+  V3 lo;
+  if (zero_origin) {
+    hp = {d.x * hp_t, d.y * hp_t, d.z * hp_t};
+    lo = {xfma(-d.x, hp_t, l.x), xfma(-d.y, hp_t, l.y), xfma(-d.z, hp_t, l.z)};
+  } else {
+    hp = {xfma(d.x, hp_t, o.x), xfma(d.y, hp_t, o.y), xfma(d.z, hp_t, o.z)};
+    lo = {l.x - hp.x, l.y - hp.y, l.z - hp.z};
+  }
+  dist = sqrtf(sum3(lo, lo));
+  const float dinv = jmax(dist, kTiny());
+  sdir = {lo.x / dinv, lo.y / dinv, lo.z / dinv};
+}
+
+// ops/shadow.py shade: albedo, lambert and rgb of row i, written into each
+// AOV the caller asks for.
+__device__ __forceinline__ void shade_store(const ShadeParams& P, int i, bool found, int geom,
+                                            int prim, float hit_t, V3 nrm, V3 hp, V3 sdir,
+                                            bool occ) {
+  int m = P.mat_id[clampi(geom, 0, P.n_geom - 1)];
+  if (m < 0) m += P.n_mat;  // torch's index wraps
+  const float* alb = P.mat_albedo + m * 3;
+  const float lam = occ ? 0.0f : sum3(sdir, nrm);
+  if (P.rgb) {
+    for (int c = 0; c < 3; ++c)
+      P.rgb[i * 3 + c] = found ? xfma(alb[c], P.ambient, lam * alb[c]) : 0.0f;
+  }
+  if (P.t) P.t[i] = found ? hit_t : kInf();
+  if (P.geom) P.geom[i] = found ? geom : kInvalidGeom;
+  if (P.prim) P.prim[i] = prim;
+  if (P.normal) {
+    P.normal[i * 3] = nrm.x;
+    P.normal[i * 3 + 1] = nrm.y;
+    P.normal[i * 3 + 2] = nrm.z;
+  }
+  if (P.hit_p) {
+    P.hit_p[i * 3] = found ? hp.x : 0.0f;
+    P.hit_p[i * 3 + 1] = found ? hp.y : 0.0f;
+    P.hit_p[i * 3 + 2] = found ? hp.z : 0.0f;
+  }
+  if (P.escaped) P.escaped[i] = found ? 0 : 1;
+}
+
 __global__ void __launch_bounds__(ST) shade_kernel(const ShadeParams P) {
   const int i = blockIdx.x * ST + threadIdx.x;
   if (i >= P.R) return;
@@ -307,56 +392,190 @@ __global__ void __launch_bounds__(ST) shade_kernel(const ShadeParams P) {
   }
   const bool found = geom != kInvalidGeom;
   V3 nrm = unit({P.out_f[i], P.out_f[Rp + i], P.out_f[2 * Rp + i]});
-  if (sb) {  // unit(from_hit(o, d, hit_t, centre, -1))
-    const float* c = P.ap + si_c * 16 + 1;
-    const V3 v = P.zero_origin
-        ? V3{xfma(d.x, hit_t, -c[0]), xfma(d.y, hit_t, -c[1]), xfma(d.z, hit_t, -c[2])}
-        : V3{-(c[0] - xfma(d.x, hit_t, o.x)), -(c[1] - xfma(d.y, hit_t, o.y)),
-             -(c[2] - xfma(d.z, hit_t, o.z))};
-    nrm = unit(v);
-  }
+  if (sb) nrm = sphere_normal(P.ap + si_c * 16 + 1, o, d, hit_t, P.zero_origin);
   if (db) {
     const float* n = P.ap + (P.n_sph + di_c) * 16 + 4;
     nrm = {n[0], n[1], n[2]};
   }
   if (!found) nrm = {0.0f, 0.0f, 1.0f};
 
-  // ---- ops/shadow.py light_ray ----
-  const float hp_t = found ? hit_t : 0.0f;
-  V3 hp, lo;
-  if (P.zero_origin) {
-    hp = {d.x * hp_t, d.y * hp_t, d.z * hp_t};
-    lo = {xfma(-d.x, hp_t, P.lx), xfma(-d.y, hp_t, P.ly), xfma(-d.z, hp_t, P.lz)};
-  } else {
-    hp = {xfma(d.x, hp_t, o.x), xfma(d.y, hp_t, o.y), xfma(d.z, hp_t, o.z)};
-    lo = {P.lx - hp.x, P.ly - hp.y, P.lz - hp.z};
-  }
-  const float dinv = jmax(sqrtf(sum3(lo, lo)), kTiny());
-  const V3 sdir = {lo.x / dinv, lo.y / dinv, lo.z / dinv};
+  V3 hp, sdir;
+  float dist;
+  light_ray(o, d, found ? hit_t : 0.0f, P.zero_origin, {P.lx, P.ly, P.lz}, hp, sdir, dist);
+  shade_store(P, i, found, geom, prim, hit_t, nrm, hp, sdir, occ);
+}
 
-  // ---- ops/shadow.py shade ----
-  int m = P.mat_id[clampi(geom, 0, P.n_geom - 1)];
-  if (m < 0) m += P.n_mat;  // torch's index wraps
-  const float* alb = P.mat_albedo + m * 3;
-  const float lam = occ ? 0.0f : sum3(sdir, nrm);
-  if (P.rgb) {
-    for (int c = 0; c < 3; ++c)
-      P.rgb[i * 3 + c] = found ? xfma(alb[c], P.ambient, lam * alb[c]) : 0.0f;
+// ---- the BVH route's glue around K7 (bvh.cu) ----
+
+struct BvhRaysParams {
+  const float* rows;  // camera: [R] pixel rows; null: the caller's directions
+  const float* cols;  // camera: [R] pixel columns
+  const float* sxp;   // camera: 0-d image-plane factors on the card, or
+  const float* syp;   //   null for sx, sy below
+  float sx, sy, inv_w, inv_h;
+  float* zeros;   // [R, 3] written with (0, 0, 0), the origin K7 reads; or null
+  float* dirs;    // camera: [R, 3] written; null otherwise
+  float* t_min;   // [R] written with 0
+  float* t_max;   // [R] written with inf
+  int R;
+};
+
+__global__ void __launch_bounds__(ST) bvh_rays_kernel(const BvhRaysParams P) {
+  const int i = blockIdx.x * ST + threadIdx.x;
+  if (i >= P.R) return;
+  if (P.rows) {
+    float d[3];
+    camera_dir(P.rows[i], P.cols[i], P.inv_w, P.inv_h, P.sxp ? *P.sxp : P.sx,
+               P.syp ? *P.syp : P.sy, d);
+    for (int c = 0; c < 3; ++c) P.dirs[i * 3 + c] = d[c];
   }
-  if (P.t) P.t[i] = found ? hit_t : kInf();
-  if (P.geom) P.geom[i] = found ? geom : kInvalidGeom;
-  if (P.prim) P.prim[i] = prim;
-  if (P.normal) {
-    P.normal[i * 3] = nrm.x;
-    P.normal[i * 3 + 1] = nrm.y;
-    P.normal[i * 3 + 2] = nrm.z;
+  if (P.zeros) {
+    for (int c = 0; c < 3; ++c) P.zeros[i * 3 + c] = 0.0f;
   }
-  if (P.hit_p) {
-    P.hit_p[i * 3] = found ? hp.x : 0.0f;
-    P.hit_p[i * 3 + 1] = found ? hp.y : 0.0f;
-    P.hit_p[i * 3 + 2] = found ? hp.z : 0.0f;
+  P.t_min[i] = 0.0f;
+  P.t_max[i] = kInf();
+}
+
+// The scene's tables that hit_normal reads (scene/build.py, "bvh" scenes).
+struct BvhGeom {
+  const int* geom_type;         // [G]
+  const int* geom_index;        // [G]
+  const int* mesh_first_tri;    // [M]
+  const int* mesh_has_normals;  // [M]
+  const int* tri_v;             // [T, 3]
+  const float* verts;           // [V, 3]
+  const float* normals;         // [V, 3]
+  const float* spheres;         // [S, 4] centre, radius
+  const float* discs;           // [D, 7] normal, centre, radius
+  int G, M, T, S, D;
+};
+
+__device__ __forceinline__ V3 load_v3(const float* p) { return {p[0], p[1], p[2]}; }
+__device__ __forceinline__ float comp(V3 v, int a) { return a == 0 ? v.x : (a == 1 ? v.y : v.z); }
+
+// ops/intersect.py intersect_triangle_watertight's barycentrics (b0, b1, b2)
+// of the ray (o, d) against (p0, p1, p2), through make_ray_shear.
+__device__ __forceinline__ V3 barycentrics(V3 o, V3 d, V3 p0, V3 p1, V3 p2) {
+  const float a0 = fabsf(d.x), a1 = fabsf(d.y), a2 = fabsf(d.z);
+  const int iz = (a1 > a0 && a1 >= a2) ? 1 : ((a2 > a0 && a2 > a1) ? 2 : 0);
+  const int ix = iz == 2 ? 0 : iz + 1;
+  const int iy = ix == 2 ? 0 : ix + 1;
+  const float sz = 1.0f / comp(d, iz);
+  const float sx = -comp(d, ix) * sz, sy = -comp(d, iy) * sz;
+  const V3 q[3] = {{p0.x - o.x, p0.y - o.y, p0.z - o.z},
+                   {p1.x - o.x, p1.y - o.y, p1.z - o.z},
+                   {p2.x - o.x, p2.y - o.y, p2.z - o.z}};
+  float px[3], py[3];
+  for (int k = 0; k < 3; ++k) {
+    const float qz = comp(q[k], iz);
+    px[k] = xfma(sx, qz, comp(q[k], ix));
+    py[k] = xfma(sy, qz, comp(q[k], iy));
   }
-  if (P.escaped) P.escaped[i] = found ? 0 : 1;
+  const float e0 = xfma(px[1], py[2], -(py[1] * px[2]));
+  const float e1 = xfma(px[2], py[0], -(py[2] * px[0]));
+  const float e2 = xfma(px[0], py[1], -(py[0] * px[1]));
+  const float inv_det = 1.0f / (e0 + e1 + e2);
+  return {e0 * inv_det, e1 * inv_det, e2 * inv_det};
+}
+
+// ops/traversal.py hit_normal of the hit (t, gid, prim) of the ray (o, d):
+// the mesh's vertex normals weighted by the barycentrics, or its geometric
+// normal; the sphere's from its centre; the disc's own; (0, 0, 1) where
+// nothing is hit. Only the branch the torch version selects is computed.
+__device__ V3 hit_normal(const BvhGeom& G, V3 o, V3 d, float t, int gid, int prim,
+                         bool zero_origin) {
+  if (gid == kInvalidGeom) return {0.0f, 0.0f, 1.0f};
+  const int g = clampi(gid, 0, G.G - 1);
+  const int type = G.geom_type[g], gi = G.geom_index[g];
+  if (type == kMesh) {
+    const int mi = clampi(gi, 0, G.M - 1);
+    const int* v = G.tri_v + 3 * clampi(G.mesh_first_tri[mi] + prim, 0, G.T - 1);
+    const V3 p0 = load_v3(G.verts + 3 * v[0]), p1 = load_v3(G.verts + 3 * v[1]),
+             p2 = load_v3(G.verts + 3 * v[2]);
+    if (G.mesh_has_normals[mi] != 0) {
+      const V3 b = barycentrics(o, d, p0, p1, p2);
+      const V3 n0 = load_v3(G.normals + 3 * v[0]), n1 = load_v3(G.normals + 3 * v[1]),
+               n2 = load_v3(G.normals + 3 * v[2]);
+      return unit({xfma(n2.x, b.z, xfma(n0.x, b.x, n1.x * b.y)),
+                   xfma(n2.y, b.z, xfma(n0.y, b.x, n1.y * b.y)),
+                   xfma(n2.z, b.z, xfma(n0.z, b.x, n1.z * b.y))});
+    }
+    const V3 a = {p1.x - p0.x, p1.y - p0.y, p1.z - p0.z};
+    const V3 b = {p2.x - p0.x, p2.y - p0.y, p2.z - p0.z};
+    return unit({xfma(a.y, b.z, -(a.z * b.y)), xfma(a.z, b.x, -(a.x * b.z)),
+                 xfma(a.x, b.y, -(a.y * b.x))});
+  }
+  if (type == kSphere) return sphere_normal(G.spheres + 4 * clampi(gi, 0, G.S - 1), o, d, t,
+                                            zero_origin);
+  return load_v3(G.discs + 7 * clampi(gi, 0, G.D - 1));
+}
+
+struct BvhLightParams {
+  BvhGeom geo;
+  const float* origins;  // [R, 3], or null for (0, 0, 0) (the folded forms)
+  const float* dirs;     // [R, 3]
+  const float* hit_t;    // [R] K7's closest hit: t (t_max where nothing is hit),
+  const int* hit_geom;   //   geometry id (INVALID_GEOM_ID),
+  const int* hit_prim;   //   primitive id
+  float* sorig;   // [R, 3] the shadow ray: its origin pushed off the surface,
+  float* sdir;    // [R, 3]   its unit direction to the light,
+  float* dist;    // [R]      the light's distance (the any hit's t_max)
+  float* normal;  // [R, 3] hit_normal
+  float lx, ly, lz;
+  int R;
+};
+
+__global__ void __launch_bounds__(ST) bvh_light_kernel(const BvhLightParams P) {
+  const int i = blockIdx.x * ST + threadIdx.x;
+  if (i >= P.R) return;
+  const bool zero_origin = P.origins == nullptr;
+  const V3 o = zero_origin ? V3{0.0f, 0.0f, 0.0f} : load_v3(P.origins + 3 * i);
+  const V3 d = load_v3(P.dirs + 3 * i);
+  const float t = P.hit_t[i];
+  const int gid = P.hit_geom[i];
+  const V3 nrm = hit_normal(P.geo, o, d, t, gid, P.hit_prim[i], zero_origin);
+  V3 hp, sdir;
+  float dist;
+  light_ray(o, d, gid != kInvalidGeom ? t : 0.0f, zero_origin, {P.lx, P.ly, P.lz}, hp, sdir,
+            dist);
+  // ops/bxdf_loop.py offset_ray_origin(hp, sdir, nrm); torch.sign of a NaN
+  // or a zero is 0, which the where makes 1
+  const float mag = 1.0f + jmax(jmax(fabsf(hp.x), fabsf(hp.y)), fabsf(hp.z));
+  const float m = mag * kRayEps() * (sum3(nrm, sdir) < 0.0f ? -1.0f : 1.0f);
+  const V3 so = {xfma(nrm.x, m, hp.x), xfma(nrm.y, m, hp.y), xfma(nrm.z, m, hp.z)};
+  for (int c = 0; c < 3; ++c) {
+    P.sorig[i * 3 + c] = comp(so, c);
+    P.sdir[i * 3 + c] = comp(sdir, c);
+    P.normal[i * 3 + c] = comp(nrm, c);
+  }
+  P.dist[i] = dist;
+}
+
+struct BvhShadeParams {
+  ShadeParams S;  // the material tables, the AOVs, R, zero_origin, light, ambient
+  const float* origins;  // [R, 3], or null for (0, 0, 0)
+  const float* dirs;     // [R, 3]
+  const float* hit_t;    // [R] K7's closest hit
+  const int* hit_geom;   // [R]
+  const int* hit_prim;   // [R]
+  const float* normal;   // [R, 3] bvh_light_kernel's
+  const int* occ;        // [R] K7's any hit: 1 where occluded
+};
+
+__global__ void __launch_bounds__(ST) bvh_shade_kernel(const BvhShadeParams P) {
+  const int i = blockIdx.x * ST + threadIdx.x;
+  if (i >= P.S.R) return;
+  const bool zero_origin = P.origins == nullptr;
+  const V3 o = zero_origin ? V3{0.0f, 0.0f, 0.0f} : load_v3(P.origins + 3 * i);
+  const V3 d = load_v3(P.dirs + 3 * i);
+  const float t = P.hit_t[i];
+  const int geom = P.hit_geom[i];
+  const bool found = geom != kInvalidGeom;
+  V3 hp, sdir;
+  float dist;
+  light_ray(o, d, found ? t : 0.0f, zero_origin, {P.S.lx, P.S.ly, P.S.lz}, hp, sdir, dist);
+  shade_store(P.S, i, found, geom, P.hit_prim[i], t, load_v3(P.normal + 3 * i), hp, sdir,
+              P.occ[i] != 0);
 }
 
 }  // namespace
@@ -429,5 +648,104 @@ extern "C" int shade_launch(const float* rays, const float* out_f, const int* ou
   P.lz = lz;
   P.ambient = ambient;
   shade_kernel<<<(R + ST - 1) / ST, ST, 0, static_cast<cudaStream_t>(stream)>>>(P);
+  return static_cast<int>(cudaGetLastError());
+}
+
+extern "C" int bvh_rays_launch(const float* rows, const float* cols, const float* sxp,
+                               const float* syp, float sx, float sy, float inv_w, float inv_h,
+                               float* zeros, float* dirs, float* t_min, float* t_max, int R,
+                               void* stream) {
+  BvhRaysParams P;
+  P.rows = rows;
+  P.cols = cols;
+  P.sxp = sxp;
+  P.syp = syp;
+  P.sx = sx;
+  P.sy = sy;
+  P.inv_w = inv_w;
+  P.inv_h = inv_h;
+  P.zeros = zeros;
+  P.dirs = dirs;
+  P.t_min = t_min;
+  P.t_max = t_max;
+  P.R = R;
+  bvh_rays_kernel<<<(R + ST - 1) / ST, ST, 0, static_cast<cudaStream_t>(stream)>>>(P);
+  return static_cast<int>(cudaGetLastError());
+}
+
+extern "C" int bvh_light_launch(const float* origins, const float* dirs, const float* hit_t,
+                                const int* hit_geom, const int* hit_prim, const int* geom_type,
+                                const int* geom_index, const int* mesh_first_tri,
+                                const int* mesh_has_normals, const int* tri_v,
+                                const float* verts, const float* normals,
+                                const float* spheres, const float* discs, float* sorig,
+                                float* sdir, float* dist, float* normal, int R, int G, int M,
+                                int T, int S, int D, float lx, float ly, float lz,
+                                void* stream) {
+  BvhLightParams P;
+  P.geo.geom_type = geom_type;
+  P.geo.geom_index = geom_index;
+  P.geo.mesh_first_tri = mesh_first_tri;
+  P.geo.mesh_has_normals = mesh_has_normals;
+  P.geo.tri_v = tri_v;
+  P.geo.verts = verts;
+  P.geo.normals = normals;
+  P.geo.spheres = spheres;
+  P.geo.discs = discs;
+  P.geo.G = G;
+  P.geo.M = M;
+  P.geo.T = T;
+  P.geo.S = S;
+  P.geo.D = D;
+  P.origins = origins;
+  P.dirs = dirs;
+  P.hit_t = hit_t;
+  P.hit_geom = hit_geom;
+  P.hit_prim = hit_prim;
+  P.sorig = sorig;
+  P.sdir = sdir;
+  P.dist = dist;
+  P.normal = normal;
+  P.lx = lx;
+  P.ly = ly;
+  P.lz = lz;
+  P.R = R;
+  bvh_light_kernel<<<(R + ST - 1) / ST, ST, 0, static_cast<cudaStream_t>(stream)>>>(P);
+  return static_cast<int>(cudaGetLastError());
+}
+
+extern "C" int bvh_shade_launch(const float* origins, const float* dirs, const float* hit_t,
+                                const int* hit_geom, const int* hit_prim, const float* normal,
+                                const int* occ, const int* mat_id, const float* mat_albedo,
+                                float* rgb, float* t, int* geom, int* prim, float* normal_out,
+                                float* hit_p_out, unsigned char* escaped, int R, int n_geom,
+                                int n_mat, float lx, float ly, float lz, float ambient,
+                                void* stream) {
+  BvhShadeParams P = {};
+  P.S.mat_id = mat_id;
+  P.S.mat_albedo = mat_albedo;
+  P.S.rgb = rgb;
+  P.S.t = t;
+  P.S.geom = geom;
+  P.S.prim = prim;
+  P.S.normal = normal_out;
+  P.S.hit_p = hit_p_out;
+  P.S.escaped = escaped;
+  P.S.R = R;
+  P.S.n_geom = n_geom;
+  P.S.n_mat = n_mat;
+  P.S.zero_origin = origins == nullptr;
+  P.S.lx = lx;
+  P.S.ly = ly;
+  P.S.lz = lz;
+  P.S.ambient = ambient;
+  P.origins = origins;
+  P.dirs = dirs;
+  P.hit_t = hit_t;
+  P.hit_geom = hit_geom;
+  P.hit_prim = hit_prim;
+  P.normal = normal;
+  P.occ = occ;
+  bvh_shade_kernel<<<(R + ST - 1) / ST, ST, 0, static_cast<cudaStream_t>(stream)>>>(P);
   return static_cast<int>(cudaGetLastError());
 }

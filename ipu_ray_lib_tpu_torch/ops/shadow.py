@@ -43,8 +43,18 @@ coordinates) and the epilogue (:func:`shade_cuda`, writing each AOV
 straight into the caller's tensors). They equal the plain torch versions
 :func:`shadow_inputs` (with ops/camera.py ``scaled_ray_dir`` and
 ops/cull.py ``bundle_cull``) and :func:`shadow_epilogue` byte for byte;
-those stay for CPU tensors and as the kernels' checks. The glue route
-(render/shadow.py) keeps :func:`light_ray` and :func:`shade` in torch.
+those stay for CPU tensors and as the kernels' checks.
+
+The glue route (render/shadow.py) of a ``"bvh"`` scene on the card is
+three kernels of ops/cuda/glue.cu around K7's two walks (ops/bvh.py):
+the rays kernel, K7's closest hit, the light kernel (the normal, the
+light ray and the shadow ray's offset origin), K7's any hit and the shade
+kernel (:func:`bvh_shadow_trace_cuda`: five launches; the renderer's
+frame, :func:`bvh_camera_frame_cuda`: the glue kernels once a frame and
+K7 twice a chunk), byte for byte the torch chain of
+ops/traversal.py ``hit_normal``, :func:`light_ray`, ops/bxdf_loop.py
+``offset_ray_origin`` and :func:`shade`, which the other glue routes and
+CPU scenes keep.
 
 The kernel's arithmetic is the JAX kernel's, operation for operation: the
 primary walk and its row test are K5's (ops/intersect_kernel.py, CUDA
@@ -66,6 +76,7 @@ import torch
 from ..bvh.builder import INVALID_GEOM_ID
 from ..utils.constants import RAY_EPSILON
 from ..utils.profiling import span
+from . import bvh
 from .cull import BR, SLAB_SCALE, block_cull_lists_bundle
 from .dense import disc_pass, sphere_pass
 from .intersect import INF, SLAB_LO
@@ -77,8 +88,9 @@ from .vec3 import TINY, const3, fma, rowdot, sqrt, unit
 BIG = 1e30  # K4's padding-box bound (float32(1e30) is this value's f32)
 _RAY_EPS = float(RAY_EPSILON)
 
-# K4's CUDA launches since the last reset, and the glue kernels' (the
-# prologue's and the epilogue's, ops/cuda/glue.cu).
+# K4's CUDA launches since the last reset, and the glue kernels' (those
+# of ops/cuda/glue.cu: the prologue and the epilogue around K4, the rays,
+# light and shade kernels around K7).
 launches = 0
 glue_launches = 0
 
@@ -428,3 +440,81 @@ def camera_chunk_cuda(scene, rows, cols, image: tuple, scale: tuple,
     with span("renderer.epilogue"):
         shade_cuda(scene, args[3], out_f, out_i, rows.shape[0], light_pos,
                    ambient, zero_origin=True, out=out)
+
+
+def _bvh_glue(scene, R: int, out: dict, light_pos, ambient, *, walk: int,
+              camera=None, origins=None, dirs=None) -> None:
+    """The BVH glue route of R rays on the card: the rays kernel, K7's
+    closest hit in launches of ``walk`` rays, the light kernel, K7's any
+    hit likewise and the shade kernel writing the AOVs of ``out`` (name ->
+    [R, ...]): three glue launches and 2 ceil(R / walk) of K7. The rays:
+    ``camera`` (as ``launch_bvh_rays`` takes it), or ``dirs`` [R, 3] with
+    ``origins`` [R, 3] (None: the origin). Nothing returns to the host."""
+    global glue_launches
+    from .cuda.build import launch_bvh_light, launch_bvh_rays, launch_bvh_shade
+
+    dev = scene.device
+    f32, i32 = torch.float32, torch.int32
+    vec = lambda: torch.empty((R, 3), dtype=f32, device=dev)
+    ray = lambda dt=f32: torch.empty(R, dtype=dt, device=dev)
+    zero = origins is None
+    o = vec() if zero else origins
+    if camera is not None:
+        dirs = vec()
+    t_min, t_max = ray(), ray()
+    launch_bvh_rays(t_min, t_max, zeros=o if zero else None,
+                    dirs=dirs if camera is not None else None, camera=camera)
+    glue_launches += 1
+    hit = (ray(), ray(i32), ray(i32))
+    for s in range(0, R, walk):
+        w = slice(s, s + walk)
+        bvh.bvh_walk_raw(scene, o[w], dirs[w], t_min[w], t_max[w], False,
+                         zero, out=tuple(h[w] for h in hit))
+    light = tuple(float(np.float32(v)) for v in light_pos)
+    sorig, sdir, normal, dist = vec(), vec(), vec(), ray()
+    launch_bvh_light(scene, dirs, *hit, sorig, sdir, dist, normal,
+                     origins=origins, light=light)
+    glue_launches += 1
+    # the any hit writes only its flag; t and prim go to scratch rows
+    occ = ray(i32)
+    scratch = (torch.empty(min(walk, R), dtype=f32, device=dev),
+               torch.empty(min(walk, R), dtype=i32, device=dev))
+    for s in range(0, R, walk):
+        w = slice(s, s + walk)
+        n = occ[w].shape[0]
+        bvh.bvh_walk_raw(scene, sorig[w], sdir[w], t_min[w], dist[w], True,
+                         False, out=(scratch[0][:n], occ[w], scratch[1][:n]))
+    launch_bvh_shade(scene, dirs, *hit, normal, occ, out, origins=origins,
+                     light=light, ambient=float(np.float32(ambient)))
+    glue_launches += 1
+
+
+def bvh_shadow_trace_cuda(scene, origins, dirs, light_pos, ambient):
+    """render/shadow.py ``shadow_trace`` of R rays on a ``"bvh"`` scene on
+    the card (``origins`` [R, 3] or None for (0, 0, 0), ``dirs`` [R, 3]
+    f32) as five launches (:func:`_bvh_glue`): :func:`shade`'s tuple in
+    fresh tensors, byte for byte the torch chain's."""
+    from .cuda.build import SHADE_OUTS
+
+    R = dirs.shape[0]
+    out = {k: torch.empty((R,) + shape, dtype=dt, device=dirs.device)
+           for k, (shape, dt) in SHADE_OUTS.items()}
+    if R:
+        _bvh_glue(scene, R, out, light_pos, ambient, walk=R,
+                  dirs=dirs.contiguous(),
+                  origins=None if origins is None else origins.contiguous())
+    return tuple(out.values())
+
+
+def bvh_camera_frame_cuda(scene, rows, cols, image: tuple, scale: tuple,
+                          out: dict, chunk: int, light_pos, ambient) -> None:
+    """The renderer's shadow frame of a ``"bvh"`` scene on the card: the
+    camera rays through the padded stream's pixels (rows, cols) [R] (as
+    :func:`camera_chunk_cuda` takes a chunk's) and :func:`_bvh_glue` with
+    K7 a launch a ``chunk`` of rays, writing the AOVs of ``out`` (name ->
+    [R, ...]); the same bytes as each chunk's ``scaled_ray_dir``, the glue
+    route's torch chain and the stores."""
+    f32 = np.float32
+    inv = [float(f32(1.0) / f32(n)) for n in image]
+    _bvh_glue(scene, rows.shape[0], out, light_pos, ambient, walk=chunk,
+              camera=(rows, cols, *inv, *scale))

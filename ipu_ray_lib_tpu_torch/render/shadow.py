@@ -11,10 +11,13 @@ the full AOV set. Two routes, chosen as the JAX package chooses them
   (ops/traversal.py, kernel K5 or K6; K7 for ``"bvh"``, K8 for
   ``"dense"``), the shadow ray pushed off the surface, an any-hit query
   through the same kernel (K7's any-hit walk for ``"bvh"``), and the
-  shading; under a profiler the spans ``renderer.hit`` (the closest hit
-  and its normal), ``renderer.occlusion`` (the light ray, its offset
-  origin and the any-hit query) and ``renderer.shade``
-  (utils/profiling.py).
+  shading. On a ``"bvh"`` scene on the card that is five launches, the
+  glue as three kernels around K7's two walks (ops/shadow.py
+  ``bvh_shadow_trace_cuda``); elsewhere :func:`glue_shadow_trace`, the
+  torch chain, which also checks those kernels. It records, under a
+  profiler, the spans ``renderer.hit`` (the closest hit and its normal),
+  ``renderer.occlusion`` (the light ray, its offset origin and the
+  any-hit query) and ``renderer.shade`` (utils/profiling.py).
 
 Both end in the same shading (ops/shadow.py ``shade``). The JAX package
 chooses the route with the ``RAY_SHADOW_FUSED`` environment variable; here
@@ -28,7 +31,8 @@ from typing import NamedTuple
 import torch
 
 from ..ops.bxdf_loop import offset_ray_origin
-from ..ops.shadow import fused_shadow_trace, light_ray, shade
+from ..ops.shadow import (bvh_shadow_trace_cuda, fused_shadow_trace,
+                          light_ray, shade)
 from ..ops.traversal import scene_intersect_with_normal, scene_occluded
 from ..utils.profiling import span
 
@@ -59,6 +63,21 @@ def shadow_trace(scene, origins, dirs: torch.Tensor,
     if fused and intersector == "pallas":
         return TraceResultSoA(*fused_shadow_trace(scene, origins, dirs,
                                                   light_pos, ambient))
+    if intersector == "bvh" and scene.device.type == "cuda":
+        return TraceResultSoA(*bvh_shadow_trace_cuda(scene, origins, dirs,
+                                                     light_pos, ambient))
+    return glue_shadow_trace(scene, origins, dirs, light_pos, ambient,
+                             intersector)
+
+
+def glue_shadow_trace(scene, origins, dirs: torch.Tensor,
+                      light_pos=DEFAULT_LIGHT_POS,
+                      ambient: float = DEFAULT_AMBIENT,
+                      intersector: str = "pallas") -> TraceResultSoA:
+    """The glue route in torch around the closest-hit and any-hit kernels
+    of ``intersector`` (their plain versions on a CPU scene), with its
+    spans: :func:`shadow_trace`'s route for every scene but a ``"bvh"``
+    scene on the card, whose kernels it checks there."""
     R = dirs.shape[0]
     dev = dirs.device
     t_min = torch.zeros(R, dtype=torch.float32, device=dev)

@@ -1,14 +1,18 @@
 """The shadow frame's glue kernels (ops/cuda/glue.cu): the prologue (camera
 rays, padding and bundle cull) and the epilogue (shading and the AOV
-stores) around K4, on the fused route of a CUDA scene.
+stores) around K4, on the fused route of a CUDA scene; and the rays,
+light and shade kernels around K7 on a "bvh" scene's.
 
 On the CPU (tier-1): which calls take the kernel route; a CPU scene
-renders through the plain torch functions, the same bytes as the golden;
-the renderer's plumbing of the kernel route (its AOV views, a progress
-callback's rgb, the launch counts a replayed frame adds) with the chunk
-function stood in for by the plain chain; the wrappers raise on a wrong
-device, dtype, shape or contiguity before anything is launched; the new
-counter's reset.
+renders through the plain torch functions, the same bytes as the golden
+(a "bvh" scene: as the glue route's torch chain); the renderer's
+plumbing of the kernel route (its AOV views, a progress callback's rgb,
+the launch counts a replayed frame adds, K7's too) with the chunk
+function (a "bvh" scene: the frame function) stood in for by the plain
+chain; a "bvh" scene's tables checked once a scene; the wrappers raise on a wrong
+device, dtype, shape or contiguity before anything is launched; the
+counters' reset. The BVH kernels' card tests are
+tests/test_torch_bvh_glue.py's.
 
 On the card (marked ``cuda``), every comparison by the bytes: the
 prologue against ``shadow_inputs`` (camera rays of a 65,536-ray chunk of
@@ -38,13 +42,16 @@ import pytest
 import torch
 
 import ipu_ray_lib_tpu_torch.render.renderer as R
+from ipu_ray_lib_tpu_torch.ops import bvh as kb
 from ipu_ray_lib_tpu_torch.ops import shadow as sh
 from ipu_ray_lib_tpu_torch.ops.camera import (plane_scale, scaled_ray_dir,
                                               tan_half_fov)
 from ipu_ray_lib_tpu_torch.ops.cuda import build
 from ipu_ray_lib_tpu_torch.render.pixels import pixel_stream
 from ipu_ray_lib_tpu_torch.render.shadow import (DEFAULT_AMBIENT,
-                                                 DEFAULT_LIGHT_POS)
+                                                 DEFAULT_LIGHT_POS,
+                                                 glue_shadow_trace,
+                                                 shadow_trace)
 from ipu_ray_lib_tpu_torch.scene.build import build_scene
 from ipu_ray_lib_tpu_torch.scene.builtin import make_cornell_box_scene
 
@@ -78,10 +85,10 @@ def _same(a: R.RenderOutput, b: R.RenderOutput) -> bool:
                for k in FIELDS)
 
 
-def _box(dev="cpu", w=48, h=32, monkey=None):
+def _box(dev="cpu", w=48, h=32, monkey=None, intersector="pallas"):
     return build_scene(make_cornell_box_scene(monkey, box_only=False),
                        device=dev, image_width=w, image_height=h,
-                       intersector="pallas")
+                       intersector=intersector)
 
 
 # ---- which calls take the kernels ----
@@ -92,8 +99,11 @@ def _box(dev="cpu", w=48, h=32, monkey=None):
     ("cpu", True, "pallas", False),
     ("cuda", False, "pallas", False),
     ("cuda", True, "pallas-hbm", False),
-    ("cuda", True, "bvh", False),
+    ("cuda", True, "bvh", True),
+    ("cuda", False, "bvh", True),
+    ("cpu", True, "bvh", False),
     ("cuda", True, "dense", False),
+    ("cuda", False, "dense", False),
 ])
 def test_kernel_route_choice(device, fused, intersector, kernels):
     assert R._kernel_route(torch.device(device), fused,
@@ -110,8 +120,11 @@ def _no_kernels(monkeypatch):
         raise AssertionError("a CPU scene reached a CUDA kernel")
 
     for name in ("camera_chunk_cuda", "shadow_inputs_cuda",
-                 "camera_inputs_cuda", "shade_cuda", "shadow_trace_cuda"):
+                 "camera_inputs_cuda", "shade_cuda", "shadow_trace_cuda",
+                 "bvh_camera_frame_cuda", "bvh_shadow_trace_cuda"):
         monkeypatch.setattr(sh, name, refuse)
+    for name in ("bvh_walk_cuda", "bvh_walk_raw"):
+        monkeypatch.setattr(kb, name, refuse)
     monkeypatch.setattr(build, "load", refuse)
 
 
@@ -136,6 +149,30 @@ def test_cpu_scene_renders_through_the_plain_functions(monkeypatch, callback):
         res = sh.fused_shadow_trace(scene, o, d, LIGHT, AMBIENT)
         want = sh.shadow_epilogue(scene, o, d, *sh.fused_shadow_trace_arrays(
             scene, o, d, light=LIGHT), LIGHT, AMBIENT)
+        assert all(_bytes(a) == _bytes(b) for a, b in zip(res, want))
+
+
+@pytest.mark.parametrize("callback", [False, True], ids=["plain", "callback"])
+def test_cpu_bvh_scene_renders_through_the_plain_functions(monkeypatch,
+                                                           callback):
+    _no_kernels(monkeypatch)
+    scene, params = _box(intersector="bvh")
+    sh.reset_launches()
+    kb.reset_launches()
+    seen = []
+    out = R.render(scene, params, chunk_size=512, progress_callback=(
+        (lambda i, rgb: seen.append(i)) if callback else None))
+    assert sh.launches == sh.glue_launches == kb.launches == 0
+    assert seen == (list(range(3)) if callback else [])
+    assert out.hit_count == int((np.load(GOLDEN)["geom_id"] >= 0).sum())
+    assert "_frame_graphs" not in scene.__dict__
+    # the shadow_trace API takes the torch chain, both origin forms
+    rows, cols = (t[:600] for t in pixel_stream(params).coords(
+        scene.device, 48 * 32))
+    d = scaled_ray_dir(cols, rows, 48, 32, *_scale(params))
+    for o in (None, torch.full_like(d, 0.25)):
+        res = shadow_trace(scene, o, d, intersector="bvh")
+        want = glue_shadow_trace(scene, o, d, intersector="bvh")
         assert all(_bytes(a) == _bytes(b) for a, b in zip(res, want))
 
 
@@ -208,6 +245,90 @@ def test_kernel_route_equals_the_plain_route(kernel_route, aovs):
     assert sh.glue_launches == 4 * 2 * n_chunks
     for out in [eager] + frames:
         assert _same(out, want)
+
+
+@pytest.fixture
+def bvh_kernel_route(monkeypatch):
+    """The kernel_route fixture for a "bvh" scene: its frame function
+    stood in for by the plain chain, chunk by chunk (counting the three
+    glue launches a frame and two K7 launches a chunk the kernels would
+    make); yields the (rays, chunk) of each frame it ran."""
+    route, made = R._kernel_route, []
+
+    def frame(scene, rows, cols, image, scale, out, chunk, light, ambient):
+        made.append((rows.shape[0], chunk))
+        for s in range(0, rows.shape[0], chunk):
+            w = slice(s, s + chunk)
+            d = scaled_ray_dir(cols[w], rows[w], *image, *scale)
+            res = glue_shadow_trace(scene, None, d, light, ambient, "bvh")
+            for k, t in out.items():
+                t[w].copy_(getattr(res, k))
+            kb.launches += 2
+        sh.glue_launches += 3
+
+    def capture(body, dev):
+        body()
+
+        def replay():
+            n = sh.glue_launches, kb.launches
+            body()
+            sh.glue_launches, kb.launches = n
+
+        return types.SimpleNamespace(replay=replay), 0.0
+
+    monkeypatch.setattr(R, "_kernel_route", lambda device, *a: route(
+        torch.device("cuda") if device.type == "cpu" else device, *a))
+    monkeypatch.setattr(sh, "bvh_camera_frame_cuda", frame)
+    monkeypatch.setattr(sh, "camera_chunk_cuda", None)
+    monkeypatch.setattr(R, "_capture", capture)
+    sh.reset_launches()
+    kb.reset_launches()
+    R.reset_counters()
+    return made
+
+
+@pytest.mark.parametrize("fused", [True, False], ids=["fused", "unfused"])
+@pytest.mark.parametrize("aovs", [None, ("normal",), ("rgb", "t")],
+                         ids=["all", "normal", "rgb-t"])
+def test_bvh_kernel_route_equals_the_plain_route(bvh_kernel_route, aovs,
+                                                 fused):
+    scene, params = _box(intersector="bvh")
+    p = _zoomed(params, 1.02)
+    chunk = 512
+    n_chunks = -(-48 * 32 // chunk)
+    want_rgb, got_rgb = [], []
+    with pytest.MonkeyPatch.context() as m:  # the plain route
+        m.setattr(R, "_kernel_route", lambda *a: False)
+        want = R.render(scene, p, chunk_size=chunk, aovs=aovs,
+                        progress_callback=lambda i, rgb: want_rgb.append(rgb))
+    assert not bvh_kernel_route and kb.launches == 0
+    eager = R.render(scene, p, chunk_size=chunk, aovs=aovs, fused=fused,
+                     progress_callback=lambda i, rgb: got_rgb.append(rgb))
+    assert bvh_kernel_route == [(chunk * n_chunks, chunk)]
+    assert [a.tobytes() for a in got_rgb] == [a.tobytes() for a in want_rgb]
+    # the graph route, fused or not: a capture, then replays, each adding
+    # the frame's glue launches (three) and K7's (two a chunk)
+    frames = [R.render(scene, p, chunk_size=chunk, aovs=aovs, fused=fused)
+              for _ in range(3)]
+    assert (R.graph_captures, R.graph_replays) == (1, 2)
+    fg = next(iter(scene._frame_graphs.values()))
+    assert (fg.k4_launches, fg.k7_launches, fg.glue_launches) == (
+        0, 2 * n_chunks, 3)
+    # the eager frame, the capture's eager frame and two replays
+    assert sh.glue_launches == 4 * 3
+    assert kb.launches == 4 * 2 * n_chunks and sh.launches == 0
+    for out in [eager] + frames:
+        assert _same(out, want)
+
+
+def test_graph_key_holds_the_intersector(bvh_kernel_route):
+    """A frame of one shape captured through the BVH is not replayed for
+    the fused route's parameters (the key holds the intersector)."""
+    scene, params = _box(intersector="bvh")
+    R.render(scene, params, chunk_size=512)
+    key = next(iter(scene._frame_graphs))
+    assert key[-1] == "bvh" and key[:-1] == (
+        scene.device, 48, 32, 0, 0, 48, 32, 512, tuple(R._AOVS))
 
 
 # ---- the wrappers raise before anything is launched ----
@@ -302,6 +423,124 @@ def test_epilogue_wrapper_raises_without_launching(no_launch, fault):
                            zero_origin=True)
 
 
+def _bvh_args(R_=600):
+    f32, i32 = torch.float32, torch.int32
+    return dict(dirs=torch.ones((R_, 3)), hit_t=torch.zeros(R_),
+                hit_geom=torch.zeros(R_, dtype=i32),
+                hit_prim=torch.zeros(R_, dtype=i32),
+                sorig=torch.zeros((R_, 3)), sdir=torch.zeros((R_, 3)),
+                dist=torch.zeros(R_), normal=torch.zeros((R_, 3)),
+                occ=torch.zeros(R_, dtype=i32), origins=None,
+                t_min=torch.zeros(R_, dtype=f32), t_max=torch.zeros(R_))
+
+
+def _bvh_rays(a):
+    cam = (torch.zeros(600), torch.zeros(600), 0.5, 0.5, 1.0, -1.0)
+    build.launch_bvh_rays(a["t_min"], a["t_max"], zeros=a["sorig"],
+                          dirs=a["dirs"], camera=cam)
+
+
+def _bvh_light(a, scene):
+    build.launch_bvh_light(scene, a["dirs"], a["hit_t"], a["hit_geom"],
+                           a["hit_prim"], a["sorig"], a["sdir"], a["dist"],
+                           a["normal"], origins=a["origins"], light=LIGHT)
+
+
+def _bvh_shade(a, scene, outs=None):
+    build.launch_bvh_shade(scene, a["dirs"], a["hit_t"], a["hit_geom"],
+                           a["hit_prim"], a["normal"], a["occ"],
+                           _shade_outs(600) if outs is None else outs,
+                           origins=a["origins"], light=LIGHT,
+                           ambient=AMBIENT)
+
+
+BVH_FAULTS = {
+    "rays-device": (_bvh_rays, {}, "must be a CUDA tensor"),
+    "rays-dtype": (_bvh_rays, {"t_max": torch.zeros(600, dtype=torch.float64)},
+                   "t_max must be torch.float32"),
+    "rays-shape": (_bvh_rays, {"dirs": torch.ones((600, 4))},
+                   "dirs must have shape"),
+    "rays-contiguous": (_bvh_rays, {"sorig": torch.zeros((3, 600)).t()},
+                        "zeros must be contiguous"),
+    "rays-empty": (_bvh_rays, {"t_min": torch.zeros(0)}, "no ray"),
+    "light-device": (_bvh_light, {}, "must be a CUDA tensor"),
+    "light-hit-dtype": (_bvh_light, {"hit_geom": torch.zeros(600)},
+                        "hit_geom must be torch.int32"),
+    "light-origins": (_bvh_light, {"origins": torch.zeros((599, 3))},
+                      "origins must have shape"),
+    "light-out": (_bvh_light, {"dist": torch.zeros((600, 1))},
+                  "dist must have shape"),
+    "shade-device": (_bvh_shade, {}, "must be a CUDA tensor"),
+    "shade-occ": (_bvh_shade, {"occ": torch.zeros(600, dtype=torch.bool)},
+                  "occ must be torch.int32"),
+    "shade-normal": (_bvh_shade, {"normal": torch.zeros((3, 600)).t()},
+                     "hit_normal must be contiguous"),
+}
+
+
+@pytest.mark.parametrize("fault", list(BVH_FAULTS))
+def test_bvh_wrappers_raise_without_launching(no_launch, fault):
+    scene, _ = _box(intersector="bvh")
+    fn, change, match = BVH_FAULTS[fault]
+    a = dict(_bvh_args(), **change)
+    with pytest.raises(ValueError, match=match):
+        fn(a) if fn is _bvh_rays else fn(a, scene)
+
+
+def test_bvh_wrappers_refuse_scenes_and_aovs_without_launching(no_launch):
+    a = _bvh_args()
+    with pytest.raises(ValueError, match="threaded BVH"):
+        _bvh_light(a, _box()[0])  # a VMEM-mode scene carries no BVH
+    scene, _ = _box(intersector="bvh")
+    with pytest.raises(ValueError, match="no such AOV"):
+        _bvh_shade(a, scene, dict(_shade_outs(600),
+                                  albedo=torch.empty((600, 3))))
+    with pytest.raises(ValueError, match="escaped must be torch.bool"):
+        _bvh_shade(a, scene, {"escaped": torch.empty(600, dtype=torch.uint8)})
+    with pytest.raises(ValueError, match="dirs are written"):
+        build.launch_bvh_rays(a["t_min"], a["t_max"], dirs=a["dirs"])
+
+
+def test_bvh_scene_tables_are_checked_once_a_scene(monkeypatch):
+    """The light and shade launchers check a scene's fixed tables at its
+    first launch only, and again once a table is another tensor."""
+    scene, _ = _box(intersector="bvh")
+    seen = []
+    monkeypatch.setattr(build, "_on_card", lambda **ts: seen.append(set(ts)))
+    for spec in (build._BVH_GEOM, build._BVH_MAT):
+        for _ in range(3):
+            got = build._scene_tables(scene, spec)
+            assert all(got[k] is getattr(scene, k) for k in spec)
+        assert seen == [set(spec)]
+        seen.clear()
+    scene.mat_albedo = scene.mat_albedo.double()
+    with pytest.raises(ValueError, match="mat_albedo must be"):
+        build._scene_tables(scene, build._BVH_MAT)
+    scene.mat_albedo = scene.mat_albedo.float()[:0]
+    with pytest.raises(ValueError, match="mat_albedo is empty"):
+        build._scene_tables(scene, build._BVH_MAT)
+
+
+def test_bvh_public_functions_on_cpu_tensors_launch_nothing(no_launch):
+    scene, params = _box(intersector="bvh")
+    sh.reset_launches()
+    kb.reset_launches()
+    d = torch.ones((600, 3))
+    for o in (None, torch.zeros((600, 3))):
+        with pytest.raises(ValueError, match="CUDA tensor"):
+            sh.bvh_shadow_trace_cuda(scene, o, d, LIGHT, AMBIENT)
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        sh.bvh_camera_frame_cuda(scene, d[:, 0].contiguous(),
+                                 d[:, 1].contiguous(), (48, 32),
+                                 _scale(params), {}, 512, LIGHT, AMBIENT)
+    assert sh.glue_launches == sh.launches == kb.launches == 0
+    # no ray: nothing to launch, empty AOVs
+    got = sh.bvh_shadow_trace_cuda(scene, None, torch.ones((0, 3)), LIGHT,
+                                   AMBIENT)
+    assert [t.shape[0] for t in got] == [0] * len(SHADE_FIELDS)
+    assert sh.glue_launches == kb.launches == 0
+
+
 def test_public_functions_on_cpu_tensors_launch_nothing(no_launch):
     scene, params = _box()
     sh.reset_launches()
@@ -325,6 +564,18 @@ def test_reset_launches_resets_the_glue_counter():
     sh.reset_launches()
     R.reset_counters()
     assert sh.launches == sh.glue_launches == R.graph_replays == 0
+
+
+def test_reset_launches_resets_the_bvh_routes_counters(bvh_kernel_route):
+    scene, params = _box(intersector="bvh")
+    R.render(scene, params, chunk_size=512)
+    R.render(scene, params, chunk_size=512)
+    assert (sh.glue_launches, kb.launches, R.graph_replays) == (
+        2 * 3, 2 * 2 * 3, 1)
+    sh.reset_launches()
+    kb.reset_launches()
+    R.reset_counters()
+    assert sh.glue_launches == kb.launches == R.graph_replays == 0
 
 
 # ---- on the card ----

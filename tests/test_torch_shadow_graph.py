@@ -131,7 +131,9 @@ def test_frame_body_with_tensor_factors_equals_render(box, eager, zi):
     ("cpu", True, "pallas", None, 1440, 1440, False),
     ("cuda", False, "pallas", None, 1440, 1440, False),
     ("cuda", True, "pallas-hbm", None, 1440, 1440, False),
-    ("cuda", True, "bvh", None, 1440, 1440, False),
+    ("cuda", True, "bvh", None, 1440, 1440, True),
+    ("cuda", False, "bvh", None, 1440, 1440, True),
+    ("cuda", True, "bvh", print, 1440, 1440, False),
     ("cuda", True, "dense", None, 1440, 1440, False),
     ("cuda", True, "pallas", print, 1440, 1440, False),
     ("cuda", True, "pallas", None, 768, 432, True),
