@@ -19,8 +19,11 @@ payload in bf16 and rounds the winner's barycentrics to bf16 before they
 weight it; the port's payload then holds the same bf16 values in f32
 (``TorchScene.payload_split``) and rounds the barycentrics alike.
 
-The CUDA kernel (``ops/cuda/intersect.cu``, ``intersect_kernel<true>``)
-and :func:`super_walk_ref` share K5's contract and raw outputs.
+The CUDA kernel (``ops/cuda/intersect.cu``, ``chunk_kernel`` and
+``fold_kernel``) and :func:`super_walk_ref` share K5's contract and raw
+outputs. Under a profiler, :func:`pallas_intersect_hbm` records the span
+``hbm.cull`` (utils/profiling.py) over the host-side work before the
+walk: the rays' padding and the bundle cull against the super AABBs.
 """
 
 from __future__ import annotations
@@ -29,6 +32,7 @@ from .cull import BR, super_cull_lists_bundle
 from .intersect_kernel import (intersect_epilogue, intersect_inputs,
                                walk_cuda, walk_ref, REF_BUNDLES)
 from .tables import SB
+from ..utils.profiling import span
 
 CHECK_EVERY = 2
 
@@ -64,10 +68,11 @@ def pallas_intersect_hbm(scene, origins, dirs, t_min, t_max):
     the super lists (any scene size): the kernel on a CUDA scene, the plain
     version on a CPU scene. Same results as ``pallas_intersect``."""
     R = dirs.shape[0]
-    o_pad, d_pad, tmin_pad, tmax_pad, rays = intersect_inputs(
-        origins, dirs, t_min, t_max)
-    lists = super_cull_lists_bundle(scene, o_pad, d_pad, tmin_pad, tmax_pad,
-                                    rays.shape[1] // BR)
+    with span("hbm.cull"):
+        o_pad, d_pad, tmin_pad, tmax_pad, rays = intersect_inputs(
+            origins, dirs, t_min, t_max)
+        lists = super_cull_lists_bundle(scene, o_pad, d_pad, tmin_pad,
+                                        tmax_pad, rays.shape[1] // BR)
     dev = scene.device.type
     if dev == "cuda":
         out = super_walk_cuda(scene, *lists, rays)

@@ -9,7 +9,8 @@ on PyTorch:
   frame drivers (``streaming.*`` in ``render/streaming.py`` and
   ``ops/megakernel.py``, ``renderer.*`` in the shadow trace of
   ``render/renderer.py``, ``render/shadow.py`` and ``ops/shadow.py``,
-  ``mesh.*`` in ``parallel/mesh.py``). It records only while a
+  ``mesh.*`` in ``parallel/mesh.py``, ``hbm.cull`` in
+  ``ops/intersect_hbm.py``). It records only while a
   ``torch.profiler`` profile runs: into the profile, as a host op, and into
   :func:`recorded_spans` on the clock of the profile's events;
   otherwise it reads one flag and calls nothing in torch;
