@@ -1797,6 +1797,201 @@ def bvh_glue(dev, scene, params, full=FULL) -> dict:
     return out
 
 
+def hbm_glue(dev, full=FULL) -> dict:
+    """Phase 15's HBM glue kernels (ops/cuda/glue.cu ``rays_cull_kernel``
+    against the super AABBs, ``hbm_light_kernel``, ``hbm_shade_kernel``)
+    on the grid512 faces-up heightfield (``benchmark/scenes/grid512.py``,
+    522,242 triangles in HBM mode) at ``full``^2: each launched over the
+    frame's 32 chunks of 65,536 rays as the renderer launches it (32
+    launches), K6 between, and held bit for bit against its plain chain,
+    chunk by chunk on the same inputs (the prologue against
+    ``scaled_ray_dir``, ``intersect_inputs`` and ``super_cull_lists_bundle``;
+    the light against ``pallas_scene_intersect``'s spheres, discs and ids,
+    ``light_ray``, ``offset_ray_origin`` and the shadow rays' padding and
+    super cull; the shading against ``scene_occluded`` and ``shade``, every
+    AOV); their CUDA-event times alone and behind the spin kernel, and their
+    bound: bytes at 3.35 TB/s (prologue: pixels 8 B and rays 32 B a ray,
+    the lists 8 B a (bundle, super); light: rays 32 B and K6's t, row and
+    normal 20 B read, shadow rays 32 B and the hit 28 B written, the lists;
+    shading: rays 24 B, the hit 28 B, shadow rays 32 B and K6's t and row
+    8 B read, the six AOVs 48 B written); then a replayed frame against
+    the frame of render/shadow.py ``glue_shadow_trace`` and the stores,
+    every AOV bit for bit, with the frame's launches."""
+    from benchmark.scenes.grid512 import make as grid512
+    from ipu_ray_lib_tpu_torch.ops import intersect_hbm as IH
+    from ipu_ray_lib_tpu_torch.ops import shadow as sh
+    from ipu_ray_lib_tpu_torch.ops.bxdf_loop import offset_ray_origin
+    from ipu_ray_lib_tpu_torch.ops.camera import (plane_scale,
+                                                  scaled_ray_dir,
+                                                  tan_half_fov)
+    from ipu_ray_lib_tpu_torch.ops.cuda import build as cb
+    from ipu_ray_lib_tpu_torch.ops.cull import BR, super_cull_lists_bundle
+    from ipu_ray_lib_tpu_torch.ops.intersect_kernel import intersect_inputs
+    from ipu_ray_lib_tpu_torch.ops.traversal import (pallas_scene_intersect,
+                                                     scene_occluded)
+    from ipu_ray_lib_tpu_torch.render import renderer as rr
+    from ipu_ray_lib_tpu_torch.render.pixels import pixel_stream
+    from ipu_ray_lib_tpu_torch.render.renderer import DEFAULT_CHUNK
+    from ipu_ray_lib_tpu_torch.render.shadow import (DEFAULT_AMBIENT,
+                                                     DEFAULT_LIGHT_POS,
+                                                     glue_shadow_trace)
+    from ipu_ray_lib_tpu_torch.scene.build import build_scene
+
+    f32, i32 = torch.float32, torch.int32
+    scene, params = build_scene(grid512(MAIN_GRID), device=dev,
+                                image_width=full, image_height=full,
+                                intersector="pallas-hbm")
+    light = tuple(float(np.float32(v)) for v in DEFAULT_LIGHT_POS)
+    amb = float(np.float32(DEFAULT_AMBIENT))
+    C = DEFAULT_CHUNK
+    n_chunks = -(-full * full // C)
+    rows, cols = pixel_stream(params).coords(dev, n_chunks * C)
+    scale = plane_scale(full, full, tan_half_fov(params.fov_radians))
+    inv = [float(np.float32(1.0) / np.float32(full))] * 2
+    chunks = [slice(c * C, (c + 1) * C) for c in range(n_chunks)]
+    nrb, ns = C // BR, scene.saabb.shape[0]
+    zero, inf = torch.zeros(C, device=dev), torch.full((C,), float("inf"),
+                                                       device=dev)
+    plain_ms = {"prologue": 0.0, "light": 0.0, "shade": 0.0}
+
+    def plain(name, fn):
+        out, t = timed(fn)
+        plain_ms[name] += t * 1e3
+        return out
+
+    def lists(o, d, t_max):
+        o_pad, d_pad, tn, tx, rays = intersect_inputs(o, d, zero, t_max)
+        return (*super_cull_lists_bundle(scene, o_pad, d_pad, tn, tx, nrb),
+                rays)
+
+    # the kernels over the frame, chunk by chunk, K6 between
+    ins, k6a, lit, k6b = [], [], [], []
+    for w in chunks:
+        ins.append(sh._inputs_cuda(scene, C, aabb=scene.saabb, camera=(
+            rows[w], cols[w], *inv, *scale)))
+        k6a.append(IH.super_walk_cuda(scene, *ins[-1])[:3])
+        lit.append((torch.empty((8, C), device=dev),
+                    torch.empty(nrb, dtype=i32, device=dev),
+                    torch.empty((nrb, ns), dtype=i32, device=dev),
+                    torch.empty((nrb, ns), device=dev),
+                    torch.empty((4, C), device=dev),
+                    torch.empty((3, C), dtype=i32, device=dev)))
+        cb.launch_hbm_light(scene, ins[-1][3], *k6a[-1], *lit[-1], R=C,
+                            light=light, zero_origin=True)
+        k6b.append(IH.super_walk_cuda(scene, *lit[-1][1:4], lit[-1][0])[:2])
+    outs = {k: torch.empty((n_chunks * C,) + shape, dtype=dt, device=dev)
+            for k, (shape, dt) in cb.SHADE_OUTS.items()}
+    aovs = {k: v for k, v in outs.items() if k != "escaped"}
+
+    def run_pro():
+        for w in chunks:
+            sh._inputs_cuda(scene, C, aabb=scene.saabb, camera=(
+                rows[w], cols[w], *inv, *scale))
+
+    def run_light():
+        for c in range(n_chunks):
+            cb.launch_hbm_light(scene, ins[c][3], *k6a[c], *lit[c], R=C,
+                                light=light, zero_origin=True)
+
+    def run_shade(bufs=aovs):
+        for c, w in enumerate(chunks):
+            cb.launch_hbm_shade(scene, ins[c][3], *lit[c][4:], lit[c][0],
+                                *k6b[c], {k: v[w] for k, v in bufs.items()},
+                                R=C, light=light, ambient=amb,
+                                zero_origin=True)
+
+    lists_b = n_chunks * nrb * ns * 8
+    bound_b = {"rays_cull_kernel": n_chunks * C * 40 + lists_b,
+               "hbm_light_kernel": n_chunks * C * 112 + lists_b,
+               "hbm_shade_kernel": n_chunks * C * 140}
+    out = {}
+    for name, fn in (("rays_cull_kernel", run_pro),
+                     ("hbm_light_kernel", run_light),
+                     ("hbm_shade_kernel", run_shade)):
+        ms, _ = event_ms(fn, reps=5)
+        card_ms, _ = event_ms(fn, reps=5, hold_ms=10.0)
+        out[name] = dict(ms=ms, card_ms=card_ms, launches=n_chunks,
+                         bound_ms=bound_b[name] / PEAK_BYTES * 1e3,
+                         bytes=bound_b[name])
+    run_shade(outs)
+    torch.cuda.synchronize()
+    # the plain chain, chunk by chunk, on the kernels' inputs
+    bad = {k: set() for k in out}
+    for c, w in enumerate(chunks):
+        d = plain("prologue", lambda: scaled_ray_dir(cols[w], rows[w], full,
+                                                     full, *scale))
+        want = plain("prologue", lambda: lists(torch.zeros_like(d), d, inf))
+        bad["rays_cull_kernel"] |= {k for k, a, b in zip(
+            ("counts", "order", "dists", "rays"), ins[c], want)
+            if not bits_equal(a.cpu(), b.cpu())}
+
+        def chain_light():
+            hit, normal = pallas_scene_intersect(scene, None, d, zero, inf,
+                                                 with_normal=True, hbm=True)
+            hit_p, sdir, dist = sh.light_ray(None, d, hit.found, hit.t,
+                                             DEFAULT_LIGHT_POS)
+            sorig = offset_ray_origin(hit_p, sdir, normal)
+            return hit, normal, hit_p, sorig, sdir, dist, lists(sorig, sdir,
+                                                                dist)
+
+        hit, normal, hit_p, sorig, sdir, dist, s_lists = plain("light",
+                                                               chain_light)
+        got = (lit[c][1], lit[c][2], lit[c][3], lit[c][0], lit[c][4][3],
+               lit[c][5][0])
+        bad["hbm_light_kernel"] |= {k for k, a, b in zip(
+            ("counts", "order", "dists", "srays", "hit_t", "row"), got,
+            (*s_lists, hit.t, k6a[c][1])) if not bits_equal(a.cpu(), b.cpu())}
+
+        def chain_shade():
+            occ = scene_occluded(scene, sorig, sdir, zero, dist, "pallas-hbm")
+            return sh.shade(scene, hit.geom_id, hit.prim_id, hit.found,
+                            normal, hit.t, hit_p, sdir, occ, DEFAULT_AMBIENT)
+
+        shaded = plain("shade", chain_shade)
+        bad["hbm_shade_kernel"] |= {k for k, b in zip(cb.SHADE_OUTS, shaded)
+                                    if not bits_equal(outs[k][w].cpu(),
+                                                      b.cpu())}
+    for name, o in out.items():
+        o["differ"] = sorted(bad[name])
+        key = {"rays_cull_kernel": "prologue", "hbm_light_kernel": "light",
+               "hbm_shade_kernel": "shade"}[name]
+        log(f"[p15 hbm glue] {name} over the {full}^2 grid512 frame "
+            f"({n_chunks} launches of {C} rays): "
+            f"{', '.join(f'{t:.3f}' for t in o['ms'])} ms (behind a spin "
+            f"kernel {', '.join(f'{t:.3f}' for t in o['card_ms'])} ms), "
+            f"bound {o['bound_ms']:.4f} ms ({o['bytes'] / 1e6:.1f} MB); its "
+            f"plain chain over the {n_chunks} chunks {plain_ms[key]:.1f} ms; "
+            f"outputs that differ from it: {o['differ'] or 'none'}")
+    # a replayed frame against the glue route's torch chain
+    bufs = rr._aov_bufs(list(rr._AOVS), n_chunks * C, dev)
+    for w in chunks:
+        d = scaled_ray_dir(cols[w], rows[w], full, full, *scale)
+        res = glue_shadow_trace(scene, None, d, DEFAULT_LIGHT_POS,
+                                DEFAULT_AMBIENT, "pallas-hbm")
+        for k, b in bufs.items():
+            b[w] = getattr(res, k)
+    chain = rr._read_back(bufs, params, dev, False)
+    rr.render(scene, params)
+    replays = rr.graph_replays
+    sh.reset_launches()
+    IH.reset_launches()
+    got, t_frame = timed(lambda: rr.render(scene, params))
+    launches = (IH.launches, sh.glue_launches)
+    frame_bad = [k for k in rr.RenderOutput._fields
+                 if not bits_equal(getattr(got, k), getattr(chain, k))]
+    out["replayed_frame_differs"] = frame_bad
+    out["replayed_frame_ms"] = t_frame * 1e3
+    log(f"[p15 hbm glue] a replayed {full}^2 grid512 frame (replays "
+        f"{replays} -> {rr.graph_replays}; {launches[0]} K6 queries, "
+        f"{launches[1]} glue launches; {t_frame * 1e3:.1f} ms) against "
+        f"glue_shadow_trace's: AOVs that differ {frame_bad or 'none'}")
+    if (any(bad.values()) or frame_bad or rr.graph_replays != replays + 1
+            or launches != (2 * n_chunks, 3 * n_chunks)):
+        raise AssertionError("an HBM glue kernel disagrees with its plain "
+                             "chain, or the replayed frame with the chain's")
+    return out
+
+
 def intersectors(dev, k4_frame, mega_mean, full=FULL) -> dict:
     """Phase 15: the ``"bvh"`` and ``"dense"`` intersectors, K7 and K8.
 
@@ -1935,6 +2130,7 @@ def intersectors(dev, k4_frame, mega_mean, full=FULL) -> dict:
         f"{out['yardstick_agree']:.4f} of the rays)")
 
     out["bvh_glue"] = bvh_glue(dev, cs, params["bvh"], full)
+    out["hbm_glue"] = hbm_glue(dev, full)
 
     # ---- (b) the shadow trace at full width ----
     n_frame = full * full
@@ -3732,10 +3928,12 @@ def main() -> int:
             and np.array_equal(anrm.geom_id, aout.geom_id)):
         raise AssertionError("path A: the normals-only frame differs")
     # K6 alone over one frame's 2 * n_chunks calls (CUDA events), and the
-    # frame's (bundle, block) pairs from the kernel's own counts:
+    # frame's (bundle, block) pairs from the kernel's own counts, recorded
+    # on the eager chunk loop (a progress callback keeps the frame off its
+    # graph, whose replays call nothing):
     a_calls = []
     with recording(ih, "super_walk_cuda", a_calls):
-        render(bs, bp, aovs=("normal",))
+        render(bs, bp, aovs=("normal",), progress_callback=lambda i, rgb: None)
     if len(a_calls) != 2 * n_chunks:
         raise AssertionError("path A: not two K6 calls per chunk")
     k6_ms, _ = event_ms(lambda: [ik.walk_cuda(bs, *a, hbm=True)

@@ -97,6 +97,8 @@ _SIGNATURES = {
     "bvh_rays_launch": [_P] * 4 + [_F] * 4 + [_P] * 4 + [_I] + [_P],
     "bvh_light_launch": [_P] * 18 + [_I] * 6 + [_F] * 3 + [_P],
     "bvh_shade_launch": [_P] * 16 + [_I] * 3 + [_F] * 4 + [_P],
+    "hbm_light_launch": [_P] * 15 + [_I] * 6 + [_F] * 3 + [_P],
+    "hbm_shade_launch": [_P] * 20 + [_I] * 7 + [_F] * 4 + [_P],
 }
 # The counters of a counting launch of K7: node visits, leaf tests.
 BVH_COUNTERS = ("node_visits", "leaf_tests")
@@ -637,6 +639,29 @@ def launch_rays_cull(baabb, rays, counts, order, dists, *, R: int,
     _raise_on(err, "rays_cull")
 
 
+# The tables of a scene that the epilogue and the HBM route's glue kernels
+# read, the id tables first in the launchers' order: name -> dtype and
+# trailing shape.
+_SHADE_TABLES = {"tri_geom": (torch.int32, ()), "tri_prim": (torch.int32, ()),
+                 "sphere_geom": (torch.int32, ()),
+                 "disc_geom": (torch.int32, ()),
+                 "ap": (torch.float32, (16,)), "mat_id": (torch.int32, ()),
+                 "mat_albedo": (torch.float32, (3,))}
+
+
+def _shade_tables(scene) -> dict:
+    """:data:`_SHADE_TABLES` through :func:`_scene_tables`, and the counts
+    they must agree on: a prim per triangle, a row of ``ap`` for each
+    sphere and disc."""
+    tab = _scene_tables(scene, _SHADE_TABLES)
+    n = {k: t.shape[0] for k, t in tab.items()}
+    if (n["tri_prim"] != n["tri_geom"]
+            or n["sphere_geom"] + n["disc_geom"] > n["ap"]):
+        raise ValueError("the scene's tri_prim and tri_geom differ in length, "
+                         "or its spheres and discs exceed its ap rows")
+    return tab
+
+
 # The AOVs the epilogue writes: each one's trailing shape and dtype.
 SHADE_OUTS = {"rgb": ((3,), torch.float32), "t": ((), torch.float32),
               "geom_id": ((), torch.int32), "prim_id": ((), torch.int32),
@@ -664,40 +689,122 @@ def launch_shade(scene, rays, out_f, out_i, outs: dict, *, R: int, light,
     _check_layout("rays", rays, f32, (8, Rp))
     _check_layout("out_f", out_f, f32, (4, Rp))
     _check_layout("out_i", out_i, i32, (4, Rp))
-    # the id tables, in the launcher's order: triangles, spheres, discs
-    ids = [getattr(scene, k) for k in ("tri_geom", "tri_prim", "sphere_geom",
-                                       "disc_geom")]
-    for k, t in zip(("tri_geom", "tri_prim", "sphere_geom", "disc_geom"), ids):
-        _check_layout(k, t, i32, (t.shape[0],))
-    n_tri, n_sph, n_dsc = ids[0].shape[0], ids[2].shape[0], ids[3].shape[0]
-    n_ap, n_geom = scene.ap.shape[0], scene.mat_id.shape[0]
-    n_mat = scene.mat_albedo.shape[0]
-    _check_layout("tri_prim", ids[1], i32, (n_tri,))
-    _check_layout("ap", scene.ap, f32, (n_ap, 16))
-    _check_layout("mat_id", scene.mat_id, i32, (n_geom,))
-    _check_layout("mat_albedo", scene.mat_albedo, f32, (n_mat, 3))
-    if min(n_tri, n_sph, n_dsc, n_geom) < 1 or n_sph + n_dsc > n_ap:
-        raise ValueError("the scene's id tables are empty, or its spheres "
-                         "and discs exceed its ap rows")
     for k, t in outs.items():
         shape, dt = SHADE_OUTS[k]
         _check_layout(k, t, dt, (R,) + shape)
-    _on_card(rays=rays, out_f=out_f, out_i=out_i, ap=scene.ap,
-             mat_id=scene.mat_id, mat_albedo=scene.mat_albedo,
-             **dict(zip(("tri_geom", "tri_prim", "sphere_geom", "disc_geom"),
-                        ids)), **outs)
-    _same_device(rays, out_f, out_i, scene.ap, scene.mat_id, scene.mat_albedo,
-                 *ids, *outs.values())
+    tab = _shade_tables(scene)
+    _on_card(rays=rays, out_f=out_f, out_i=out_i, **outs)
+    _same_device(rays, out_f, out_i, tab["ap"], *outs.values())
     ptr = lambda k: outs[k].data_ptr() if k in outs else None
     lib = load()
     with torch.cuda.device(rays.device):
         err = lib.shade_launch(
             rays.data_ptr(), out_f.data_ptr(), out_i.data_ptr(),
-            *(t.data_ptr() for t in ids), scene.ap.data_ptr(),
-            scene.mat_id.data_ptr(), scene.mat_albedo.data_ptr(),
-            *map(ptr, SHADE_OUTS), R, Rp, n_tri, n_sph, n_dsc, n_geom, n_mat,
+            *(t.data_ptr() for t in tab.values()), *map(ptr, SHADE_OUTS), R,
+            Rp, *(tab[k].shape[0] for k in ("tri_geom", "sphere_geom",
+                                            "disc_geom", "mat_id",
+                                            "mat_albedo")),
             int(zero_origin), *light, float(ambient), _stream(rays.device))
     _raise_on(err, "shade")
+
+
+def launch_hbm_light(scene, rays, k6_t, k6_i, k6_n, srays, counts, order,
+                     dists, hit_f, hit_i, *, R: int, light,
+                     zero_origin: bool) -> None:
+    """Launch the HBM route's light kernel (glue.cu ``hbm_light_kernel``)
+    on the current stream, one CTA per bundle of 1,024 rays: after K6's
+    closest hit (``k6_t`` [Rp] f32, ``k6_i`` [Rp] i32, ``k6_n`` [8, Rp]
+    f32, the raw normal in rows 0-2) of the first R of ``rays`` [8, Rp]
+    f32 (the prologue's), the spheres and discs, the ids and normal
+    (ops/traversal.py ``pallas_scene_intersect``), the light ray and the
+    offset origin toward ``light`` (three f32 values): the shadow rays,
+    padded as ops/intersect_kernel.py ``intersect_inputs`` pads them, into
+    ``srays`` [8, Rp] f32 and their super cull against ``scene.saabb``
+    (ops/cull.py ``super_cull_lists_bundle``) into ``counts`` [nrb] i32,
+    ``order`` [nrb, ns] i32 and ``dists`` [nrb, ns] f32; the hit, as the
+    shade kernel reads it, into ``hit_f`` [4, Rp] f32 (raw normal, hit t)
+    and ``hit_i`` [3, Rp] i32 (row, sphere, disc; -1 where none).
+    ``zero_origin``: the rays start at the origin (the folded forms)."""
+    f32, i32 = torch.float32, torch.int32
+    Rp = rays.shape[1]
+    nrb = Rp // 1024
+    if not 0 < R <= Rp or Rp % 1024 or Rp - R >= 1024:
+        raise ValueError(f"{R} rays do not fill {Rp} padded lanes")
+    saabb = scene.saabb
+    ns = saabb.shape[0]
+    ts = dict(rays=rays, k6_t=k6_t, k6_i=k6_i, k6_n=k6_n, srays=srays,
+              counts=counts, order=order, dists=dists, hit_f=hit_f,
+              hit_i=hit_i, saabb=saabb)
+    for k, dt, shape in (("rays", f32, (8, Rp)), ("k6_t", f32, (Rp,)),
+                         ("k6_i", i32, (Rp,)), ("k6_n", f32, (8, Rp)),
+                         ("saabb", f32, (ns, 8)), ("srays", f32, (8, Rp)),
+                         ("counts", i32, (nrb,)), ("order", i32, (nrb, ns)),
+                         ("dists", f32, (nrb, ns)), ("hit_f", f32, (4, Rp)),
+                         ("hit_i", i32, (3, Rp))):
+        _check_layout(k, ts[k], dt, shape)
+    if ns * 4 > 48 * 1024:
+        raise ValueError(f"{ns} supers need {ns * 4} bytes of bounds in "
+                         "shared memory; the light kernel takes up to 48 KB")
+    tab = _shade_tables(scene)
+    _on_card(**ts)
+    _same_device(*ts.values(), tab["ap"])
+    geo = ("tri_geom", "sphere_geom", "disc_geom")
+    lib = load()
+    with torch.cuda.device(rays.device):
+        err = lib.hbm_light_launch(
+            rays.data_ptr(), k6_t.data_ptr(), k6_i.data_ptr(),
+            k6_n.data_ptr(), *(tab[k].data_ptr() for k in geo),
+            tab["ap"].data_ptr(), saabb.data_ptr(), srays.data_ptr(),
+            counts.data_ptr(), order.data_ptr(), dists.data_ptr(),
+            hit_f.data_ptr(), hit_i.data_ptr(), R, ns,
+            *(tab[k].shape[0] for k in geo), int(zero_origin), *light,
+            _stream(rays.device))
+    _raise_on(err, "hbm_light")
+
+
+def launch_hbm_shade(scene, rays, hit_f, hit_i, srays, k6_t, k6_i,
+                     outs: dict, *, R: int, light, ambient: float,
+                     zero_origin: bool) -> None:
+    """Launch the HBM route's shading (glue.cu ``hbm_shade_kernel``) on the
+    current stream, one thread per ray: K6's closest hit of the shadow
+    rays ``srays`` [8, Rp] f32 (``k6_t`` [Rp] f32, ``k6_i`` [Rp] i32), the
+    spheres and discs, occluded where a hit lies nearer than the light
+    (ops/traversal.py ``scene_occluded``); then the first R of ``rays``
+    [8, Rp] and the light kernel's ``hit_f`` [4, Rp] f32 and ``hit_i`` [3,
+    Rp] i32 shaded as ops/shadow.py ``shade`` shades them, into the tensors
+    of ``outs`` (as :func:`launch_shade` takes them); ``light`` three f32
+    values, ``ambient`` an f32 value, ``zero_origin`` as
+    :func:`launch_hbm_light` takes it."""
+    f32, i32 = torch.float32, torch.int32
+    Rp = rays.shape[1]
+    if not 0 < R <= Rp or Rp % 1024 or Rp - R >= 1024:
+        raise ValueError(f"{R} rays do not fill {Rp} padded lanes")
+    unknown = set(outs) - set(SHADE_OUTS)
+    if unknown:
+        raise ValueError(f"no such AOV: {sorted(unknown)}")
+    ts = dict(rays=rays, hit_f=hit_f, hit_i=hit_i, srays=srays, k6_t=k6_t,
+              k6_i=k6_i)
+    for k, dt, shape in (("rays", f32, (8, Rp)), ("hit_f", f32, (4, Rp)),
+                         ("hit_i", i32, (3, Rp)), ("srays", f32, (8, Rp)),
+                         ("k6_t", f32, (Rp,)), ("k6_i", i32, (Rp,))):
+        _check_layout(k, ts[k], dt, shape)
+    for k, t in outs.items():
+        shape, dt = SHADE_OUTS[k]
+        _check_layout(k, t, dt, (R,) + shape)
+    tab = _shade_tables(scene)
+    _on_card(**ts, **outs)
+    _same_device(*ts.values(), tab["ap"], *outs.values())
+    lib = load()
+    with torch.cuda.device(rays.device):
+        err = lib.hbm_shade_launch(
+            rays.data_ptr(), hit_f.data_ptr(), hit_i.data_ptr(),
+            srays.data_ptr(), k6_t.data_ptr(), k6_i.data_ptr(),
+            *(t.data_ptr() for t in tab.values()),
+            *(_ptr(outs.get(k)) for k in SHADE_OUTS), R,
+            *(tab[k].shape[0] for k in ("tri_geom", "sphere_geom",
+                                        "disc_geom", "mat_id", "mat_albedo")),
+            int(zero_origin), *light, float(ambient), _stream(rays.device))
+    _raise_on(err, "hbm_shade")
 
 
 def launch_bvh_rays(t_min, t_max, *, zeros=None, dirs=None,

@@ -1,9 +1,12 @@
 // The shadow frame's glue for Hopper (sm_90a), around the fused shadow
-// kernel (K4, shadow.cu) and around the threaded-BVH walk (K7, bvh.cu).
-// Around K4: before it, the camera rays and the bundle cull; after it, the
-// shading and the AOV stores: with K4, three launches per chunk of rays.
-// Around K7's two walks: the rays before the closest hit, the shadow ray
-// between it and the any hit, the shading after: with K7, five launches.
+// kernel (K4, shadow.cu), the threaded-BVH walk (K7, bvh.cu) and the HBM
+// closest hit (K6, intersect.cu). Around K4: before it, the camera rays and
+// the bundle cull; after it, the shading and the AOV stores: with K4, three
+// launches per chunk of rays. Around K7's two walks: the rays before the
+// closest hit, the shadow ray between it and the any hit, the shading
+// after: with K7, five launches. Around K6's two queries: the prologue
+// against the super AABBs, the shadow rays and their super cull between,
+// the occlusion and the shading after: with K6, three glue launches.
 //
 // Replaces the work that XLA fuses around the TPU kernel `_shadow_kernel`:
 // the glue of `fused_shadow_trace_arrays` / `fused_shadow_trace`
@@ -44,6 +47,20 @@
 //   offset_ray_origin): the shadow ray K7's any hit walks, and the normal.
 // - bvh_shade_kernel, one thread per ray, after K7's any hit: the light
 //   ray again from the hit, and shade_kernel's shading and stores.
+// - rays_cull_kernel again before K6's closest hit, its boxes the super
+//   AABBs (ops/cull.py super_cull_lists_bundle).
+// - hbm_light_kernel, one CTA of 256 threads per bundle as the prologue,
+//   after K6's closest hit: per ray the spheres and discs against K6's t
+//   (ops/dense.py dense_spheres / dense_discs), the ids and normal
+//   (resolve_hit), the light ray and the offset origin: the shadow rays,
+//   padded as ops/intersect_kernel.py intersect_inputs pads them; per
+//   bundle their box over the lanes with t_max > 0, the amax of t_max, and
+//   the prologue's cull stage against the super AABBs (the device
+//   functions fold_bundle and cull_bundle, which both kernels share).
+// - hbm_shade_kernel, one thread per ray, after K6's occlusion query: the
+//   shadow ray's spheres and discs bounded by K6's t, occluded where a hit
+//   lies nearer than the light (ops/traversal.py scene_occluded), then
+//   shade_kernel's shading and stores (shade_ray).
 // They replace the torch glue of render/shadow.py's glue branch (the JAX
 // package's `shadow_trace`, ipu_ray_lib_tpu/render/shadow.py:66-100, which
 // XLA fuses), whose plain torch chain stays for CPU tensors and as their
@@ -76,7 +93,12 @@
 // three kernels read and write per ray 40, 64 and 88 B (the camera ray;
 // K7's hit and the shadow ray; the shadow test, the normal and the six
 // AOVs): ~400 MB over a 1440^2 frame, 0.12 ms; hit_normal's table reads
-// stay in L2.
+// stay in L2. The HBM route's per ray: the prologue's 40 B; the light
+// kernel reads the rays and K6's t, row and normal (52 B) and writes the
+// shadow ray and the hit (60 B); the shade kernel reads the rays, the hit,
+// the shadow ray and K6's t and row (92 B) and writes the six AOVs (48 B);
+// per bundle the lists of 511 supers (4 KB) twice, and the rank's 511^2
+// compares in shared memory.
 
 #include "rows.cuh"
 
@@ -87,6 +109,7 @@ using rows::jmax;
 using rows::jmin;
 using rows::kBig30;
 using rows::kInf;
+using rows::kMachEps;
 using rows::kRayEps;
 using rows::kSlabScale;
 using rows::kTiny;
@@ -114,6 +137,8 @@ __device__ __forceinline__ V3 unit(V3 v) {
   const float l = jmax(sqrtf(sum3(v, v)), kTiny());
   return {v.x / l, v.y / l, v.z / l};
 }
+
+__device__ __forceinline__ V3 load_v3(const float* p) { return {p[0], p[1], p[2]}; }
 
 __device__ __forceinline__ int clampi(int x, int lo, int hi) {
   return x < lo ? lo : (x > hi ? hi : x);  // torch.clamp: hi wins
@@ -169,80 +194,73 @@ __device__ __forceinline__ bool sorts_equal(float a, float b) {
   return a == b || (a != a && b != b);
 }
 
-__global__ void __launch_bounds__(NT) rays_cull_kernel(const RaysParams P) {
-  extern __shared__ float s_dist[];  // [nb] each block's bound
-  __shared__ float s_box[NW][12];    // per warp: o lo, o hi, d lo, d hi
-  __shared__ int s_live[NW];
-  __shared__ int s_kept;
-  const int b = blockIdx.x, tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const float sx = P.sxp ? *P.sxp : P.sx, sy = P.syp ? *P.syp : P.sy;
-  if (tid == 0) s_kept = 0;
+// ---- the bundle cull, shared by the prologue and the HBM light kernel ----
 
-  // ---- the bundle's rays, and its box over the live lanes (ops/shadow.py
-  // shadow_inputs; ops/cull.py bundle_cull's amin / amax) ----
-  float box[12];
-  for (int k = 0; k < 3; ++k) {
-    box[k] = kInf();
-    box[3 + k] = -kInf();
-    box[6 + k] = kInf();
-    box[9 + k] = -kInf();
+// Where the bundle cull folds component c of a lane's values: the box's
+// origin lo, origin hi, direction lo, direction hi (min, max, min, max),
+// then, where given, the amax of t_max over every lane.
+__device__ __forceinline__ bool folds_min(int c) { return c < 12 && (c % 6) < 3; }
+__device__ __forceinline__ float fold(int c, float a, float b) {
+  return folds_min(c) ? jmin(a, b) : jmax(a, b);
+}
+
+// The empty box: +inf for the minima, -inf for the maxima.
+template <int K>
+__device__ __forceinline__ void empty_box(float v[K]) {
+  for (int c = 0; c < K; ++c) v[c] = folds_min(c) ? kInf() : -kInf();
+}
+
+// A live lane's origin and direction into the box.
+__device__ __forceinline__ void grow_box(float* box, const float o[3], const float d[3]) {
+  for (int c = 0; c < 3; ++c) {
+    box[c] = jmin(box[c], o[c]);
+    box[3 + c] = jmax(box[3 + c], o[c]);
+    box[6 + c] = jmin(box[6 + c], d[c]);
+    box[9 + c] = jmax(box[9 + c], d[c]);
   }
-  int live_any = 0;
-  for (int k = 0; k < LPT; ++k) {
-    const int i = b * BR + k * NT + tid;
-    const bool live = i < P.R;
-    float o[3] = {0.0f, 0.0f, 0.0f}, d[3] = {1.0f, 1.0f, 1.0f};
-    if (live) make_ray(P, i, sx, sy, o, d);
-    for (int c = 0; c < 3; ++c) {
-      P.rays[c * P.Rp + i] = o[c];
-      P.rays[(3 + c) * P.Rp + i] = d[c];
-    }
-    P.rays[6 * P.Rp + i] = 0.0f;
-    P.rays[7 * P.Rp + i] = live ? kInf() : -1.0f;
-    if (live) {
-      live_any = 1;
-      for (int c = 0; c < 3; ++c) {
-        box[c] = jmin(box[c], o[c]);
-        box[3 + c] = jmax(box[3 + c], o[c]);
-        box[6 + c] = jmin(box[6 + c], d[c]);
-        box[9 + c] = jmax(box[9 + c], d[c]);
-      }
-    }
-  }
+}
+
+// The CTA's fold of each thread's values v[K] and live flag (ops/cull.py
+// bundle_cull's amin / amax over the bundle): a warp's shuffles, then
+// every warp's row through shared memory; every thread ends with the
+// bundle's values. s_v: [NW][K], s_live: [NW].
+template <int K>
+__device__ __forceinline__ void fold_bundle(float v[K], int& live_any, float (*s_v)[K],
+                                            int* s_live) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   for (int off = 16; off > 0; off >>= 1) {
-    for (int c = 0; c < 3; ++c) {
-      box[c] = jmin(box[c], __shfl_xor_sync(0xffffffffu, box[c], off));
-      box[3 + c] = jmax(box[3 + c], __shfl_xor_sync(0xffffffffu, box[3 + c], off));
-      box[6 + c] = jmin(box[6 + c], __shfl_xor_sync(0xffffffffu, box[6 + c], off));
-      box[9 + c] = jmax(box[9 + c], __shfl_xor_sync(0xffffffffu, box[9 + c], off));
-    }
+    for (int c = 0; c < K; ++c) v[c] = fold(c, v[c], __shfl_xor_sync(0xffffffffu, v[c], off));
   }
   live_any = __any_sync(0xffffffffu, live_any);
   if (lane == 0) {
-    for (int c = 0; c < 12; ++c) s_box[warp][c] = box[c];
+    for (int c = 0; c < K; ++c) s_v[warp][c] = v[c];
     s_live[warp] = live_any;
   }
   __syncthreads();
   for (int w = 0; w < NW; ++w) {
-    for (int c = 0; c < 3; ++c) {
-      box[c] = jmin(box[c], s_box[w][c]);
-      box[3 + c] = jmax(box[3 + c], s_box[w][3 + c]);
-      box[6 + c] = jmin(box[6 + c], s_box[w][6 + c]);
-      box[9 + c] = jmax(box[9 + c], s_box[w][9 + c]);
-    }
+    for (int c = 0; c < K; ++c) v[c] = fold(c, v[c], s_v[w][c]);
     live_any |= s_live[w];
   }
+}
+
+// The bundle b's cull against the boxes aabb [nb, 8] (ops/cull.py
+// bundle_cull): each box's interval slab test and distance bound into
+// s_dist [nb] (culled boxes at inf), then the boxes ordered by bound as a
+// stable argsort orders them, into order / dists [nb] and the kept count.
+// box: the bundle's origin and direction ranges over its live lanes;
+// tmax_hi, tmin_lo: the amax of t_max over every lane, the amin of t_min
+// over the live ones. s_kept starts at 0 before the CTA's last barrier.
+__device__ __forceinline__ void cull_bundle(const float* aabb, int nb, const float box[12],
+                                            float tmax_hi, float tmin_lo, float* s_dist,
+                                            int* s_kept, int* counts, int* order, float* dists,
+                                            int b) {
+  const int tid = threadIdx.x;
   const float* olo = box;
   const float* ohi = box + 3;
   const float* dlo = box + 6;
   const float* dhi = box + 9;
-  // amax of t_max over every lane, amin of t_min over the live ones:
-  const float tmax_hi = live_any ? kInf() : -1.0f;
-  const float tmin_lo = live_any ? 0.0f : kInf();
-
-  // ---- each block's interval slab test and distance bound ----
-  for (int j = tid; j < P.nb; j += NT) {
-    const float* bx = P.baabb + j * 8;
+  for (int j = tid; j < nb; j += NT) {
+    const float* bx = aabb + j * 8;
     float enter = -kInf(), exit_ = kInf(), d2 = 0.0f;
     for (int a = 0; a < 3; ++a) {
       const bool same = dlo[a] > 0.0f || dhi[a] < 0.0f;
@@ -266,22 +284,58 @@ __global__ void __launch_bounds__(NT) rays_cull_kernel(const RaysParams P) {
     const bool hit = enter <= exit_ && enter <= tmax_hi && exit_ >= tmin_lo &&
                      bx[0] < kBig30();
     s_dist[j] = hit ? sqrtf(d2) : kInf();
-    if (hit) atomicAdd(&s_kept, 1);
+    if (hit) atomicAdd(s_kept, 1);
   }
   __syncthreads();
 
   // ---- the stable order by bound ----
-  for (int i = tid; i < P.nb; i += NT) {
+  for (int i = tid; i < nb; i += NT) {
     const float di = s_dist[i];
     int rank = 0;
-    for (int j = 0; j < P.nb; ++j) {
+    for (int j = 0; j < nb; ++j) {
       const float dj = s_dist[j];
       rank += sorts_before(dj, di) || (j < i && sorts_equal(dj, di));
     }
-    P.order[b * P.nb + rank] = i;
-    P.dists[b * P.nb + rank] = di;
+    order[b * nb + rank] = i;
+    dists[b * nb + rank] = di;
   }
-  if (tid == 0) P.counts[b] = s_kept;
+  if (tid == 0) counts[b] = *s_kept;
+}
+
+__global__ void __launch_bounds__(NT) rays_cull_kernel(const RaysParams P) {
+  extern __shared__ float s_dist[];  // [nb] each block's bound
+  __shared__ float s_box[NW][12];    // per warp: o lo, o hi, d lo, d hi
+  __shared__ int s_live[NW];
+  __shared__ int s_kept;
+  const int b = blockIdx.x, tid = threadIdx.x;
+  const float sx = P.sxp ? *P.sxp : P.sx, sy = P.syp ? *P.syp : P.sy;
+  if (tid == 0) s_kept = 0;
+
+  // ---- the bundle's rays, and its box over the live lanes (ops/shadow.py
+  // shadow_inputs; ops/cull.py bundle_cull's amin / amax) ----
+  float box[12];
+  empty_box<12>(box);
+  int live_any = 0;
+  for (int k = 0; k < LPT; ++k) {
+    const int i = b * BR + k * NT + tid;
+    const bool live = i < P.R;
+    float o[3] = {0.0f, 0.0f, 0.0f}, d[3] = {1.0f, 1.0f, 1.0f};
+    if (live) make_ray(P, i, sx, sy, o, d);
+    for (int c = 0; c < 3; ++c) {
+      P.rays[c * P.Rp + i] = o[c];
+      P.rays[(3 + c) * P.Rp + i] = d[c];
+    }
+    P.rays[6 * P.Rp + i] = 0.0f;
+    P.rays[7 * P.Rp + i] = live ? kInf() : -1.0f;
+    if (live) {
+      live_any = 1;
+      grow_box(box, o, d);
+    }
+  }
+  fold_bundle<12>(box, live_any, s_box, s_live);
+  // amax of t_max over every lane, amin of t_min over the live ones:
+  cull_bundle(P.baabb, P.nb, box, live_any ? kInf() : -1.0f, live_any ? 0.0f : kInf(), s_dist,
+              &s_kept, P.counts, P.order, P.dists, b);
 }
 
 struct ShadeParams {
@@ -362,15 +416,16 @@ __device__ __forceinline__ void shade_store(const ShadeParams& P, int i, bool fo
   if (P.escaped) P.escaped[i] = found ? 0 : 1;
 }
 
-__global__ void __launch_bounds__(ST) shade_kernel(const ShadeParams P) {
-  const int i = blockIdx.x * ST + threadIdx.x;
-  if (i >= P.R) return;
+// The epilogue of ray i < R (shade_kernel; hbm_shade_kernel): out_f / out_i
+// rows 0-2 (the raw kernel normal and hit t; triangle row, sphere, disc)
+// into the ids (resolve_hit), the kernel, sphere or disc normal, the hit
+// point and the light direction (light_ray), then shade_store with occ.
+__device__ __forceinline__ void shade_ray(const ShadeParams& P, int i, bool occ) {
   const int Rp = P.Rp;
   const V3 o = {P.rays[i], P.rays[Rp + i], P.rays[2 * Rp + i]};
   const V3 d = {P.rays[3 * Rp + i], P.rays[4 * Rp + i], P.rays[5 * Rp + i]};
   const float hit_t = P.out_f[3 * Rp + i];
   const int tri = P.out_i[i], si_b = P.out_i[Rp + i], di_b = P.out_i[2 * Rp + i];
-  const bool occ = P.out_i[3 * Rp + i] != 0;
 
   // ---- ops/traversal.py resolve_hit ----
   const bool sb = si_b >= 0, db = di_b >= 0;
@@ -403,6 +458,208 @@ __global__ void __launch_bounds__(ST) shade_kernel(const ShadeParams P) {
   float dist;
   light_ray(o, d, found ? hit_t : 0.0f, P.zero_origin, {P.lx, P.ly, P.lz}, hp, sdir, dist);
   shade_store(P, i, found, geom, prim, hit_t, nrm, hp, sdir, occ);
+}
+
+__global__ void __launch_bounds__(ST) shade_kernel(const ShadeParams P) {
+  const int i = blockIdx.x * ST + threadIdx.x;
+  if (i >= P.R) return;
+  shade_ray(P, i, P.out_i[3 * P.Rp + i] != 0);
+}
+
+// ---- the HBM route's glue around K6's two queries (intersect.cu) ----
+
+// ops/dense.py sphere_pass with its default dots (dense_spheres, the glue
+// route's spheres; K4's own are shadow.cu's): the nearest sphere's t (inf
+// where none) and index over ap rows [0, n_sph).
+__device__ __forceinline__ void dense_sphere_pass(const float* ap, int n_sph, V3 o, V3 d,
+                                                  float tmin, float& cur_t, int& cur_i) {
+  const float rd2 = 1.0f / sum3(d, d);
+  cur_t = kInf();
+  cur_i = 0;
+  for (int s = 0; s < n_sph; ++s) {
+    const float* a = ap + s * 16;
+    const float r2 = a[7];
+    const V3 oc = {a[1] - o.x, a[2] - o.y, a[3] - o.z};
+    const float tca = sum3(oc, d) * rd2;
+    const V3 l = {xfma(-d.x, tca, oc.x), xfma(-d.y, tca, oc.y), xfma(-d.z, tca, oc.z)};
+    const float l2 = sum3(l, l);
+    const float td = sqrtf(jmax(r2 - l2, 0.0f)) * rd2;
+    const float t0 = tca - td, t1 = tca + td;
+    float t = t0 < tmin ? t1 : t0;
+    const bool miss = tca < 0.0f || l2 > r2 || t < tmin || r2 <= 0.0f;
+    if (miss || t <= tmin) t = kInf();
+    if (t < cur_t) {
+      cur_t = t;
+      cur_i = s;
+    }
+  }
+}
+
+// ops/dense.py disc_pass with its default dots and the plane offset |c . n|
+// computed (dense_discs): the nearest disc's t and index over ap rows
+// [n_sph, n_sph + n_dsc).
+__device__ __forceinline__ void dense_disc_pass(const float* ap, int n_sph, int n_dsc, V3 o,
+                                                V3 d, float tmin, float& cur_t, int& cur_i) {
+  cur_t = kInf();
+  cur_i = 0;
+  for (int s = 0; s < n_dsc; ++s) {
+    const float* a = ap + (n_sph + s) * 16;
+    const V3 c = {a[1], a[2], a[3]}, n = {a[4], a[5], a[6]};
+    const float r2 = a[7];
+    const float d_off = fabsf(sum3(c, n));
+    const float angle = sum3(d, n);
+    float t = -(sum3(o, n) + d_off) / angle;
+    const V3 h = {xfma(d.x, t, o.x) - c.x, xfma(d.y, t, o.y) - c.y, xfma(d.z, t, o.z) - c.z};
+    const float d2 = sum3(h, h);
+    const bool ok = angle != 0.0f && t > kMachEps() && d2 < r2 && r2 > 0.0f && t > tmin;
+    if (!ok) t = kInf();
+    if (t < cur_t) {
+      cur_t = t;
+      cur_i = s;
+    }
+  }
+}
+
+// ops/traversal.py pallas_scene_intersect after the triangle kernel: K6's
+// (t, row) of a ray, t = t_max where no row is hit, then every sphere and
+// every disc, each overriding when strictly nearer. Returns the hit t and
+// sets the sphere and disc that won (-1 where none) and the geometry id
+// (resolve_hit's; INVALID_GEOM_ID where nothing is hit).
+__device__ __forceinline__ float hbm_closest(const ShadeParams& P, V3 o, V3 d, float tmin,
+                                             float tmax, float k6_t, int tri, int& si,
+                                             int& di, int& geom) {
+  float best = tri >= 0 ? k6_t : tmax;
+  float st, dt;
+  int s_i, d_i;
+  dense_sphere_pass(P.ap, P.n_sph, o, d, tmin, st, s_i);
+  const bool sb = st < best;
+  if (sb) best = st;
+  dense_disc_pass(P.ap, P.n_sph, P.n_dsc, o, d, tmin, dt, d_i);
+  const bool db = dt < best;
+  if (db) best = dt;
+  si = sb ? s_i : -1;
+  di = db ? d_i : -1;
+  geom = kInvalidGeom;
+  if (tri >= 0) geom = P.tri_geom[clampi(tri, 0, P.n_tri - 1)];
+  if (sb) geom = P.sphere_geom[clampi(s_i, 0, P.n_sph - 1)];
+  if (db) geom = P.disc_geom[clampi(d_i, 0, P.n_dsc - 1)];
+  return best;
+}
+
+struct HbmLightParams {
+  ShadeParams S;  // rays: the camera query's [8, Rp]; the scene's tables;
+                  // R, Rp, zero_origin, the light
+  float* hit_f;   // [4, Rp] the raw kernel normal, the hit t;
+  int* hit_i;     // [3, Rp] the row, sphere and disc (-1 where none): the
+                  //   out_f / out_i that hbm_shade_kernel's epilogue reads
+  const float* k6_t;  // [Rp] K6's closest hit of the rays: t,
+  const int* k6_i;    // [Rp]   its row or -1,
+  const float* k6_n;  // [8, Rp] the raw kernel normal in rows 0-2
+  const float* saabb;  // [ns, 8] the super AABBs
+  float* srays;   // [8, Rp] the shadow rays as K6 reads them
+  int* counts;    // [nrb] their super lists: kept supers,
+  int* order;     // [nrb, ns] the supers nearest first,
+  float* dists;   // [nrb, ns] their distance bounds
+  int ns;
+};
+
+// One CTA per bundle, as the prologue: each ray's closest hit after K6
+// (spheres, discs, resolve_hit's ids and normal), the light ray and the
+// origin pushed off the surface (ops/shadow.py light_ray, ops/bxdf_loop.py
+// offset_ray_origin): the shadow ray, padded as intersect_inputs pads it
+// (origin 0, direction 1, t_min 0, t_max -1); then the bundle's super
+// cull of the shadow rays against saabb, t_max their light distances
+// (ops/cull.py super_cull_lists_bundle).
+__global__ void __launch_bounds__(NT) hbm_light_kernel(const HbmLightParams P) {
+  extern __shared__ float s_dist[];  // [ns] each super's bound
+  __shared__ float s_box[NW][13];    // per warp: o lo, o hi, d lo, d hi, t_max hi
+  __shared__ int s_live[NW];
+  __shared__ int s_kept;
+  const ShadeParams& S = P.S;
+  const int b = blockIdx.x, tid = threadIdx.x, Rp = S.Rp;
+  if (tid == 0) s_kept = 0;
+
+  float box[13];
+  empty_box<13>(box);
+  int live_any = 0;
+  for (int k = 0; k < LPT; ++k) {
+    const int i = b * BR + k * NT + tid;
+    float so[3] = {0.0f, 0.0f, 0.0f}, sd[3] = {1.0f, 1.0f, 1.0f}, tmax = -1.0f;
+    if (i < S.R) {
+      const V3 o = {S.rays[i], S.rays[Rp + i], S.rays[2 * Rp + i]};
+      const V3 d = {S.rays[3 * Rp + i], S.rays[4 * Rp + i], S.rays[5 * Rp + i]};
+      const int tri = P.k6_i[i];
+      int si, di, geom;
+      const float hit_t = hbm_closest(S, o, d, S.rays[6 * Rp + i], S.rays[7 * Rp + i],
+                                      P.k6_t[i], tri, si, di, geom);
+      const bool found = geom != kInvalidGeom;
+      const V3 raw = {P.k6_n[i], P.k6_n[Rp + i], P.k6_n[2 * Rp + i]};
+      V3 nrm = unit(raw);
+      if (si >= 0) nrm = sphere_normal(S.ap + si * 16 + 1, o, d, hit_t, S.zero_origin);
+      if (di >= 0) nrm = load_v3(S.ap + (S.n_sph + di) * 16 + 4);
+      if (!found) nrm = {0.0f, 0.0f, 1.0f};
+      V3 hp, sdir;
+      light_ray(o, d, found ? hit_t : 0.0f, S.zero_origin, {S.lx, S.ly, S.lz}, hp, sdir, tmax);
+      // offset_ray_origin(hp, sdir, nrm); torch.sign of a NaN or a zero is
+      // 0, which the where makes 1
+      const float mag = 1.0f + jmax(jmax(fabsf(hp.x), fabsf(hp.y)), fabsf(hp.z));
+      const float m = mag * kRayEps() * (sum3(nrm, sdir) < 0.0f ? -1.0f : 1.0f);
+      so[0] = xfma(nrm.x, m, hp.x);
+      so[1] = xfma(nrm.y, m, hp.y);
+      so[2] = xfma(nrm.z, m, hp.z);
+      sd[0] = sdir.x;
+      sd[1] = sdir.y;
+      sd[2] = sdir.z;
+      P.hit_f[i] = raw.x;
+      P.hit_f[Rp + i] = raw.y;
+      P.hit_f[2 * Rp + i] = raw.z;
+      P.hit_f[3 * Rp + i] = hit_t;
+      P.hit_i[i] = tri;
+      P.hit_i[Rp + i] = si;
+      P.hit_i[2 * Rp + i] = di;
+    }
+    for (int c = 0; c < 3; ++c) {
+      P.srays[c * Rp + i] = so[c];
+      P.srays[(3 + c) * Rp + i] = sd[c];
+    }
+    P.srays[6 * Rp + i] = 0.0f;
+    P.srays[7 * Rp + i] = tmax;
+    // bundle_cull: the box over the lanes with t_max > 0, the amax of
+    // t_max over every lane (a NaN distance propagates, as amax does)
+    box[12] = jmax(box[12], tmax);
+    if (tmax > 0.0f) {
+      live_any = 1;
+      grow_box(box, so, sd);
+    }
+  }
+  fold_bundle<13>(box, live_any, s_box, s_live);
+  cull_bundle(P.saabb, P.ns, box, box[12], live_any ? 0.0f : kInf(), s_dist, &s_kept,
+              P.counts, P.order, P.dists, b);
+}
+
+struct HbmShadeParams {
+  ShadeParams S;  // rays: the camera query's; out_f / out_i: hbm_light_kernel's
+  const float* srays;  // [8, Rp] the shadow rays
+  const float* k6_t;   // [Rp] K6's closest hit of the shadow rays: t,
+  const int* k6_i;     // [Rp]   its row or -1
+};
+
+// One thread per ray, after K6's occlusion query: the shadow ray's closest
+// hit (ops/traversal.py scene_occluded: K6's row, the spheres and discs
+// bounded by its t), occluded where something is hit nearer than the light,
+// then the epilogue's shading and stores.
+__global__ void __launch_bounds__(ST) hbm_shade_kernel(const HbmShadeParams P) {
+  const ShadeParams& S = P.S;
+  const int i = blockIdx.x * ST + threadIdx.x;
+  if (i >= S.R) return;
+  const int Rp = S.Rp;
+  const V3 so = {P.srays[i], P.srays[Rp + i], P.srays[2 * Rp + i]};
+  const V3 sd = {P.srays[3 * Rp + i], P.srays[4 * Rp + i], P.srays[5 * Rp + i]};
+  const float dist = P.srays[7 * Rp + i];
+  int si, di, geom;
+  const float t = hbm_closest(S, so, sd, P.srays[6 * Rp + i], dist, P.k6_t[i], P.k6_i[i], si,
+                              di, geom);
+  shade_ray(S, i, geom != kInvalidGeom && t < dist);
 }
 
 // ---- the BVH route's glue around K7 (bvh.cu) ----
@@ -450,7 +707,6 @@ struct BvhGeom {
   int G, M, T, S, D;
 };
 
-__device__ __forceinline__ V3 load_v3(const float* p) { return {p[0], p[1], p[2]}; }
 __device__ __forceinline__ float comp(V3 v, int a) { return a == 0 ? v.x : (a == 1 ? v.y : v.z); }
 
 // ops/intersect.py intersect_triangle_watertight's barycentrics (b0, b1, b2)
@@ -609,23 +865,36 @@ extern "C" int rays_cull_launch(const float* baabb, const float* rows, const flo
   return static_cast<int>(cudaGetLastError());
 }
 
-extern "C" int shade_launch(const float* rays, const float* out_f, const int* out_i,
-                            const int* tri_geom, const int* tri_prim, const int* sphere_geom,
-                            const int* disc_geom, const float* ap, const int* mat_id,
-                            const float* mat_albedo, float* rgb, float* t, int* geom,
-                            int* prim, float* normal, float* hit_p, unsigned char* escaped,
-                            int R, int Rp, int n_tri, int n_sph, int n_dsc, int n_geom,
-                            int n_mat, int zero_origin, float lx, float ly, float lz,
-                            float ambient, void* stream) {
-  ShadeParams P;
+namespace {
+
+// The epilogue's tables, rays and light (the AOV pointers left null).
+ShadeParams shade_params(const float* rays, const int* tri_geom, const int* tri_prim,
+                         const int* sphere_geom, const int* disc_geom, const float* ap, int R,
+                         int Rp, int n_tri, int n_sph, int n_dsc, int zero_origin, float lx,
+                         float ly, float lz) {
+  ShadeParams P = {};
   P.rays = rays;
-  P.out_f = out_f;
-  P.out_i = out_i;
   P.tri_geom = tri_geom;
   P.tri_prim = tri_prim;
   P.sphere_geom = sphere_geom;
   P.disc_geom = disc_geom;
   P.ap = ap;
+  P.R = R;
+  P.Rp = Rp;
+  P.n_tri = n_tri;
+  P.n_sph = n_sph;
+  P.n_dsc = n_dsc;
+  P.zero_origin = zero_origin;
+  P.lx = lx;
+  P.ly = ly;
+  P.lz = lz;
+  return P;
+}
+
+// The AOVs the caller asks for (null: not written), the material tables.
+void shade_outs(ShadeParams& P, const int* mat_id, const float* mat_albedo, float* rgb,
+                float* t, int* geom, int* prim, float* normal, float* hit_p,
+                unsigned char* escaped, int n_geom, int n_mat, float ambient) {
   P.mat_id = mat_id;
   P.mat_albedo = mat_albedo;
   P.rgb = rgb;
@@ -635,19 +904,77 @@ extern "C" int shade_launch(const float* rays, const float* out_f, const int* ou
   P.normal = normal;
   P.hit_p = hit_p;
   P.escaped = escaped;
-  P.R = R;
-  P.Rp = Rp;
-  P.n_tri = n_tri;
-  P.n_sph = n_sph;
-  P.n_dsc = n_dsc;
   P.n_geom = n_geom;
   P.n_mat = n_mat;
-  P.zero_origin = zero_origin;
-  P.lx = lx;
-  P.ly = ly;
-  P.lz = lz;
   P.ambient = ambient;
+}
+
+}  // namespace
+
+extern "C" int shade_launch(const float* rays, const float* out_f, const int* out_i,
+                            const int* tri_geom, const int* tri_prim, const int* sphere_geom,
+                            const int* disc_geom, const float* ap, const int* mat_id,
+                            const float* mat_albedo, float* rgb, float* t, int* geom,
+                            int* prim, float* normal, float* hit_p, unsigned char* escaped,
+                            int R, int Rp, int n_tri, int n_sph, int n_dsc, int n_geom,
+                            int n_mat, int zero_origin, float lx, float ly, float lz,
+                            float ambient, void* stream) {
+  ShadeParams P = shade_params(rays, tri_geom, tri_prim, sphere_geom, disc_geom, ap, R, Rp,
+                               n_tri, n_sph, n_dsc, zero_origin, lx, ly, lz);
+  P.out_f = out_f;
+  P.out_i = out_i;
+  shade_outs(P, mat_id, mat_albedo, rgb, t, geom, prim, normal, hit_p, escaped, n_geom, n_mat,
+             ambient);
   shade_kernel<<<(R + ST - 1) / ST, ST, 0, static_cast<cudaStream_t>(stream)>>>(P);
+  return static_cast<int>(cudaGetLastError());
+}
+
+extern "C" int hbm_light_launch(const float* rays, const float* k6_t, const int* k6_i,
+                                const float* k6_n, const int* tri_geom, const int* sphere_geom,
+                                const int* disc_geom, const float* ap, const float* saabb,
+                                float* srays, int* counts, int* order, float* dists,
+                                float* hit_f, int* hit_i, int R, int ns, int n_tri, int n_sph,
+                                int n_dsc, int zero_origin, float lx, float ly, float lz,
+                                void* stream) {
+  const int nrb = (R + BR - 1) / BR;
+  HbmLightParams P;
+  P.S = shade_params(rays, tri_geom, nullptr, sphere_geom, disc_geom, ap, R, nrb * BR, n_tri,
+                     n_sph, n_dsc, zero_origin, lx, ly, lz);
+  P.hit_f = hit_f;
+  P.hit_i = hit_i;
+  P.k6_t = k6_t;
+  P.k6_i = k6_i;
+  P.k6_n = k6_n;
+  P.saabb = saabb;
+  P.srays = srays;
+  P.counts = counts;
+  P.order = order;
+  P.dists = dists;
+  P.ns = ns;
+  hbm_light_kernel<<<nrb, NT, ns * sizeof(float), static_cast<cudaStream_t>(stream)>>>(P);
+  return static_cast<int>(cudaGetLastError());
+}
+
+extern "C" int hbm_shade_launch(const float* rays, const float* hit_f, const int* hit_i,
+                                const float* srays, const float* k6_t, const int* k6_i,
+                                const int* tri_geom, const int* tri_prim, const int* sphere_geom,
+                                const int* disc_geom, const float* ap, const int* mat_id,
+                                const float* mat_albedo, float* rgb, float* t, int* geom,
+                                int* prim, float* normal, float* hit_p, unsigned char* escaped,
+                                int R, int n_tri, int n_sph, int n_dsc, int n_geom, int n_mat,
+                                int zero_origin, float lx, float ly, float lz, float ambient,
+                                void* stream) {
+  HbmShadeParams P;
+  P.S = shade_params(rays, tri_geom, tri_prim, sphere_geom, disc_geom, ap, R,
+                     (R + BR - 1) / BR * BR, n_tri, n_sph, n_dsc, zero_origin, lx, ly, lz);
+  P.S.out_f = hit_f;
+  P.S.out_i = hit_i;
+  shade_outs(P.S, mat_id, mat_albedo, rgb, t, geom, prim, normal, hit_p, escaped, n_geom, n_mat,
+             ambient);
+  P.srays = srays;
+  P.k6_t = k6_t;
+  P.k6_i = k6_i;
+  hbm_shade_kernel<<<(R + ST - 1) / ST, ST, 0, static_cast<cudaStream_t>(stream)>>>(P);
   return static_cast<int>(cudaGetLastError());
 }
 

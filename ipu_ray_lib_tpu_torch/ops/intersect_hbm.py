@@ -23,7 +23,11 @@ The CUDA kernel (``ops/cuda/intersect.cu``, ``chunk_kernel`` and
 ``fold_kernel``) and :func:`super_walk_ref` share K5's contract and raw
 outputs. Under a profiler, :func:`pallas_intersect_hbm` records the span
 ``hbm.cull`` (utils/profiling.py) over the host-side work before the
-walk: the rays' padding and the bundle cull against the super AABBs.
+walk: the rays' padding and the bundle cull against the super AABBs. The
+shadow trace of a CUDA scene runs neither: its prologue and light kernels
+(ops/cuda/glue.cu, ops/shadow.py ``_hbm_glue``) pad and cull on the card
+and call :func:`super_walk_cuda` themselves, so the span records on the
+glue route's torch chain alone.
 """
 
 from __future__ import annotations
@@ -36,7 +40,8 @@ from ..utils.profiling import span
 
 CHECK_EVERY = 2
 
-# CUDA kernel launches since the last reset.
+# K6's queries on the card since the last reset (each is the waves of
+# ``chunk_kernel`` and ``fold_kernel`` its list width asks for).
 launches = 0
 
 

@@ -56,6 +56,19 @@ ops/traversal.py ``hit_normal``, :func:`light_ray`, ops/bxdf_loop.py
 ``offset_ray_origin`` and :func:`shade`, which the other glue routes and
 CPU scenes keep.
 
+The glue route of a ``"pallas-hbm"`` scene on the card is three kernels
+of ops/cuda/glue.cu around K6's two queries (ops/intersect_hbm.py):
+the prologue against the super AABBs (the camera rays or the caller's,
+their padding and super cull), K6's closest hit, the light kernel (the
+spheres and discs, the ids and normal, the shadow rays and their super
+cull), K6 on the shadow rays and the shade kernel (the occlusion and the
+shading; :func:`_hbm_glue`: :func:`hbm_shadow_trace_cuda` for a batch of
+rays, :func:`hbm_camera_chunk_cuda` for the renderer's chunk), byte for
+byte the torch chain of ops/intersect_kernel.py ``intersect_inputs``,
+ops/cull.py ``super_cull_lists_bundle``, ops/traversal.py
+``pallas_scene_intersect`` and ``scene_occluded``, :func:`light_ray`,
+``offset_ray_origin`` and :func:`shade`.
+
 The kernel's arithmetic is the JAX kernel's, operation for operation: the
 primary walk and its row test are K5's (ops/intersect_kernel.py, CUDA
 ``rows.cuh``) with f32 barycentrics for the shading normal, the sphere and
@@ -90,7 +103,8 @@ _RAY_EPS = float(RAY_EPSILON)
 
 # K4's CUDA launches since the last reset, and the glue kernels' (those
 # of ops/cuda/glue.cu: the prologue and the epilogue around K4, the rays,
-# light and shade kernels around K7).
+# light and shade kernels around K7, the prologue, light and shade kernels
+# around K6).
 launches = 0
 glue_launches = 0
 
@@ -285,19 +299,21 @@ def shadow_inputs(scene, origins, dirs: torch.Tensor):
     return counts, order, dists, rays
 
 
-def _inputs_cuda(scene, R: int, **rays):
+def _inputs_cuda(scene, R: int, aabb=None, **rays):
     """The prologue kernel over R rays (``rays``: as
-    ``launch_rays_cull`` takes them): (counts, order, dists, rays)."""
+    ``launch_rays_cull`` takes them), culled against ``aabb`` (default the
+    scene's block AABBs): (counts, order, dists, rays)."""
     global glue_launches
     from .cuda.build import launch_rays_cull
 
-    dev = scene.baabb.device
-    nrb, nb = -(-R // BR), scene.baabb.shape[0]
+    aabb = scene.baabb if aabb is None else aabb
+    dev = aabb.device
+    nrb, nb = -(-R // BR), aabb.shape[0]
     out = (torch.empty(nrb, dtype=torch.int32, device=dev),
            torch.empty((nrb, nb), dtype=torch.int32, device=dev),
            torch.empty((nrb, nb), dtype=torch.float32, device=dev),
            torch.empty((8, nrb * BR), dtype=torch.float32, device=dev))
-    launch_rays_cull(scene.baabb, out[3], *out[:3], R=R, **rays)
+    launch_rays_cull(aabb, out[3], *out[:3], R=R, **rays)
     glue_launches += 1
     return out
 
@@ -517,4 +533,74 @@ def bvh_camera_frame_cuda(scene, rows, cols, image: tuple, scale: tuple,
     f32 = np.float32
     inv = [float(f32(1.0) / f32(n)) for n in image]
     _bvh_glue(scene, rows.shape[0], out, light_pos, ambient, walk=chunk,
+              camera=(rows, cols, *inv, *scale))
+
+
+def _hbm_glue(scene, R: int, out: dict, light_pos, ambient, *, camera=None,
+              origins=None, dirs=None) -> None:
+    """The HBM glue route of R rays on the card: the prologue (padding and
+    the super cull), K6's closest hit, the light kernel (the spheres and
+    discs, ids, normal, the shadow rays and their super cull), K6 on the
+    shadow rays and the shade kernel (the occlusion and the shading),
+    writing the AOVs of ``out`` (name -> [R, ...]): three glue launches
+    and two K6 queries. The rays: ``camera`` (as ``launch_rays_cull``
+    takes it), or ``dirs`` [R, 3] with ``origins`` [R, 3] (None: the
+    origin). Nothing returns to the host."""
+    global glue_launches
+    from .cuda.build import launch_hbm_light, launch_hbm_shade
+    from .intersect_hbm import super_walk_cuda
+
+    dev = scene.device
+    f32, i32 = torch.float32, torch.int32
+    src = (dict(camera=camera) if camera is not None
+           else dict(origins=origins, dirs=dirs))
+    counts, order, dists, rays = _inputs_cuda(scene, R, aabb=scene.saabb,
+                                              **src)
+    k6_t, k6_i, k6_n = super_walk_cuda(scene, counts, order, dists,
+                                       rays)[:3]
+    Rp = rays.shape[1]
+    srays = torch.empty((8, Rp), dtype=f32, device=dev)
+    lists = (torch.empty_like(counts), torch.empty_like(order),
+             torch.empty_like(dists))
+    hit_f = torch.empty((4, Rp), dtype=f32, device=dev)
+    hit_i = torch.empty((3, Rp), dtype=i32, device=dev)
+    light = tuple(float(np.float32(v)) for v in light_pos)
+    zero = camera is not None or origins is None
+    launch_hbm_light(scene, rays, k6_t, k6_i, k6_n, srays, *lists, hit_f,
+                     hit_i, R=R, light=light, zero_origin=zero)
+    glue_launches += 1
+    s_t, s_i = super_walk_cuda(scene, *lists, srays)[:2]
+    launch_hbm_shade(scene, rays, hit_f, hit_i, srays, s_t, s_i, out, R=R,
+                     light=light, ambient=float(np.float32(ambient)),
+                     zero_origin=zero)
+    glue_launches += 1
+
+
+def hbm_shadow_trace_cuda(scene, origins, dirs, light_pos, ambient):
+    """render/shadow.py ``shadow_trace`` of R rays on a ``"pallas-hbm"``
+    scene on the card (``origins`` [R, 3] or None for (0, 0, 0), ``dirs``
+    [R, 3] f32) as :func:`_hbm_glue`: :func:`shade`'s tuple in fresh
+    tensors, byte for byte the torch chain's."""
+    from .cuda.build import SHADE_OUTS
+
+    R = dirs.shape[0]
+    out = {k: torch.empty((R,) + shape, dtype=dt, device=dirs.device)
+           for k, (shape, dt) in SHADE_OUTS.items()}
+    if R:
+        _hbm_glue(scene, R, out, light_pos, ambient, dirs=dirs.contiguous(),
+                  origins=None if origins is None else origins.contiguous())
+    return tuple(out.values())
+
+
+def hbm_camera_chunk_cuda(scene, rows, cols, image: tuple, scale: tuple,
+                          out: dict, light_pos, ambient) -> None:
+    """One chunk of the renderer's shadow frame of a ``"pallas-hbm"`` scene
+    on the card (arguments as :func:`camera_chunk_cuda` takes them):
+    :func:`_hbm_glue` of the camera rays through the pixels (rows, cols)
+    [R], three glue launches around K6's two queries; the same bytes as
+    ``scaled_ray_dir``, render/shadow.py ``glue_shadow_trace`` and the
+    stores."""
+    f32 = np.float32
+    inv = [float(f32(1.0) / f32(n)) for n in image]
+    _hbm_glue(scene, rows.shape[0], out, light_pos, ambient,
               camera=(rows, cols, *inv, *scale))

@@ -9,12 +9,14 @@ stream on the scene's device, and its camera rays, the fused shadow
 kernel (K4) and its epilogue run there and write into per-AOV buffers
 (or, on the glue route, the closest-hit kernels K5/K6/K7/K8 twice with
 the shading between; render/shadow.py). On a CUDA scene the fused route
-and the ``"bvh"`` scene's glue route are the kernel route: a chunk is
-three launches, the prologue (camera rays and cull), K4 and the
-epilogue, which writes the chunk's rows of the buffers itself
+and the ``"bvh"`` and ``"pallas-hbm"`` scenes' glue routes are the kernel
+route: a chunk is three launches, the prologue (camera rays and cull), K4
+and the epilogue, which writes the chunk's rows of the buffers itself
 (ops/shadow.py ``camera_chunk_cuda``); through the BVH the rays, light
 and shade kernels run once a frame around K7's two walks of each chunk
-(``bvh_camera_frame_cuda``). A CPU scene runs their plain torch
+(``bvh_camera_frame_cuda``); in HBM mode a chunk is the prologue, the
+light and the shade kernels around K6's two queries
+(``hbm_camera_chunk_cuda``). A CPU scene runs their plain torch
 versions. The chunk size decides where the
 bundles of 1,024 rays fall when it is not a multiple of 1,024, so it is
 kept as in the JAX package. The requested AOVs come back as [H, W, ...]
@@ -59,8 +61,9 @@ exact. The path trace's image is rounded likewise (no clamp).
 
 On a CUDA scene the shadow frame's chunk loop is one CUDA graph when
 nothing in it returns to the host: the kernel route and no progress
-callback (so the 96 launches of a fused 1440² frame, or the 67 of a
-BVH one, become one replay). The first frame of a shape (a key: the
+callback (so the 96 launches of a fused 1440² frame, the 67 of a BVH
+one, or the 96 glue launches and 64 K6 queries of an HBM one, become one
+replay). The first frame of a shape (a key: the
 window, the image size, the chunk size, the AOV set, the intersector and
 the device) runs the loop eagerly, then captures
 it; each later frame of that shape sets the image plane's two factors,
@@ -84,6 +87,7 @@ import torch
 
 from ..bvh.builder import INVALID_GEOM_ID
 from ..ops import bvh as bvh_ops
+from ..ops import intersect_hbm as hbm_ops
 from ..ops import shadow as shadow_ops
 from ..ops.camera import (generate_camera_rays, plane_scale, scaled_ray_dir,
                           tan_half_fov)
@@ -114,8 +118,9 @@ _NP = {torch.float32: np.float32, torch.int32: np.int32}
 
 # The shadow frames ``render`` captured as a CUDA graph and replayed (each
 # replay adds its graph's K4 and glue launches to ``ops/shadow.py``'s
-# counters and its K7 launches to ``ops/bvh.py:launches``), and those whose
-# AOVs it read back in one copy to pinned memory:
+# counters, its K6 queries to ``ops/intersect_hbm.py:launches`` and its K7
+# launches to ``ops/bvh.py:launches``), and those whose AOVs it read back
+# in one copy to pinned memory:
 graph_captures = 0
 graph_replays = 0
 pinned_readbacks = 0
@@ -288,9 +293,10 @@ def _shadow_chunks(scene, params, chunk_size: int, bufs: dict, scale,
     plane's factors (sx, sy) as :func:`~..ops.camera.scaled_ray_dir` takes
     them; ``coords``: the padded stream's (rows, cols) on the scene's
     device (``PixelStream.coords``). On the kernel route (module note) a
-    chunk is three launches that write the chunk's rows of ``bufs``;
-    through the BVH the frame is the glue kernels once and K7 twice a
-    chunk, and a progress callback sees each chunk after the frame."""
+    chunk is three launches that write the chunk's rows of ``bufs`` (in
+    HBM mode three glue launches around K6's two queries); through the
+    BVH the frame is the glue kernels once and K7 twice a chunk, and a
+    progress callback sees each chunk after the frame."""
     rows, cols = coords
     kernels = _kernel_route(scene.device, fused, params.intersector)
     image = (params.image_width, params.image_height)
@@ -312,9 +318,11 @@ def _shadow_chunks(scene, params, chunk_size: int, bufs: dict, scale,
             if progress_callback is not None and "rgb" not in out:
                 out["rgb"] = torch.empty((chunk_size, 3), dtype=torch.float32,
                                          device=scene.device)
-            shadow_ops.camera_chunk_cuda(scene, rows[sl], cols[sl], image,
-                                         scale, out, DEFAULT_LIGHT_POS,
-                                         DEFAULT_AMBIENT)
+            chunk = (shadow_ops.hbm_camera_chunk_cuda
+                     if params.intersector == "pallas-hbm"
+                     else shadow_ops.camera_chunk_cuda)
+            chunk(scene, rows[sl], cols[sl], image, scale, out,
+                  DEFAULT_LIGHT_POS, DEFAULT_AMBIENT)
             rgb = out.get("rgb")
         else:
             with span("renderer.rays"):
@@ -332,10 +340,10 @@ def _shadow_chunks(scene, params, chunk_size: int, bufs: dict, scale,
 
 def _kernel_route(device: torch.device, fused: bool, intersector: str) -> bool:
     """Whether a shadow chunk runs as kernels alone (module note): a CUDA
-    scene on the fused K4 route, or built for ``"bvh"`` (whose glue route
-    ignores ``fused``)."""
-    return device.type == "cuda" and (intersector == "bvh" or (
-        fused and intersector == "pallas"))
+    scene on the fused K4 route, or built for ``"bvh"`` or
+    ``"pallas-hbm"`` (whose glue routes ignore ``fused``)."""
+    return device.type == "cuda" and (intersector in ("bvh", "pallas-hbm")
+                                      or (fused and intersector == "pallas"))
 
 
 def _graph_route(device: torch.device, fused: bool, intersector: str,
@@ -350,14 +358,15 @@ class _FrameGraph(NamedTuple):
     """A captured shadow frame: the image plane's factors (0-d f32 on the
     card) and the stream's padded coordinates (its inputs: held here, as
     the stream cache may drop them), the AOV buffers (its outputs), the
-    graph, the K4, K7 and glue-kernel launches it replays and the
-    capture's ms."""
+    graph, the K4, K6 (queries), K7 and glue-kernel launches it replays
+    and the capture's ms."""
 
     scale: tuple
     coords: tuple
     bufs: dict
     graph: object
     k4_launches: int
+    k6_launches: int
     k7_launches: int
     glue_launches: int
     capture_ms: float
@@ -394,6 +403,7 @@ def _replayed_frame(scene, params, chunk_size: int, fields, scale) -> dict:
                 t.fill_(v)
             fg.graph.replay()
         shadow_ops.launches += fg.k4_launches
+        hbm_ops.launches += fg.k6_launches
         bvh_ops.launches += fg.k7_launches
         shadow_ops.glue_launches += fg.glue_launches
         graph_replays += 1
@@ -406,19 +416,21 @@ def _replayed_frame(scene, params, chunk_size: int, fields, scale) -> dict:
                for v in scale)
     body = lambda: _shadow_chunks(scene, params, chunk_size, bufs, sc, coords)
     body()
-    n0 = (shadow_ops.launches, bvh_ops.launches, shadow_ops.glue_launches)
+    n0 = (shadow_ops.launches, hbm_ops.launches, bvh_ops.launches,
+          shadow_ops.glue_launches)
     with span("renderer.capture"):
         graph, ms = _capture(body, dev)
     fg = _FrameGraph(sc, coords, bufs, graph, shadow_ops.launches - n0[0],
-                     bvh_ops.launches - n0[1],
-                     shadow_ops.glue_launches - n0[2], ms)
+                     hbm_ops.launches - n0[1], bvh_ops.launches - n0[2],
+                     shadow_ops.glue_launches - n0[3], ms)
     # a capture launches nothing
-    shadow_ops.launches, bvh_ops.launches, shadow_ops.glue_launches = n0
+    (shadow_ops.launches, hbm_ops.launches, bvh_ops.launches,
+     shadow_ops.glue_launches) = n0
     graph_captures += 1
-    logger().info("Shadow frame %dx%d captured as a CUDA graph: %d K4, %d K7 "
-                  "and %d glue launches, %.1f ms", params.window_w,
-                  params.window_h, fg.k4_launches, fg.k7_launches,
-                  fg.glue_launches, ms)
+    logger().info("Shadow frame %dx%d captured as a CUDA graph: %d K4, %d K6, "
+                  "%d K7 and %d glue launches, %.1f ms", params.window_w,
+                  params.window_h, fg.k4_launches, fg.k6_launches,
+                  fg.k7_launches, fg.glue_launches, ms)
     cache[key] = fg
     while len(cache) > GRAPH_KEYS:
         cache.popitem(last=False)
@@ -439,8 +451,8 @@ def render(scene, params, mode: str = "shadow-trace",
 
     ``fused`` (shadow trace): the fused shadow kernel on a VMEM-mode scene;
     False, or a ``pallas-hbm`` scene, takes the glue route through the
-    closest-hit kernels (render/shadow.py); a ``"bvh"`` or ``"dense"``
-    scene takes its glue route either way.
+    closest-hit kernels (render/shadow.py); a ``"pallas-hbm"``, ``"bvh"``
+    or ``"dense"`` scene takes its glue route either way.
 
     ``aovs`` limits which shadow-trace AOVs are read back (None: all); the
     others come back filled. ``progress_callback(index, rgb)`` fires as

@@ -13,8 +13,10 @@ the full AOV set. Two routes, chosen as the JAX package chooses them
   through the same kernel (K7's any-hit walk for ``"bvh"``), and the
   shading. On a ``"bvh"`` scene on the card that is five launches, the
   glue as three kernels around K7's two walks (ops/shadow.py
-  ``bvh_shadow_trace_cuda``); elsewhere :func:`glue_shadow_trace`, the
-  torch chain, which also checks those kernels. It records, under a
+  ``bvh_shadow_trace_cuda``); on a ``"pallas-hbm"`` scene on the card,
+  three glue kernels around K6's two queries (``hbm_shadow_trace_cuda``);
+  elsewhere :func:`glue_shadow_trace`, the torch chain, which also checks
+  those kernels. It records, under a
   profiler, the spans ``renderer.hit`` (the closest hit and its normal),
   ``renderer.occlusion`` (the light ray, its offset origin and the
   any-hit query) and ``renderer.shade`` (utils/profiling.py).
@@ -32,7 +34,7 @@ import torch
 
 from ..ops.bxdf_loop import offset_ray_origin
 from ..ops.shadow import (bvh_shadow_trace_cuda, fused_shadow_trace,
-                          light_ray, shade)
+                          hbm_shadow_trace_cuda, light_ray, shade)
 from ..ops.traversal import scene_intersect_with_normal, scene_occluded
 from ..utils.profiling import span
 
@@ -66,6 +68,9 @@ def shadow_trace(scene, origins, dirs: torch.Tensor,
     if intersector == "bvh" and scene.device.type == "cuda":
         return TraceResultSoA(*bvh_shadow_trace_cuda(scene, origins, dirs,
                                                      light_pos, ambient))
+    if intersector == "pallas-hbm" and scene.device.type == "cuda":
+        return TraceResultSoA(*hbm_shadow_trace_cuda(scene, origins, dirs,
+                                                     light_pos, ambient))
     return glue_shadow_trace(scene, origins, dirs, light_pos, ambient,
                              intersector)
 
@@ -76,8 +81,8 @@ def glue_shadow_trace(scene, origins, dirs: torch.Tensor,
                       intersector: str = "pallas") -> TraceResultSoA:
     """The glue route in torch around the closest-hit and any-hit kernels
     of ``intersector`` (their plain versions on a CPU scene), with its
-    spans: :func:`shadow_trace`'s route for every scene but a ``"bvh"``
-    scene on the card, whose kernels it checks there."""
+    spans: :func:`shadow_trace`'s route for every scene but a ``"bvh"`` or
+    ``"pallas-hbm"`` scene on the card, whose kernels it checks there."""
     R = dirs.shape[0]
     dev = dirs.device
     t_min = torch.zeros(R, dtype=torch.float32, device=dev)

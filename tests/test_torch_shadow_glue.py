@@ -43,6 +43,7 @@ import torch
 
 import ipu_ray_lib_tpu_torch.render.renderer as R
 from ipu_ray_lib_tpu_torch.ops import bvh as kb
+from ipu_ray_lib_tpu_torch.ops import intersect_hbm as IH
 from ipu_ray_lib_tpu_torch.ops import shadow as sh
 from ipu_ray_lib_tpu_torch.ops.camera import (plane_scale, scaled_ray_dir,
                                               tan_half_fov)
@@ -98,7 +99,10 @@ def _box(dev="cpu", w=48, h=32, monkey=None, intersector="pallas"):
     ("cuda:0", True, "pallas", True),
     ("cpu", True, "pallas", False),
     ("cuda", False, "pallas", False),
-    ("cuda", True, "pallas-hbm", False),
+    ("cuda", True, "pallas-hbm", True),
+    ("cuda", False, "pallas-hbm", True),
+    ("cpu", True, "pallas-hbm", False),
+    ("cpu", False, "pallas-hbm", False),
     ("cuda", True, "bvh", True),
     ("cuda", False, "bvh", True),
     ("cpu", True, "bvh", False),
@@ -121,10 +125,12 @@ def _no_kernels(monkeypatch):
 
     for name in ("camera_chunk_cuda", "shadow_inputs_cuda",
                  "camera_inputs_cuda", "shade_cuda", "shadow_trace_cuda",
-                 "bvh_camera_frame_cuda", "bvh_shadow_trace_cuda"):
+                 "bvh_camera_frame_cuda", "bvh_shadow_trace_cuda",
+                 "hbm_camera_chunk_cuda", "hbm_shadow_trace_cuda"):
         monkeypatch.setattr(sh, name, refuse)
     for name in ("bvh_walk_cuda", "bvh_walk_raw"):
         monkeypatch.setattr(kb, name, refuse)
+    monkeypatch.setattr(IH, "super_walk_cuda", refuse)
     monkeypatch.setattr(build, "load", refuse)
 
 
@@ -173,6 +179,34 @@ def test_cpu_bvh_scene_renders_through_the_plain_functions(monkeypatch,
     for o in (None, torch.full_like(d, 0.25)):
         res = shadow_trace(scene, o, d, intersector="bvh")
         want = glue_shadow_trace(scene, o, d, intersector="bvh")
+        assert all(_bytes(a) == _bytes(b) for a, b in zip(res, want))
+
+
+@pytest.mark.parametrize("callback", [False, True], ids=["plain", "callback"])
+def test_cpu_hbm_scene_renders_through_the_plain_functions(monkeypatch,
+                                                           callback):
+    """A CPU scene in HBM mode keeps the glue route's torch chain
+    (``glue_shadow_trace``, K6's plain walk), replays nothing and equals
+    the golden."""
+    _no_kernels(monkeypatch)
+    scene, params = _box(intersector="pallas-hbm")
+    sh.reset_launches()
+    IH.reset_launches()
+    seen = []
+    out = R.render(scene, params, chunk_size=512, progress_callback=(
+        (lambda i, rgb: seen.append(i)) if callback else None))
+    assert sh.launches == sh.glue_launches == IH.launches == 0
+    assert seen == (list(range(3)) if callback else [])
+    golden = np.load(GOLDEN)
+    for k in FIELDS:
+        assert getattr(out, k).tobytes() == golden[k].tobytes(), k
+    assert "_frame_graphs" not in scene.__dict__
+    rows, cols = (t[:600] for t in pixel_stream(params).coords(
+        scene.device, 48 * 32))
+    d = scaled_ray_dir(cols, rows, 48, 32, *_scale(params))
+    for o in (None, torch.full_like(d, 0.25)):
+        res = shadow_trace(scene, o, d, intersector="pallas-hbm", fused=False)
+        want = glue_shadow_trace(scene, o, d, intersector="pallas-hbm")
         assert all(_bytes(a) == _bytes(b) for a, b in zip(res, want))
 
 
@@ -319,6 +353,84 @@ def test_bvh_kernel_route_equals_the_plain_route(bvh_kernel_route, aovs,
     assert kb.launches == 4 * 2 * n_chunks and sh.launches == 0
     for out in [eager] + frames:
         assert _same(out, want)
+
+
+@pytest.fixture
+def hbm_kernel_route(monkeypatch):
+    """The kernel_route fixture for a "pallas-hbm" scene: its chunk
+    function stood in for by the glue route's torch chain (counting the
+    three glue launches and two K6 queries a chunk the kernels would
+    make); yields the chunks it ran."""
+    route, made = R._kernel_route, []
+
+    def chunk(scene, rows, cols, image, scale, out, light, ambient):
+        made.append(rows.shape[0])
+        d = scaled_ray_dir(cols, rows, *image, *scale)
+        res = glue_shadow_trace(scene, None, d, light, ambient, "pallas-hbm")
+        for k, t in out.items():
+            t.copy_(getattr(res, k))
+        sh.glue_launches += 3
+        IH.launches += 2
+
+    def capture(body, dev):
+        body()
+
+        def replay():
+            n = sh.glue_launches, IH.launches
+            body()
+            sh.glue_launches, IH.launches = n
+
+        return types.SimpleNamespace(replay=replay), 0.0
+
+    monkeypatch.setattr(R, "_kernel_route", lambda device, *a: route(
+        torch.device("cuda") if device.type == "cpu" else device, *a))
+    monkeypatch.setattr(sh, "hbm_camera_chunk_cuda", chunk)
+    monkeypatch.setattr(sh, "camera_chunk_cuda", None)
+    monkeypatch.setattr(sh, "bvh_camera_frame_cuda", None)
+    monkeypatch.setattr(R, "_capture", capture)
+    sh.reset_launches()
+    IH.reset_launches()
+    R.reset_counters()
+    return made
+
+
+@pytest.mark.parametrize("fused", [True, False], ids=["fused", "unfused"])
+@pytest.mark.parametrize("aovs", [None, ("normal",), ("rgb", "t")],
+                         ids=["all", "normal", "rgb-t"])
+def test_hbm_kernel_route_equals_the_plain_route(hbm_kernel_route, aovs,
+                                                 fused):
+    scene, params = _box(intersector="pallas-hbm")
+    p = _zoomed(params, 0.99)
+    chunk = 512
+    n_chunks = -(-48 * 32 // chunk)
+    want_rgb, got_rgb = [], []
+    with pytest.MonkeyPatch.context() as m:  # the plain route
+        m.setattr(R, "_kernel_route", lambda *a: False)
+        want = R.render(scene, p, chunk_size=chunk, aovs=aovs,
+                        progress_callback=lambda i, rgb: want_rgb.append(rgb))
+    assert not hbm_kernel_route
+    IH.reset_launches()
+    # the eager loop, fused or not: its progress callback gets each
+    # chunk's rgb, also when rgb is not among the AOVs read back
+    eager = R.render(scene, p, chunk_size=chunk, aovs=aovs, fused=fused,
+                     progress_callback=lambda i, rgb: got_rgb.append(rgb))
+    assert hbm_kernel_route == [chunk] * n_chunks
+    assert [a.tobytes() for a in got_rgb] == [a.tobytes() for a in want_rgb]
+    # the graph route: a capture, then replays, each adding the frame's
+    # glue launches (three a chunk) and K6 queries (two a chunk)
+    frames = [R.render(scene, p, chunk_size=chunk, aovs=aovs, fused=fused)
+              for _ in range(3)]
+    assert (R.graph_captures, R.graph_replays) == (1, 2)
+    fg = next(iter(scene._frame_graphs.values()))
+    assert (fg.k4_launches, fg.k6_launches, fg.k7_launches,
+            fg.glue_launches) == (0, 2 * n_chunks, 0, 3 * n_chunks)
+    # the eager frame, the capture's eager frame and two replays
+    assert sh.glue_launches == 4 * 3 * n_chunks
+    assert IH.launches == 4 * 2 * n_chunks and sh.launches == 0
+    for out in [eager] + frames:
+        assert _same(out, want)
+    key = next(iter(scene._frame_graphs))
+    assert key[-1] == "pallas-hbm"
 
 
 def test_graph_key_holds_the_intersector(bvh_kernel_route):
@@ -501,6 +613,99 @@ def test_bvh_wrappers_refuse_scenes_and_aovs_without_launching(no_launch):
         build.launch_bvh_rays(a["t_min"], a["t_max"], dirs=a["dirs"])
 
 
+def _hbm_args(R_=600):
+    f32, i32 = torch.float32, torch.int32
+    Rp, ns = 1024, 1
+    return dict(rays=torch.zeros((8, Rp)), k6_t=torch.zeros(Rp),
+                k6_i=torch.zeros(Rp, dtype=i32), k6_n=torch.zeros((8, Rp)),
+                srays=torch.zeros((8, Rp)), counts=torch.zeros(1, dtype=i32),
+                order=torch.zeros((1, ns), dtype=i32),
+                dists=torch.zeros((1, ns), dtype=f32),
+                hit_f=torch.zeros((4, Rp)), hit_i=torch.zeros((3, Rp),
+                                                             dtype=i32),
+                R_=R_)
+
+
+def _hbm_light(a, scene):
+    build.launch_hbm_light(scene, a["rays"], a["k6_t"], a["k6_i"], a["k6_n"],
+                           a["srays"], a["counts"], a["order"], a["dists"],
+                           a["hit_f"], a["hit_i"], R=a["R_"], light=LIGHT,
+                           zero_origin=True)
+
+
+def _hbm_shade(a, scene, outs=None):
+    build.launch_hbm_shade(scene, a["rays"], a["hit_f"], a["hit_i"],
+                           a["srays"], a["k6_t"], a["k6_i"],
+                           _shade_outs(a["R_"]) if outs is None else outs,
+                           R=a["R_"], light=LIGHT, ambient=AMBIENT,
+                           zero_origin=True)
+
+
+HBM_FAULTS = {
+    "light-device": (_hbm_light, {}, "must be a CUDA tensor"),
+    "light-k6-dtype": (_hbm_light, {"k6_i": torch.zeros(1024)},
+                       "k6_i must be torch.int32"),
+    "light-lists": (_hbm_light, {"order": torch.zeros((1, 2),
+                                                      dtype=torch.int32)},
+                    "order must have shape"),
+    "light-hit": (_hbm_light, {"hit_i": torch.zeros((4, 1024),
+                                                    dtype=torch.int32)},
+                  "hit_i must have shape"),
+    "light-contiguous": (_hbm_light, {"srays": torch.zeros((1024, 8)).t()},
+                         "srays must be contiguous"),
+    "light-rays": (_hbm_light, {"R_": 1025}, "do not fill"),
+    "light-padding": (_hbm_light, {"R_": 0}, "do not fill"),
+    "shade-device": (_hbm_shade, {}, "must be a CUDA tensor"),
+    "shade-k6-shape": (_hbm_shade, {"k6_t": torch.zeros(1023)},
+                       "k6_t must have shape"),
+    "shade-hit-dtype": (_hbm_shade, {"hit_f": torch.zeros((4, 1024),
+                                                          dtype=torch.int32)},
+                        "hit_f must be torch.float32"),
+    "shade-rays": (_hbm_shade, {"R_": 1025}, "do not fill"),
+}
+
+
+@pytest.mark.parametrize("fault", list(HBM_FAULTS))
+def test_hbm_wrappers_raise_without_launching(no_launch, fault):
+    scene, _ = _box(intersector="pallas-hbm")
+    fn, change, match = HBM_FAULTS[fault]
+    a = dict(_hbm_args(), **change)
+    with pytest.raises(ValueError, match=match):
+        fn(a, scene)
+
+
+def test_hbm_shade_wrapper_refuses_aovs_without_launching(no_launch):
+    scene, _ = _box(intersector="pallas-hbm")
+    a = _hbm_args()
+    with pytest.raises(ValueError, match="no such AOV"):
+        _hbm_shade(a, scene, dict(_shade_outs(600),
+                                  albedo=torch.empty((600, 3))))
+    with pytest.raises(ValueError, match="escaped must be torch.bool"):
+        _hbm_shade(a, scene, {"escaped": torch.empty(600, dtype=torch.uint8)})
+    with pytest.raises(ValueError, match="rgb must have shape"):
+        _hbm_shade(a, scene, {"rgb": torch.empty((599, 3))})
+
+
+def test_hbm_public_functions_on_cpu_tensors_launch_nothing(no_launch):
+    scene, params = _box(intersector="pallas-hbm")
+    sh.reset_launches()
+    IH.reset_launches()
+    d = torch.ones((600, 3))
+    for o in (None, torch.zeros((600, 3))):
+        with pytest.raises(ValueError, match="CUDA tensor"):
+            sh.hbm_shadow_trace_cuda(scene, o, d, LIGHT, AMBIENT)
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        sh.hbm_camera_chunk_cuda(scene, d[:, 0].contiguous(),
+                                 d[:, 1].contiguous(), (48, 32),
+                                 _scale(params), {}, LIGHT, AMBIENT)
+    assert sh.glue_launches == sh.launches == IH.launches == 0
+    # no ray: nothing to launch, empty AOVs
+    got = sh.hbm_shadow_trace_cuda(scene, None, torch.ones((0, 3)), LIGHT,
+                                   AMBIENT)
+    assert [t.shape[0] for t in got] == [0] * len(SHADE_FIELDS)
+    assert sh.glue_launches == IH.launches == 0
+
+
 def test_bvh_scene_tables_are_checked_once_a_scene(monkeypatch):
     """The light and shade launchers check a scene's fixed tables at its
     first launch only, and again once a table is another tensor."""
@@ -519,6 +724,32 @@ def test_bvh_scene_tables_are_checked_once_a_scene(monkeypatch):
     scene.mat_albedo = scene.mat_albedo.float()[:0]
     with pytest.raises(ValueError, match="mat_albedo is empty"):
         build._scene_tables(scene, build._BVH_MAT)
+
+
+@pytest.mark.parametrize("intersector", ["pallas", "pallas-hbm"])
+def test_shade_tables_are_checked_once_a_scene(monkeypatch, intersector):
+    """The epilogue's and the HBM glue kernels' id and material tables are
+    checked at a scene's first launch only; the counts they must agree on,
+    at every launch."""
+    scene, _ = _box(intersector=intersector)
+    seen = []
+    monkeypatch.setattr(build, "_on_card", lambda **ts: seen.append(set(ts)))
+    for _ in range(3):
+        got = build._shade_tables(scene)
+        assert list(got) == list(build._SHADE_TABLES)
+        assert all(got[k] is getattr(scene, k) for k in got)
+    assert seen == [set(build._SHADE_TABLES)]
+    ap = scene.ap
+    scene.ap = ap[:scene.sphere_geom.shape[0] + scene.disc_geom.shape[0] - 1]
+    with pytest.raises(ValueError, match="exceed its ap rows"):
+        build._shade_tables(scene)
+    scene.ap = ap
+    scene.tri_prim = scene.tri_prim[1:]
+    with pytest.raises(ValueError, match="differ in length"):
+        build._shade_tables(scene)
+    scene.tri_prim = scene.tri_prim.float()
+    with pytest.raises(ValueError, match="tri_prim must be torch.int32"):
+        build._shade_tables(scene)
 
 
 def test_bvh_public_functions_on_cpu_tensors_launch_nothing(no_launch):

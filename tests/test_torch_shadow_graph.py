@@ -130,7 +130,10 @@ def test_frame_body_with_tensor_factors_equals_render(box, eager, zi):
     ("cuda", True, "pallas", None, 768, 416, True),
     ("cpu", True, "pallas", None, 1440, 1440, False),
     ("cuda", False, "pallas", None, 1440, 1440, False),
-    ("cuda", True, "pallas-hbm", None, 1440, 1440, False),
+    ("cuda", True, "pallas-hbm", None, 1440, 1440, True),
+    ("cuda", False, "pallas-hbm", None, 1440, 1440, True),
+    ("cuda", True, "pallas-hbm", print, 1440, 1440, False),
+    ("cpu", True, "pallas-hbm", None, 1440, 1440, False),
     ("cuda", True, "bvh", None, 1440, 1440, True),
     ("cuda", False, "bvh", None, 1440, 1440, True),
     ("cuda", True, "bvh", print, 1440, 1440, False),
